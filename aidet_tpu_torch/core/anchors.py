@@ -1,7 +1,7 @@
-"""Grid anchors with mmdet-v1 semantics.
+"""Grid anchors with mmdet-v1 semantics, and the RPN's anchor targets.
 
-Port of `AnchorGenerator` and `build_pyramid_anchors` from
-`aidet_tpu/core/anchors.py`.  The anchors of one level are ordered
+Port of `AnchorGenerator`, `build_pyramid_anchors`, `AnchorTargets`
+and `anchor_target` from `aidet_tpu/core/anchors.py`.  The anchors of one level are ordered
 row-major over the grid with the anchor index fastest, i.e. the
 (h, w, anchor) order of an NHWC head output flattened by
 `models.heads.anchor_head.flatten_level_outputs`.
@@ -9,10 +9,14 @@ row-major over the grid with the anchor index fastest, i.e. the
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from .assign import max_iou_assign
+from .boxes import bbox2delta
+from .sample import random_sample_masks
 
 
 class AnchorGenerator:
@@ -71,3 +75,60 @@ def build_pyramid_anchors(img_size: int, strides: Sequence[int],
         sizes.append(a.shape[0])
     return (torch.from_numpy(np.concatenate(anchors, 0)).to(device),
             sizes)
+
+
+class AnchorTargets(NamedTuple):
+    """Anchor targets of a batch, [B, A, ...]."""
+    labels: torch.Tensor         # [B, A] int32 (0 = bg, 1..C = fg class)
+    label_weights: torch.Tensor  # [B, A]
+    bbox_targets: torch.Tensor   # [B, A, 4]
+    bbox_weights: torch.Tensor   # [B, A, 4]
+    num_total_pos: torch.Tensor  # scalar
+    num_total_neg: torch.Tensor  # scalar
+
+
+def anchor_target(anchors, gt_boxes, gt_valid, img_shapes,
+                  generator: torch.Generator, gt_labels=None,
+                  target_means=(0., 0., 0., 0.),
+                  target_stds=(1., 1., 1., 1.), allowed_border=0.0,
+                  pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
+                  num_samples=256, pos_fraction=0.5, neg_pos_ub=-1.0,
+                  pos_weight=-1.0) -> AnchorTargets:
+    """Anchor targets of RPN-style heads: the inside-border filter
+    (when allowed_border >= 0), MaxIoU assignment, random sampling,
+    delta regression targets on the sampled positives, and per-image
+    max(count, 1) totals.
+
+    anchors [A, 4]; gt_boxes [B, G, 4]; gt_valid [B, G]; img_shapes
+    [B, 2] (h, w); gt_labels [B, G] 1-based, or None for a binary RPN.
+    """
+    b = gt_boxes.shape[0]
+    if allowed_border >= 0:
+        h = img_shapes[:, 0:1]
+        w = img_shapes[:, 1:2]
+        inside = ((anchors[:, 0] >= -allowed_border)
+                  & (anchors[:, 1] >= -allowed_border)
+                  & (anchors[:, 2] < w + allowed_border)
+                  & (anchors[:, 3] < h + allowed_border))    # [B, A]
+    else:
+        inside = torch.ones(b, anchors.shape[0], dtype=torch.bool,
+                            device=anchors.device)
+    batch_anchors = anchors.expand(b, -1, -1)
+    res = max_iou_assign(batch_anchors, gt_boxes, gt_valid, gt_labels,
+                         pos_iou_thr=pos_iou_thr, neg_iou_thr=neg_iou_thr,
+                         min_pos_iou=min_pos_iou, box_valid=inside)
+    sm = random_sample_masks(res.gt_inds, num_samples, pos_fraction,
+                             generator, neg_pos_ub)
+
+    safe_gt = (res.gt_inds.long() - 1).clamp(0, gt_boxes.shape[1] - 1)
+    matched = torch.gather(gt_boxes, 1, safe_gt[..., None].expand(-1, -1, 4))
+    deltas = bbox2delta(batch_anchors, matched, target_means, target_stds)
+    posf = sm.pos.float()
+    pw = 1.0 if pos_weight <= 0 else pos_weight
+    return AnchorTargets(
+        labels=torch.where(sm.pos, res.labels, 0),
+        label_weights=posf * pw + sm.neg.float(),
+        bbox_targets=deltas * posf[..., None],
+        bbox_weights=posf[..., None].expand_as(deltas),
+        num_total_pos=sm.num_pos.clamp(min=1).sum(),
+        num_total_neg=sm.num_neg.clamp(min=1).sum())

@@ -1,8 +1,9 @@
 """Horizontal box (HBB) geometry with the mmdet-v1 legacy "+1"
 convention: a box [x1, y1, x2, y2] has width x2 - x1 + 1.
 
-Port of `aidet_tpu/core/boxes.py` (bbox_wh, bbox_center, delta2bbox).
-Boxes are float tensors [..., 4].
+Port of `aidet_tpu/core/boxes.py` (bbox_wh, bbox_area, bbox_center,
+bbox2delta, delta2bbox, bbox_overlaps).  Boxes are float tensors
+[..., 4].
 """
 
 from __future__ import annotations
@@ -21,10 +22,27 @@ def bbox_wh(boxes: torch.Tensor):
     return w, h
 
 
+def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
+    w, h = bbox_wh(boxes)
+    return w * h
+
+
 def bbox_center(boxes: torch.Tensor):
     cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
     cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
     return cx, cy
+
+
+def bbox2delta(proposals: torch.Tensor, gt: torch.Tensor,
+               means=(0., 0., 0., 0.), stds=(1., 1., 1., 1.)):
+    """Encode gt boxes as (dx, dy, dw, dh) deltas against proposals."""
+    px, py = bbox_center(proposals)
+    pw, ph = bbox_wh(proposals)
+    gx, gy = bbox_center(gt)
+    gw, gh = bbox_wh(gt)
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
 
 
 def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
@@ -70,3 +88,22 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
         x2 = torch.minimum(x2.clamp(min=0), wmax)
         y2 = torch.minimum(y2.clamp(min=0), hmax)
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(shape)
+
+
+def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                  mode: str = "iou", aligned: bool = False):
+    """Pairwise IoU ('iou') or intersection over the area of boxes1
+    ('iof') with the legacy +1 sizes: [..., N, 4] x [..., M, 4] ->
+    [..., N, M], or [..., N] when ``aligned``."""
+    if mode not in ("iou", "iof"):
+        raise ValueError(mode)
+    if not aligned:
+        boxes1 = boxes1[..., :, None, :]
+        boxes2 = boxes2[..., None, :, :]
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt + LEGACY_OFFSET).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area1 = bbox_area(boxes1)
+    union = area1 + bbox_area(boxes2) - inter if mode == "iou" else area1
+    return inter / union.clamp(min=torch.finfo(inter.dtype).tiny)

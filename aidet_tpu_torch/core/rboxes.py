@@ -74,3 +74,8 @@ def delta2thetaobb(rois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
     gh = ph * torch.exp(dh)
     gtheta = dtheta + (-HALF_PI)
     return torch.stack([gx, gy, gw, gh, gtheta], dim=-1).reshape(shape)
+
+
+# the ported codecs (the reference's RBBOX_CODECS): name -> (regression
+# dims, encode, decode); pointobb and hobb are not ported
+RBBOX_CODECS = {"thetaobb": (5, thetaobb2delta, delta2thetaobb)}

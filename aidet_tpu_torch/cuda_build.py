@@ -44,7 +44,7 @@ def find_nvcc() -> str:
 
 def build_shared_library(source: Path) -> BuildResult:
     """nvcc ``source`` for sm_90a into a shared library (or reuse it)."""
-    source = Path(source)
+    source = Path(source).resolve()
     digest = hashlib.sha1(source.read_bytes()
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"

@@ -11,6 +11,17 @@
 - small (``small=True``): ResNet-18, 64 channels, 128-wide FCs and
   caps 128 / 64 / 64 / 16, in float32, for the CPU tests.
 
+Both carry the reference's train_cfg: `DEFAULT_TRAIN_CFG` for the full
+model (the flagship train step of `bench.py`), rpn_proposal
+128 / 64 / 64 and 16 RoI samples for the small one.
+
+``train=False`` builds the predict model: every parameter in the
+compute dtype.  ``train=True`` builds the trainer's model, with the
+reference's mixed precision: flax keeps parameters in float32 and
+computes in the modules' dtype, so here the parameters stay float32
+and `TwoStageDetector.loss` computes convolutions and FCs in
+``compute_dtype`` (bfloat16 for the full model) under autocast.
+
 Weights are random, drawn from a seeded `torch.Generator` (or loaded
 later from converted reference weights, see `aidet_tpu_torch.convert`).
 """
@@ -19,11 +30,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from .models.backbones.resnet import ResNet
-from .models.detectors.two_stage import TwoStageDetector
+from .models.detectors.two_stage import TwoStageDetector, _merge
 from .models.heads.bbox_head import RBBoxHead, SharedFCBBoxHead
 from .models.heads.rpn_head import RPNHead
 from .models.necks.fpn import FPN
@@ -45,10 +57,13 @@ def init_weights(model: nn.Module, generator: torch.Generator):
 
 
 def build_flagship(img_size: int, small: bool = False, device="cuda",
-                   dtype=None, seed: int = 0) -> TwoStageDetector:
-    """The flagship detector on ``device`` in ``dtype`` (default:
-    bfloat16 for the full model, float32 for the small one), with random
-    weights from ``torch.Generator().manual_seed(seed)``."""
+                   dtype=None, seed: int = 0, train: bool = False,
+                   train_cfg=None) -> TwoStageDetector:
+    """The flagship detector on ``device``, computing in ``dtype``
+    (default: bfloat16 for the full model, float32 for the small one),
+    with random weights from ``torch.Generator().manual_seed(seed)``.
+    Parameters are in ``dtype`` too, unless ``train``: then they stay
+    float32.  ``train_cfg`` overrides the flagship's train_cfg."""
     if small:
         backbone = ResNet(depth=18)
         neck = FPN(in_channels=(64, 128, 256, 512), out_channels=64,
@@ -60,6 +75,9 @@ def build_flagship(img_size: int, small: bool = False, device="cuda",
                           fc_out_channels=128, encode="thetaobb")
         test_cfg = dict(rpn=dict(nms_pre=128, nms_post=64, max_num=64),
                         rcnn=dict(max_per_img=16))
+        flagship_train_cfg = dict(
+            rpn_proposal=dict(nms_pre=128, nms_post=64, max_num=64),
+            rcnn=dict(num_samples=16))
         dtype = dtype or torch.float32
     else:
         backbone = ResNet(depth=50, stem_space_to_depth=True)
@@ -70,13 +88,56 @@ def build_flagship(img_size: int, small: bool = False, device="cuda",
         test_cfg = dict(rpn=dict(nms_pre=2000, nms_post=1000,
                                  max_num=1000),
                         rcnn=dict(max_per_img=100))
+        flagship_train_cfg = None
         dtype = dtype or torch.bfloat16
-    model = TwoStageDetector(backbone, neck, rpn, bbox, rbbox,
-                             img_size=img_size, test_cfg=test_cfg)
+    model = TwoStageDetector(
+        backbone, neck, rpn, bbox, rbbox, img_size=img_size,
+        train_cfg=_merge(flagship_train_cfg or {}, train_cfg),
+        test_cfg=test_cfg, compute_dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
-    model = model.to(device=device, dtype=dtype).eval()
+    model = model.to(device=device,
+                     dtype=torch.float32 if train else dtype).eval()
     if torch.device(device).type == "cuda":
         # NHWC convolutions: the permuted views the modules pass around
         # are then contiguous and cuDNN runs its channels-last kernels
         model = model.to(memory_format=torch.channels_last)
     return model
+
+
+def keep_every_candidate_cfg(img_size: int, num_gts: int,
+                             max_num: int) -> dict:
+    """A train_cfg under which both samplers keep every candidate: the
+    RPN samples up to 2x the anchor count at pos_fraction 0.5, and the
+    RoI sampler takes all num_gts + max_num candidates (gts and
+    proposals) at pos_fraction 1.0.  The samples are then the same sets
+    in the same order whatever the random stream, so two runs (two
+    devices, or this port and the reference) can be compared step for
+    step.  ``max_num`` is the train_cfg's rpn_proposal max_num."""
+    anchors = 3 * sum((img_size // s) ** 2
+                      for s in TwoStageDetector.strides)
+    return dict(rpn=dict(num_samples=2 * anchors, pos_fraction=0.5),
+                rcnn=dict(num_samples=num_gts + max_num,
+                          pos_fraction=1.0))
+
+
+def synthetic_train_batch(batch, img, max_gt, seed, device):
+    """A seeded batch of `TwoStageDetector.loss`'s inputs like the
+    reference bench's (bench.py measure_train): normalized float images
+    and ``max_gt`` valid gts per image, boxes of 1/64 to 5/32 of the
+    image with matching thetaobbs, labels 1..15."""
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(img / 32, img * 0.8, (batch, max_gt, 2))
+    wh = rs.uniform(img / 64, img * 5 / 32, (batch, max_gt, 2))
+    theta = rs.uniform(-1.5, -0.01, (batch, max_gt, 1))
+    arrays = dict(
+        imgs=rs.randn(batch, img, img, 3),
+        gt_boxes=np.concatenate([xy, xy + wh], -1),
+        gt_rboxes=np.concatenate([xy + wh / 2, wh, theta], -1),
+        gt_valid=np.ones((batch, max_gt), bool),
+        gt_labels=rs.randint(1, 16, (batch, max_gt)),
+        img_shapes=np.full((batch, 2), float(img)))
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(v)
+        out[k] = (t.float() if t.is_floating_point() else t).to(device)
+    return out

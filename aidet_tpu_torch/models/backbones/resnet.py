@@ -1,10 +1,10 @@
 """ResNet backbone with frozen batch-norm.
 
 Port of `aidet_tpu/models/backbones/resnet.py` (FrozenBN, BasicBlock,
-Bottleneck, ResNet) for inference at the flagship's settings:
-pytorch-style bottlenecks (stride on the 3x3), stage strides
-(1, 2, 2, 2), symmetric padding (k - 1) // 2 as in its `conv`, and the
-optional space-to-depth stem.  Submodule names follow the reference's
+Bottleneck, ResNet) at the flagship's settings: pytorch-style
+bottlenecks (stride on the 3x3), stage strides (1, 2, 2, 2), symmetric
+padding (k - 1) // 2 as in its `conv`, the optional space-to-depth
+stem, and `frozen_stages`.  Submodule names follow the reference's
 parameter tree (`stem_conv`, `layer1_block0.conv1`, ...),
 so `aidet_tpu_torch.convert` maps weights one to one.
 
@@ -110,12 +110,20 @@ class ResNet(nn.Module):
     weight.  The reference's `stem_s2d_phase` variant is the same math
     over the same weight, relaid for the TPU's matrix unit, and needs no
     port of its own.
+
+    frozen_stages=k detaches the stem's output and the output of each
+    of the first k stages, as the reference's stop_gradients
+    (resnet.py:264-268, :306-307).  Their parameters then get no
+    gradient; the train step gives them the reference's zero gradient,
+    so weight decay and momentum still move them.
     """
 
-    def __init__(self, depth=50, stem_space_to_depth=False):
+    def __init__(self, depth=50, stem_space_to_depth=False,
+                 frozen_stages=1):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.stem_space_to_depth = stem_space_to_depth
+        self.frozen_stages = frozen_stages
         if stem_space_to_depth:
             self.stem_conv = nn.Conv2d(12, BASE_CHANNELS, 4, bias=False)
         else:
@@ -149,9 +157,13 @@ class ResNet(nn.Module):
             x = self.stem_conv(x.permute(0, 3, 1, 2))
         x = F.relu(self.stem_bn(x))
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
-        for names in self.stage_names:
+        for i, names in enumerate(self.stage_names):
             for name in names:
                 x = getattr(self, name)(x)
+            if i + 1 <= self.frozen_stages:
+                x = x.detach()
             outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)

@@ -1,11 +1,19 @@
-"""Two-stage detector: the RBBoxRCNN predict path.
+"""Two-stage detector: the RBBoxRCNN predict path and training loss.
 
 Port of `aidet_tpu/models/detectors/two_stage.py::TwoStageDetector`
-for the RBBoxRCNN branch of `predict` (uint8 normalize, backbone, FPN,
-RPN proposals, multi-level RoIAlign, SharedFC bbox head, HBB decode and
-multiclass NMS, then the rbbox head on the kept crops only and the
-thetaobb decode chosen through the NMS keep provenance).  The grid,
-semantic, shared-head, mask and refine branches are not ported.
+for the RBBoxRCNN branch of
+
+- `predict`: uint8 normalize, backbone, FPN, RPN proposals, multi-level
+  RoIAlign, SharedFC bbox head, HBB decode and multiclass NMS, then the
+  rbbox head on the kept crops only and the thetaobb decode chosen
+  through the NMS keep provenance;
+- `loss`: the RPN's anchor-target loss, proposals without gradient,
+  gt boxes prepended as candidates, MaxIoU assignment and fixed random
+  sampling per image, one RoIAlign (kernel K2 on the card) whose crops
+  feed both the bbox and the thetaobb rbbox head, and their losses.
+
+The GA-RPN, OHEM and combined samplers, and the grid, semantic,
+shared-head, mask and refine branches are not ported.
 """
 
 from __future__ import annotations
@@ -17,11 +25,29 @@ from torch import nn
 from torch.profiler import record_function
 
 from ...core.anchors import build_pyramid_anchors
+from ...core.assign import max_iou_assign
+from ...core.sample import sample_fixed
+from ...core.targets import bbox_target, rbbox_target
 from ...ops.nms import multiclass_nms, select_parallel_rboxes
 from ...ops.roi_align import roi_align_forward
-from ..heads.anchor_head import flatten_level_outputs, rpn_proposals
-from ..heads.bbox_head import bbox_head_decode, rbbox_head_decode
+from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
+                                 rpn_proposals)
+from ..heads.bbox_head import (bbox_head_decode, bbox_head_loss,
+                               rbbox_head_decode)
+from ..losses import CrossEntropyLoss, SmoothL1Loss
 from ..preprocess import device_normalize
+
+# the reference's defaults (configs/dota/dota_v002_theta_obb_r50_v1_train.py)
+DEFAULT_TRAIN_CFG: dict = dict(
+    rpn=dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
+             num_samples=256, pos_fraction=0.5, neg_pos_ub=-1,
+             allowed_border=0, pos_weight=-1),
+    rpn_proposal=dict(nms_pre=2000, nms_post=2000, max_num=2000,
+                      nms_thr=0.7, min_bbox_size=0),
+    rcnn=dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5,
+              num_samples=512, pos_fraction=0.25, neg_pos_ub=-1,
+              pos_weight=-1, sampler="random"),
+)
 
 DEFAULT_TEST_CFG: dict = dict(
     rpn=dict(nms_pre=2000, nms_post=2000, max_num=2000, nms_thr=0.7,
@@ -46,14 +72,22 @@ def _merge(default: dict, override) -> dict:
 
 
 class TwoStageDetector(nn.Module):
-    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head."""
+    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head.
+
+    compute_dtype: the dtype of `loss`'s convolutions and matrix
+    products when it differs from the parameters' (the training build
+    keeps float32 parameters and computes in bfloat16, as the
+    reference's flax modules with dtype=bfloat16 do); None means the
+    parameters' dtype.  `predict` computes in the parameters' dtype.
+    """
 
     # pyramid strides P2..P6; 3 anchors per location (scale 8, ratios
     # 0.5 / 1 / 2), the reference's defaults
     strides = (4, 8, 16, 32, 64)
 
     def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head,
-                 img_size=1024, test_cfg=None):
+                 img_size=1024, train_cfg=None, test_cfg=None,
+                 compute_dtype=None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -61,7 +95,13 @@ class TwoStageDetector(nn.Module):
         self.bbox_head = bbox_head
         self.rbbox_head = rbbox_head
         self.img_size = img_size
+        self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
         self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
+        self.compute_dtype = compute_dtype
+        self.rpn_cls_loss = CrossEntropyLoss(use_sigmoid=True)
+        self.rpn_bbox_loss = SmoothL1Loss(beta=1.0 / 9.0)
+        self.rcnn_cls_loss = CrossEntropyLoss()
+        self.rcnn_bbox_loss = SmoothL1Loss(beta=1.0)
         anchors, sizes = build_pyramid_anchors(img_size, self.strides)
         self.register_buffer("anchors", anchors, persistent=False)
         self.level_sizes = sizes
@@ -78,7 +118,9 @@ class TwoStageDetector(nn.Module):
 
     def _roi_features(self, feats, rois_b, out_size):
         """Multi-level RoIAlign over the first 4 levels: [B, R, s, s, C].
-        On CUDA tensors this always launches kernel K1."""
+        On CUDA tensors this launches kernel K1 under no_grad and K2
+        (forward, then its backward kernel) when the features need a
+        gradient."""
         return roi_align_forward(
             [f.contiguous() for f in feats[:4]], rois_b.float(), out_size,
             self.strides[:4])
@@ -143,3 +185,119 @@ class TwoStageDetector(nn.Module):
             out["rboxes"] = select_parallel_rboxes(
                 rboxes, local, self.rbbox_head.out_dim_reg)
         return out
+
+    def _mixed_precision(self, device):
+        """Autocast to ``compute_dtype`` (convolutions and linears in it,
+        parameters kept as they are), or nothing when it is the
+        parameters' dtype."""
+        cd = self.compute_dtype or self.dtype
+        return torch.autocast(torch.device(device).type, dtype=cd,
+                              enabled=cd != self.dtype)
+
+    def loss(self, imgs, gt_boxes, gt_valid, gt_labels, img_shapes,
+             gt_rboxes, generator: torch.Generator):
+        """The RBBoxRCNN training loss (reference: `loss`,
+        two_stage.py:367-681, without its optional branches).
+
+        imgs [B, S, S, 3] (uint8 BGR or normalized floats); gt_boxes
+        [B, G, 4]; gt_valid [B, G]; gt_labels [B, G] (1-based);
+        img_shapes [B, 2] (h, w); gt_rboxes [B, G, 5] thetaobbs.
+        Sampling draws from ``generator`` (on the images' device): the
+        RPN's positives and negatives, then the RoI sample's.
+        Returns the six losses, float32 scalars: loss_rpn_cls,
+        loss_rpn_bbox, loss_cls, loss_bbox, loss_rbbox_cls, loss_rbbox.
+
+        Mixed precision: the backbone, FPN, RPN head and RoI heads run
+        under `_mixed_precision`; the heads' outputs are cast to float32
+        and every loss computes in float32.
+        Each stage is a `torch.profiler.record_function` span (read by
+        tools/torch_profile_train.py).
+        """
+        tc = self.train_cfg
+        rc = tc["rcnn"]
+        if rc.get("sampler", "random") != "random":
+            raise NotImplementedError(f"rcnn sampler {rc['sampler']!r} "
+                                      "is not ported; 'random' is")
+        img_shapes = img_shapes.float()
+        gt_boxes = gt_boxes.float()
+        b = imgs.shape[0]
+        amp = self._mixed_precision(imgs.device)
+        with amp:
+            feats = self.extract_feat(imgs)
+            with record_function("rpn_head"):
+                rpn_cls, rpn_reg = self.rpn_head(feats)
+        cls_flat, reg_flat = flatten_level_outputs(
+            rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
+        cls_flat, reg_flat = cls_flat.float(), reg_flat.float()
+
+        rpn = tc["rpn"]
+        with record_function("rpn_loss"):
+            rpn_losses = anchor_head_loss(
+                cls_flat, reg_flat, self.anchors, gt_boxes, gt_valid,
+                img_shapes, generator, target_stds=RPN_TARGET_STDS,
+                cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
+                assigner_cfg=dict(pos_iou_thr=rpn["pos_iou_thr"],
+                                  neg_iou_thr=rpn["neg_iou_thr"],
+                                  min_pos_iou=rpn["min_pos_iou"]),
+                sampler_cfg=dict(num_samples=rpn["num_samples"],
+                                 pos_fraction=rpn["pos_fraction"],
+                                 neg_pos_ub=rpn["neg_pos_ub"]),
+                allowed_border=rpn["allowed_border"],
+                pos_weight=rpn["pos_weight"])
+        losses = dict(loss_rpn_cls=rpn_losses["loss_cls"],
+                      loss_rpn_bbox=rpn_losses["loss_bbox"])
+
+        # proposals carry no gradient, as in the reference
+        with torch.no_grad(), record_function("rpn_proposals"):
+            props, _, prop_valid = rpn_proposals(
+                cls_flat, reg_flat, self.anchors, self.level_sizes,
+                img_shapes, target_stds=RPN_TARGET_STDS,
+                **tc["rpn_proposal"])
+
+        # the gt boxes join the proposals as candidates
+        with record_function("rcnn_sample"):
+            cand = torch.cat([gt_boxes, props], 1)
+            cand_valid = torch.cat([gt_valid, prop_valid], 1)
+            res = max_iou_assign(cand, gt_boxes, gt_valid, None,
+                                 pos_iou_thr=rc["pos_iou_thr"],
+                                 neg_iou_thr=rc["neg_iou_thr"],
+                                 min_pos_iou=rc["min_pos_iou"],
+                                 box_valid=cand_valid)
+            sample = sample_fixed(res.gt_inds, rc["num_samples"],
+                                  rc["pos_fraction"], generator,
+                                  rc["neg_pos_ub"])
+        r = rc["num_samples"]
+        if sample.inds.shape[1] != r:
+            # sample_fixed returns min(num_samples, candidates) rows; the
+            # reference reshapes by num_samples, which then fails too
+            raise ValueError(f"rcnn num_samples {r} exceeds the "
+                             f"{cand.shape[1]} candidates (gts + "
+                             "rpn_proposal max_num)")
+        rois = torch.gather(cand, 1, sample.inds[..., None].expand(-1, -1, 4))
+
+        # one RoIAlign: both heads read the same crops, so the step has
+        # one K2 forward and one K2 backward launch
+        with record_function("roi_align"):
+            crops = self._roi_features(feats, rois,
+                                       self.bbox_head.roi_feat_size)
+        crops = crops.reshape((b * r,) + crops.shape[2:])
+        with amp, record_function("roi_heads"):
+            cls_score, bbox_pred = self.bbox_head(crops)
+            rcls, rreg = self.rbbox_head(crops)
+
+        def flat(t):
+            return t._make(x.reshape((b * r,) + x.shape[2:]) for x in t)
+
+        tgt = flat(bbox_target(sample, rois, gt_boxes, gt_labels,
+                               RCNN_TARGET_MEANS, RCNN_TARGET_STDS,
+                               rc["pos_weight"]))
+        losses["loss_cls"], losses["loss_bbox"] = bbox_head_loss(
+            cls_score.float(), bbox_pred.float(), tgt,
+            self.rcnn_cls_loss, self.rcnn_bbox_loss)
+        rtgt = flat(rbbox_target(sample, rois, gt_rboxes.float(), gt_labels,
+                                 self.rbbox_head.encode,
+                                 pos_weight=rc["pos_weight"]))
+        losses["loss_rbbox_cls"], losses["loss_rbbox"] = bbox_head_loss(
+            rcls.float(), rreg.float(), rtgt, self.rcnn_cls_loss,
+            self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg)
+        return losses

@@ -1,14 +1,17 @@
-"""Flattening of dense head outputs and RPN proposal generation.
+"""Flattening of dense head outputs, the anchor head's loss and RPN
+proposal generation.
 
-Port of `flatten_level_outputs` and `rpn_proposals` from
-`aidet_tpu/models/heads/anchor_head.py`.  Shapes stay fixed: every
-image yields `max_num` proposal slots with a validity mask.
+Port of `flatten_level_outputs`, `anchor_head_loss` and
+`rpn_proposals` from `aidet_tpu/models/heads/anchor_head.py`.  Shapes
+stay fixed: every image yields `max_num` proposal slots with a
+validity mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...core.anchors import anchor_target
 from ...core.boxes import delta2bbox
 from ...ops.nms import NEG_INF, nms, topk
 
@@ -22,6 +25,32 @@ def flatten_level_outputs(cls_scores, bbox_preds, cls_channels: int,
                           for c in cls_scores], 1)
     box_flat = torch.cat([p.reshape(b, -1, box_dim) for p in bbox_preds], 1)
     return cls_flat, box_flat
+
+
+def anchor_head_loss(cls_flat, box_flat, anchors, gt_boxes, gt_valid,
+                     img_shapes, generator: torch.Generator,
+                     gt_labels=None, target_means=(0., 0., 0., 0.),
+                     target_stds=(1., 1., 1., 1.), cls_loss=None,
+                     bbox_loss=None, assigner_cfg=None, sampler_cfg=None,
+                     allowed_border=0.0, pos_weight=-1.0):
+    """Dense-head loss over flattened predictions (the sampling
+    variant): classification and regression both averaged by the
+    sampled anchors' count, num_total_pos + num_total_neg.
+
+    cls_flat [B, A, C] and box_flat [B, A, 4] in the loss's dtype
+    (float32 in the detector).  Returns dict(loss_cls, loss_bbox).
+    """
+    tg = anchor_target(anchors, gt_boxes, gt_valid, img_shapes, generator,
+                       gt_labels=gt_labels, target_means=target_means,
+                       target_stds=target_stds,
+                       allowed_border=allowed_border, pos_weight=pos_weight,
+                       **(assigner_cfg or {}), **(sampler_cfg or {}))
+    num_total = (tg.num_total_pos + tg.num_total_neg).float()
+    return dict(
+        loss_cls=cls_loss(cls_flat, tg.labels, weight=tg.label_weights,
+                          avg_factor=num_total),
+        loss_bbox=bbox_loss(box_flat, tg.bbox_targets,
+                            weight=tg.bbox_weights, avg_factor=num_total))
 
 
 def rpn_proposals(cls_flat, box_flat, anchors, level_sizes, img_shapes,

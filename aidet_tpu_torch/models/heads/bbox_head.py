@@ -1,7 +1,8 @@
-"""RoI box heads and their decodes.
+"""RoI box heads, their loss and their decodes.
 
-Port of `SharedFCBBoxHead`, `RBBoxHead`, `bbox_head_decode` and
-`rbbox_head_decode` from `aidet_tpu/models/heads/bbox_head.py`.  The
+Port of `SharedFCBBoxHead`, `RBBoxHead`, `bbox_head_loss`,
+`bbox_head_decode` and `rbbox_head_decode` from
+`aidet_tpu/models/heads/bbox_head.py`.  The
 heads take roi crops [N, s, s, C] and flatten them in (h, w, c) order,
 the reference's order, so the first FC's weight is the reference
 kernel transposed and needs no row permutation.
@@ -14,10 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.boxes import delta2bbox
-from ...core.rboxes import delta2thetaobb
-
-# the thetaobb codec: 5 regression outputs per class
-RBBOX_DIMS = {"thetaobb": 5}
+from ...core.rboxes import RBBOX_CODECS
 
 
 class SharedFCBBoxHead(nn.Module):
@@ -52,12 +50,36 @@ class RBBoxHead(SharedFCBBoxHead):
 
     def __init__(self, num_classes=16, in_channels=256, fc_out_channels=1024,
                  num_shared_fcs=2, roi_feat_size=7, encode="thetaobb"):
-        if encode not in RBBOX_DIMS:
+        if encode not in RBBOX_CODECS:
             raise NotImplementedError(f"rbbox encode {encode!r} is not "
                                       "ported; thetaobb is")
         super().__init__(num_classes, in_channels, fc_out_channels,
-                         num_shared_fcs, roi_feat_size, RBBOX_DIMS[encode])
+                         num_shared_fcs, roi_feat_size,
+                         RBBOX_CODECS[encode][0])
         self.encode = encode
+
+
+def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
+                   box_dim: int = 4):
+    """Second-stage loss over the sampled rois of a batch: CE over all
+    of them and smooth L1 on the class-specific slice of the
+    regression, both averaged by the count of valid samples (the
+    label-weight sum, at least 1).
+
+    cls_score [N, C], bbox_pred [N, C * box_dim]; ``targets`` a
+    `core.targets.RoiTargets` with leading dim N.  The sort-robust
+    hobb variant (``alt_bbox_targets``) is not ported.
+    """
+    avg = targets.label_weights.sum().clamp(min=1.0)
+    loss_cls = cls_loss(cls_score, targets.labels,
+                        weight=targets.label_weights, avg_factor=avg)
+    per = bbox_pred.reshape(bbox_pred.shape[0], -1, box_dim)
+    idx = targets.labels.long().clamp(0, per.shape[1] - 1)
+    pred = torch.gather(per, 1, idx[:, None, None].expand(
+        -1, 1, box_dim))[:, 0]
+    loss_bbox = bbox_loss(pred, targets.bbox_targets,
+                          weight=targets.bbox_weights, avg_factor=avg)
+    return loss_cls, loss_bbox
 
 
 def bbox_head_decode(rois, cls_score, bbox_pred,
@@ -75,9 +97,8 @@ def bbox_head_decode(rois, cls_score, bbox_pred,
 def rbbox_head_decode(rois, cls_score, rbbox_pred, encode="thetaobb",
                       target_means=None, target_stds=None):
     """Per-class thetaobbs [..., C*5] and softmax scores."""
-    dim = RBBOX_DIMS[encode]
+    dim, _, decode = RBBOX_CODECS[encode]
     target_means = target_means or (0.,) * dim
     target_stds = target_stds or (1.,) * dim
     scores = torch.softmax(cls_score, dim=-1)
-    return delta2thetaobb(rois, rbbox_pred, target_means,
-                          target_stds), scores
+    return decode(rois, rbbox_pred, target_means, target_stds), scores

@@ -2,8 +2,8 @@
 torchvision and the reference package are absent, as on the machine
 with the card.  A subprocess makes every such import raise, imports
 every module of `aidet_tpu_torch` and `chip_smoke`, and rehearses
-chip_smoke's predict phase on the CPU (small flagship, plain versions)
-to its end."""
+chip_smoke's predict and train phases on the CPU (small flagship,
+plain versions, no kernel launch) to their ends."""
 
 import ast
 import os
@@ -35,11 +35,14 @@ mods = [m.name for m in pkgutil.walk_packages(aidet_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import aidet_tpu_torch.parallel.train
 out = chip_smoke.run_predict(device="cpu", small=True)
-assert out["launches"] == {{"roi_align": 0}}, out
+assert set(out["launches"].values()) == {{0}}, out
+train = chip_smoke.run_train(device="cpu", small=True, steps=1)
+assert set(train["launches"].values()) == {{0}}, train
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print("ISOLATED", len(mods), out["n_valid"])
+print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
 """
 
 
@@ -56,6 +59,7 @@ def test_port_runs_with_reference_imports_blocked():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     line = proc.stdout.strip().splitlines()[-1].split()
     assert line[0] == "ISOLATED" and int(line[1]) >= 15, proc.stdout
+    assert int(line[3]) > 0, proc.stdout
 
 
 def _imports(path):

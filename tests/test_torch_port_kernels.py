@@ -9,6 +9,13 @@ K1 (`aidet_tpu_torch/csrc/roi_align.cu`) is held to its plain version
 `batched_multilevel_roi_align` on the same inputs: atol 1e-4 in float32
 (the two sum in different orders) and 0.05 in bfloat16 (the output is
 rounded to bfloat16 on both sides, one ulp apart at most).
+
+K2's backward (`csrc/roi_align_backward.cu`) is held to the autograd
+gradient of the plain version: max abs error within 1e-5 (float32; the
+atomics sum in a varying order) or 1e-2 (bfloat16; both round once)
+of each level's largest gradient.  K2 as a whole
+(`RoIAlignFunction`) launches one forward and one backward, and one
+full-width train step of the flagship launches each once.
 """
 
 import numpy as np
@@ -17,7 +24,7 @@ import torch
 
 from aidet_tpu_torch.flagship import build_flagship
 from aidet_tpu_torch.ops import roi_align
-from torch_port_helpers import make_inputs, to_np
+from torch_port_helpers import STRIDES, make_inputs, to_np
 
 
 @pytest.fixture()
@@ -78,3 +85,81 @@ def test_predict_launches_k1_once_per_call(cuda):
     assert roi_align.roi_align_kernel.launches == before + 2
     assert out["rboxes"].shape == (2, 16, 5)
     assert torch.isfinite(out["boxes"]).all()
+
+
+def k2_inputs(cuda, dtype, seed=8, out_size=7):
+    feats, rois = make_inputs(seed, c=64)
+    tf = [torch.from_numpy(f).to(cuda, dtype) for f in feats]
+    tr = torch.from_numpy(rois).to(cuda)
+    g = torch.Generator().manual_seed(seed)
+    grad_out = torch.randn(tuple(rois.shape[:2]) + (out_size, out_size, 64),
+                           generator=g).to(cuda, dtype)
+    return tf, tr, grad_out
+
+
+def plain_grads(feats, rois, grad_out, out_size=7):
+    leaves = [f.detach().requires_grad_() for f in feats]
+    out = roi_align.batched_multilevel_roi_align(leaves, rois, out_size)
+    return torch.autograd.grad(out, leaves, grad_out)
+
+
+# float32 at 1e-5: at these few rois a cell sums tens of terms; chip_smoke.py
+# holds the train step's shapes (thousands of terms a cell) to 1e-4 and
+# says why next to its BWD_REL_TOL
+K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size", [7, 14])
+def test_k2_backward_matches_plain_gradient(cuda, dtype, out_size):
+    feats, rois, grad_out = k2_inputs(cuda, dtype, out_size=out_size)
+    b, r = rois.shape[:2]
+    flat = rois.reshape(-1, 4).contiguous()
+    lvls = roi_align.route_rois(flat, [f.shape[1:3] for f in feats],
+                                STRIDES)
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=cuda).repeat_interleave(r)
+    before = roi_align.roi_align_backward_kernel.launches
+    got = roi_align.roi_align_backward_kernel(
+        grad_out.reshape(b * r, out_size, out_size, -1).contiguous(), flat,
+        bidx, lvls, [tuple(f.shape) for f in feats], STRIDES, 2, True)
+    torch.cuda.synchronize()
+    assert roi_align.roi_align_backward_kernel.launches == before + 1
+    ref = plain_grads(feats, rois, grad_out, out_size)
+    for g, w in zip(got, ref):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        np.testing.assert_allclose(to_np(g.float()), to_np(w.float()),
+                                   atol=K2_TOL[dtype] * scale, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_function_launches_forward_and_backward_once(cuda, dtype):
+    feats, rois, grad_out = k2_inputs(cuda, dtype, seed=9)
+    leaves = [f.detach().requires_grad_() for f in feats]
+    handles = (roi_align.roi_align_kernel, roi_align.roi_align_train_kernel,
+               roi_align.roi_align_backward_kernel)
+    before = [h.launches for h in handles]
+    out = roi_align.roi_align_forward(leaves, rois)
+    got = torch.autograd.grad(out, leaves, grad_out)
+    torch.cuda.synchronize()
+    assert [h.launches - n for h, n in zip(handles, before)] == [0, 1, 1]
+    ref_out = roi_align.batched_multilevel_roi_align(feats, rois)
+    np.testing.assert_allclose(to_np(out.float()), to_np(ref_out.float()),
+                               atol=1e-4 if dtype == torch.float32 else 0.05)
+    for g, w in zip(got, plain_grads(feats, rois, grad_out)):
+        scale = float(w.float().abs().max())
+        np.testing.assert_allclose(to_np(g.float()), to_np(w.float()),
+                                   atol=K2_TOL[dtype] * scale, rtol=0)
+
+
+@pytest.mark.gpu
+def test_full_width_train_step_launches_k2_once_each(cuda):
+    import chip_smoke
+    out = chip_smoke.run_train(device="cuda", steps=1)
+    assert out["launches"] == dict(roi_align=0, roi_align_train_forward=1,
+                                   roi_align_backward=1)
+    assert out["param_dtype"] == "torch.float32"
+    assert out["compute_dtype"] == "torch.bfloat16"

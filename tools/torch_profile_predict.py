@@ -76,11 +76,21 @@ def profile(batch, calls):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / calls
 
+    return dict(
+        batch=batch, calls=calls, ms_per_call=wall_ms,
+        images_per_s=batch * 1e3 / wall_ms, roi_align_launches=launches,
+        **summarize(prof, SPANS, calls, prof_wall_ms),
+        max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def summarize(prof, span_names, calls, prof_wall_ms):
+    """Per call: the device's busy ms and share, each span's host ms and
+    device extent, and the 12 kernels with the most device time."""
     # key_averages holds, per name, a host row (device_type CPU) and for
     # device work a device row; a record_function span has both: its
     # host time and its extent on the device timeline (first kernel
     # start to last kernel end, idle gaps included)
-    kernels, spans = [], {k: {} for k in SPANS}
+    kernels, spans = [], {k: {} for k in span_names}
     for a in prof.key_averages():
         on_device = str(getattr(a, "device_type", "")).endswith("CUDA")
         if a.key in spans:
@@ -94,14 +104,17 @@ def profile(batch, calls):
     device_ms = sum(_dev_time(a, True) for a in kernels) / 1e3 / calls
     top = sorted(kernels, key=lambda a: -_dev_time(a, True))[:12]
     return dict(
-        batch=batch, calls=calls, ms_per_call=wall_ms,
-        images_per_s=batch * 1e3 / wall_ms, roi_align_launches=launches,
         profiled_ms_per_call=prof_wall_ms, device_ms_per_call=device_ms,
-        device_busy_share=device_ms / prof_wall_ms,
-        spans=spans,
+        device_busy_share=device_ms / prof_wall_ms, spans=spans,
         top_kernels=[dict(name=a.key[:90], ms=_dev_time(a, True) / 1e3
-                          / calls, count=a.count // calls) for a in top],
-        max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                          / calls, count=a.count // calls) for a in top])
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def main():
@@ -112,10 +125,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     for b in args.batch:
         print(json.dumps(dict(card=card, **profile(b, args.calls))),
               flush=True)
