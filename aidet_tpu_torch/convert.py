@@ -11,8 +11,9 @@ of the mapping in the reference's `tools/torch2jax.py`:
 - FrozenBN: scale -> weight, bias -> bias, and the batch stats
   mean / var -> running_mean / running_var;
 - top-level modules _backbone / _neck / _rpn / _bbox_head / _rbbox_head
-  -> backbone / neck / rpn_head / bbox_head / rbbox_head; the inner
-  names are the same on both sides.
+  / _rbbox_refine_head -> backbone / neck / rpn_head / bbox_head /
+  rbbox_head / rbbox_refine_head; the inner names are the same on both
+  sides.
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 TOP_LEVEL = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn_head",
-             "_bbox_head": "bbox_head", "_rbbox_head": "rbbox_head"}
+             "_bbox_head": "bbox_head", "_rbbox_head": "rbbox_head",
+             "_rbbox_refine_head": "rbbox_refine_head"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
         ("batch_stats", "mean"): "running_mean",
         ("batch_stats", "var"): "running_var"}

@@ -70,8 +70,11 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     pw, ph = bbox_wh(rois)
     px, py, pw, ph = (v[..., None] for v in (px, py, pw, ph))
 
-    gw = pw * torch.exp(dw)
-    gh = ph * torch.exp(dh)
+    # exp in the rois' dtype: for bfloat16 deltas on float32 rois the
+    # reference's XLA drops the exp's bfloat16 rounding before the
+    # float32 product
+    gw = pw * torch.exp(dw.to(pw.dtype))
+    gh = ph * torch.exp(dh.to(ph.dtype))
     gx = px + pw * dx
     gy = py + ph * dy
 

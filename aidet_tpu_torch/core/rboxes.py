@@ -1,11 +1,15 @@
-"""Oriented box (thetaobb) codec.
+"""Oriented box codecs.
 
-Port of the thetaobb part of `aidet_tpu/core/rboxes.py`:
-thetaobb2pointobb, thetaobb2delta and delta2thetaobb.  A thetaobb is
-(cx, cy, w, h, theta) with theta in radians in [-pi/2, 0) (the legacy
-cv2.minAreaRect convention).  The codec measures proposals with the
-legacy +1 width/height, and encode adds +1 to the gt w/h, so a decode
-of an encode returns w+1 / h+1 by design.
+Port of the thetaobb, pointobb and rtheta parts of
+`aidet_tpu/core/rboxes.py`: thetaobb2pointobb, pointobb2thetaobb, and
+the delta codecs thetaobb2delta / delta2thetaobb, pointobb2delta /
+delta2pointobb (HBB proposals) and rtheta2delta / delta2rtheta
+(rotated proposals, the refinement stage of RBBoxRCNNRRoI).  A thetaobb
+is (cx, cy, w, h, theta) with theta in radians in [-pi/2, 0) (the
+legacy cv2.minAreaRect convention); a pointobb its 4 corners [..., 8].
+The HBB codecs measure proposals with the legacy +1 width/height, and
+thetaobb encode adds +1 to the gt w/h, so a decode of an encode returns
+w+1 / h+1 by design.
 """
 
 from __future__ import annotations
@@ -34,12 +38,63 @@ def thetaobb2pointobb(thetaobb: torch.Tensor) -> torch.Tensor:
     return torch.stack([x0, y0, x1, y1, x2, y2, x3, y3], dim=-1)
 
 
+def pointobb2thetaobb(pointobb: torch.Tensor) -> torch.Tensor:
+    """Min-area rotated rect of a quad [..., 8] -> (cx, cy, w, h, theta).
+
+    The minimum-area rectangle of a convex quad has a side parallel to
+    one of its edges, so the 4 edge directions are the candidates;
+    theta is folded into [-pi/2, 0) with a floor modulo (the reference's
+    jnp.mod: `torch.remainder`, not `torch.fmod`, which differ on
+    negative angles) and (w, h) are the extents along (theta,
+    theta + pi/2).  Near-square quads tie between two candidates; the
+    first smallest area wins, as the reference's argmin.
+    """
+    pts = pointobb.reshape(pointobb.shape[:-1] + (4, 2))
+    edges = torch.roll(pts, -1, dims=-2) - pts              # [..., 4, 2]
+    ang = torch.atan2(edges[..., 1], edges[..., 0])
+    ang = torch.remainder(ang, HALF_PI) - HALF_PI           # [..., 4]
+    cos = torch.cos(ang)[..., None]                         # [..., 4, 1]
+    sin = torch.sin(ang)[..., None]
+    x = pts[..., None, :, 0]                                # [..., 1, 4]
+    y = pts[..., None, :, 1]
+    u = x * cos + y * sin                                   # [..., 4, 4]
+    v = -x * sin + y * cos
+    umin, umax = u.amin(-1), u.amax(-1)                     # [..., 4]
+    vmin, vmax = v.amin(-1), v.amax(-1)
+    w = umax - umin
+    h = vmax - vmin
+    k = torch.argmin(w * h, dim=-1, keepdim=True)
+
+    def take(arr):
+        return torch.gather(arr, -1, k)[..., 0]
+
+    theta = take(ang)
+    w, h = take(w), take(h)
+    uc = (take(umin) + take(umax)) * 0.5
+    vc = (take(vmin) + take(vmax)) * 0.5
+    ct, st = torch.cos(theta), torch.sin(theta)
+    cx = uc * ct - vc * st
+    cy = uc * st + vc * ct
+    return torch.stack([cx, cy, w, h, theta], dim=-1)
+
+
 def _proposal_geometry(proposals):
     px = (proposals[..., 0] + proposals[..., 2]) * 0.5
     py = (proposals[..., 1] + proposals[..., 3]) * 0.5
     pw = proposals[..., 2] - proposals[..., 0] + 1.0
     ph = proposals[..., 3] - proposals[..., 1] + 1.0
     return px, py, pw, ph
+
+
+def _normalize(deltas, means, stds):
+    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
+
+
+def _denormalize_grouped(deltas, means, stds, d):
+    """[..., K*d] -> [..., K, d], denormalised in the deltas' dtype."""
+    k = deltas.shape[-1] // d
+    out = deltas.reshape(deltas.shape[:-1] + (k, d))
+    return out * out.new_tensor(stds) + out.new_tensor(means)
 
 
 def thetaobb2delta(proposals, gt, means=(0.,) * 5, stds=(1.,) * 5):
@@ -51,8 +106,8 @@ def thetaobb2delta(proposals, gt, means=(0.,) * 5, stds=(1.,) * 5):
     dw = torch.log((gt[..., 2] + 1.0) / pw)
     dh = torch.log((gt[..., 3] + 1.0) / ph)
     dtheta = gt[..., 4] - (-HALF_PI)
-    deltas = torch.stack([dx, dy, dw, dh, dtheta], dim=-1)
-    return (deltas - deltas.new_tensor(means)) / deltas.new_tensor(stds)
+    return _normalize(torch.stack([dx, dy, dw, dh, dtheta], dim=-1), means,
+                      stds)
 
 
 def delta2thetaobb(rois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
@@ -60,22 +115,87 @@ def delta2thetaobb(rois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
     """Decode deltas [..., 5*K] (per-class groups) onto HBB rois
     [..., 4]; returns thetaobbs [..., 5*K]."""
     shape = deltas.shape
-    k = shape[-1] // 5
-    d = deltas.reshape(shape[:-1] + (k, 5))
-    d = d * d.new_tensor(stds) + d.new_tensor(means)
-    dx, dy, dw, dh, dtheta = d.unbind(-1)
+    dx, dy, dw, dh, dtheta = _denormalize_grouped(deltas, means, stds,
+                                                  5).unbind(-1)
     max_ratio = abs(math.log(wh_ratio_clip))
     dw = dw.clamp(-max_ratio, max_ratio)
     dh = dh.clamp(-max_ratio, max_ratio)
     px, py, pw, ph = (v[..., None] for v in _proposal_geometry(rois))
     gx = px + pw * dx
     gy = py + ph * dy
-    gw = pw * torch.exp(dw)
-    gh = ph * torch.exp(dh)
+    gw = pw * torch.exp(dw.to(pw.dtype))    # as in boxes.delta2bbox
+    gh = ph * torch.exp(dh.to(ph.dtype))
     gtheta = dtheta + (-HALF_PI)
     return torch.stack([gx, gy, gw, gh, gtheta], dim=-1).reshape(shape)
 
 
+def _proposal_corners(proposals):
+    """The HBB proposals' corners (tl, tr, br, bl) [..., 8] and the
+    divisors (w, h) * 4 of the pointobb codec [..., 8]."""
+    px, py, pw, ph = _proposal_geometry(proposals)
+    x1, y1, x2, y2 = proposals.unbind(-1)
+    return (torch.stack([x1, y1, x2, y1, x2, y2, x1, y2], dim=-1),
+            torch.stack([pw, ph] * 4, dim=-1))
+
+
+def pointobb2delta(proposals, gt, means=(0.,) * 8, stds=(1.,) * 8):
+    """Encode 4-corner gt [..., 8] against the HBB proposals' own
+    corners; x offsets over the proposal w, y offsets over its h."""
+    corners, denom = _proposal_corners(proposals)
+    return _normalize((gt - corners) / denom, means, stds)
+
+
+def delta2pointobb(rois, deltas, means=(0.,) * 8, stds=(1.,) * 8,
+                   wh_ratio_clip=16.0 / 1000.0):
+    """Decode deltas [..., 8*K] onto HBB rois [..., 4]: pointobbs
+    [..., 8*K].  ``wh_ratio_clip`` is ignored, as in the reference."""
+    del wh_ratio_clip
+    shape = deltas.shape
+    d = _denormalize_grouped(deltas, means, stds, 8)
+    corners, denom = _proposal_corners(rois)
+    return (d * denom[..., None, :] + corners[..., None, :]).reshape(shape)
+
+
+def rtheta2delta(rrois, gt, means=(0.,) * 5, stds=(1.,) * 5):
+    """Encode thetaobb gt [..., 5] against rotated proposals [..., 5]:
+    centre offsets rotated into the proposal's frame over its (w, h),
+    log size ratios, raw angle difference."""
+    px, py, pw, ph, pt = rrois.unbind(-1)
+    pw = pw.clamp(min=1e-4)
+    ph = ph.clamp(min=1e-4)
+    cos, sin = torch.cos(pt), torch.sin(pt)
+    ox = gt[..., 0] - px
+    oy = gt[..., 1] - py
+    dx = (cos * ox + sin * oy) / pw
+    dy = (-sin * ox + cos * oy) / ph
+    dw = torch.log(gt[..., 2].clamp(min=1e-4) / pw)
+    dh = torch.log(gt[..., 3].clamp(min=1e-4) / ph)
+    dt = gt[..., 4] - pt
+    return _normalize(torch.stack([dx, dy, dw, dh, dt], dim=-1), means,
+                      stds)
+
+
+def delta2rtheta(rrois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
+                 wh_ratio_clip=16.0 / 1000.0):
+    """Inverse of `rtheta2delta`: deltas [..., 5*K] (per-class groups)
+    onto rotated rois [..., 5]; returns thetaobbs [..., 5*K]."""
+    shape = deltas.shape
+    dx, dy, dw, dh, dt = _denormalize_grouped(deltas, means, stds,
+                                              5).unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+    px, py, pw, ph, pt = (v[..., None] for v in rrois.unbind(-1))
+    cos, sin = torch.cos(pt), torch.sin(pt)
+    ox = cos * (pw * dx) - sin * (ph * dy)
+    oy = sin * (pw * dx) + cos * (ph * dy)
+    return torch.stack([px + ox, py + oy, pw * torch.exp(dw.to(pw.dtype)),
+                        ph * torch.exp(dh.to(ph.dtype)), pt + dt],
+                       dim=-1).reshape(shape)
+
+
 # the ported codecs (the reference's RBBOX_CODECS): name -> (regression
-# dims, encode, decode); pointobb and hobb are not ported
-RBBOX_CODECS = {"thetaobb": (5, thetaobb2delta, delta2thetaobb)}
+# dims, encode, decode); hobb is not ported
+RBBOX_CODECS = {"thetaobb": (5, thetaobb2delta, delta2thetaobb),
+                "pointobb": (8, pointobb2delta, delta2pointobb),
+                "rtheta": (5, rtheta2delta, delta2rtheta)}

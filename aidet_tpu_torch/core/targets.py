@@ -55,10 +55,15 @@ def rbbox_target(sample: FixedSample, rois, gt_rboxes, gt_labels,
                  encode="thetaobb", target_means=None, target_stds=None,
                  pos_weight=-1.0) -> RoiTargets:
     """Rotated-box delta targets against the gt rboxes [B, G, D] in
-    the ``encode`` format (thetaobb, the only codec ported)."""
+    the ``encode`` format (thetaobb or pointobb; hobb is not
+    ported)."""
+    if encode == "rtheta":
+        raise ValueError(
+            "rbbox_target encodes against HBB rois; the 'rtheta' codec "
+            "needs rotated proposals (rtheta2delta)")
     if encode not in RBBOX_CODECS:
         raise NotImplementedError(f"rbbox encode {encode!r} is not "
-                                  "ported; thetaobb is")
+                                  "ported; thetaobb and pointobb are")
     dim, encode_fn, _ = RBBOX_CODECS[encode]
     means = target_means or (0.,) * dim
     stds = target_stds or (1.,) * dim

@@ -35,64 +35,9 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and called through ctypes (aidet_tpu_torch/ops/roi_align.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "roi_common.cuh"
 
 namespace {
-
-constexpr int kMaxLevels = 4;
-
-struct Levels {
-  const void* ptr[kMaxLevels];
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int stride[kMaxLevels];
-};
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ static void fma_load(const float* p, float wgt, float* acc) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    acc[0] += wgt * q.x;
-    acc[1] += wgt * q.y;
-    acc[2] += wgt * q.z;
-    acc[3] += wgt * q.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void fma_load(const __nv_bfloat16* p, float wgt,
-                                  float* acc) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      acc[2 * i] += wgt * f.x;
-      acc[2 * i + 1] += wgt * f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-};
 
 template <typename T>
 __global__ void roi_align_kernel(Levels lv, int channels,
@@ -213,17 +158,8 @@ extern "C" int aidet_roi_align_forward(
   // not the caller's
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  Levels lv;
-  const void* ptrs[kMaxLevels] = {f0, f1, f2, f3};
-  const int hs[kMaxLevels] = {h0, h1, h2, h3};
-  const int ws[kMaxLevels] = {w0, w1, w2, w3};
-  const int sts[kMaxLevels] = {st0, st1, st2, st3};
-  for (int i = 0; i < kMaxLevels; ++i) {
-    lv.ptr[i] = ptrs[i];
-    lv.h[i] = hs[i];
-    lv.w[i] = ws[i];
-    lv.stride[i] = sts[i];
-  }
+  const Levels lv = make_levels(f0, f1, f2, f3, h0, w0, h1, w1, h2, w2, h3,
+                                w3, st0, st1, st2, st3);
   const float* r = static_cast<const float*>(rois);
   const int* b = static_cast<const int*>(bidx);
   const int* l = static_cast<const int*>(lvls);

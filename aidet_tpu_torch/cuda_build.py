@@ -4,7 +4,8 @@ Each kernel source under `aidet_tpu_torch/csrc/` has a plain
 ``extern "C"`` interface and includes no PyTorch header, so one nvcc
 call builds it in seconds; the library is then loaded with ctypes.
 Builds go to ``build/aidet_tpu_torch/`` in the checkout (git-ignored),
-named by a hash of the source and the flags, and happen at first use.
+named by a hash of the source, the headers beside it (``*.cuh``) and
+the flags, and happen at first use.
 """
 
 from __future__ import annotations
@@ -45,8 +46,10 @@ def find_nvcc() -> str:
 def build_shared_library(source: Path) -> BuildResult:
     """nvcc ``source`` for sm_90a into a shared library (or reuse it)."""
     source = Path(source).resolve()
-    digest = hashlib.sha1(source.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    text += " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(text).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")

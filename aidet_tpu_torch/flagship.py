@@ -64,37 +64,55 @@ def build_flagship(img_size: int, small: bool = False, device="cuda",
     with random weights from ``torch.Generator().manual_seed(seed)``.
     Parameters are in ``dtype`` too, unless ``train``: then they stay
     float32.  ``train_cfg`` overrides the flagship's train_cfg."""
+    parts = build_parts(small, encode="thetaobb")
     if small:
-        backbone = ResNet(depth=18)
-        neck = FPN(in_channels=(64, 128, 256, 512), out_channels=64,
-                   num_outs=5)
-        rpn = RPNHead(in_channels=64, feat_channels=64, num_anchors=3)
-        bbox = SharedFCBBoxHead(num_classes=16, in_channels=64,
-                                fc_out_channels=128)
-        rbbox = RBBoxHead(num_classes=16, in_channels=64,
-                          fc_out_channels=128, encode="thetaobb")
         test_cfg = dict(rpn=dict(nms_pre=128, nms_post=64, max_num=64),
                         rcnn=dict(max_per_img=16))
         flagship_train_cfg = dict(
             rpn_proposal=dict(nms_pre=128, nms_post=64, max_num=64),
             rcnn=dict(num_samples=16))
-        dtype = dtype or torch.float32
     else:
-        backbone = ResNet(depth=50, stem_space_to_depth=True)
-        neck = FPN(num_outs=5)
-        rpn = RPNHead(num_anchors=3)
-        bbox = SharedFCBBoxHead(num_classes=16)
-        rbbox = RBBoxHead(num_classes=16, encode="thetaobb")
         test_cfg = dict(rpn=dict(nms_pre=2000, nms_post=1000,
                                  max_num=1000),
                         rcnn=dict(max_per_img=100))
         flagship_train_cfg = None
-        dtype = dtype or torch.bfloat16
     model = TwoStageDetector(
-        backbone, neck, rpn, bbox, rbbox, img_size=img_size,
+        *parts, img_size=img_size,
         train_cfg=_merge(flagship_train_cfg or {}, train_cfg),
-        test_cfg=test_cfg, compute_dtype=dtype)
+        test_cfg=test_cfg, compute_dtype=default_dtype(small, dtype))
+    return finish(model, small, device, dtype, seed, train)
+
+
+def build_parts(small: bool, encode: str):
+    """(backbone, neck, rpn_head, bbox_head, rbbox_head) of the full
+    configuration (ResNet-50 with the space-to-depth stem, 256-channel
+    FPN, 1024-wide heads, 16 classes) or of the small one (ResNet-18,
+    64 channels, 128-wide heads), with an ``encode`` rbbox head."""
+    if small:
+        return (ResNet(depth=18),
+                FPN(in_channels=(64, 128, 256, 512), out_channels=64,
+                    num_outs=5),
+                RPNHead(in_channels=64, feat_channels=64, num_anchors=3),
+                SharedFCBBoxHead(num_classes=16, in_channels=64,
+                                 fc_out_channels=128),
+                RBBoxHead(num_classes=16, in_channels=64,
+                          fc_out_channels=128, encode=encode))
+    return (ResNet(depth=50, stem_space_to_depth=True), FPN(num_outs=5),
+            RPNHead(num_anchors=3), SharedFCBBoxHead(num_classes=16),
+            RBBoxHead(num_classes=16, encode=encode))
+
+
+def default_dtype(small: bool, dtype=None):
+    """bfloat16 for the full model, float32 for the small one."""
+    return dtype or (torch.float32 if small else torch.bfloat16)
+
+
+def finish(model: TwoStageDetector, small: bool, device, dtype, seed: int,
+           train: bool = False) -> TwoStageDetector:
+    """Seeded weights, then ``model`` on ``device`` in its dtype (float32
+    parameters if ``train``), in eval mode, channels-last on the card."""
     init_weights(model, torch.Generator().manual_seed(seed))
+    dtype = default_dtype(small, dtype)
     model = model.to(device=device,
                      dtype=torch.float32 if train else dtype).eval()
     if torch.device(device).type == "cuda":

@@ -1,23 +1,28 @@
-"""Two-stage detector: the RBBoxRCNN predict path and training loss.
+"""Two-stage detector: the RBBoxRCNN and RBBoxRCNNRRoI predict paths
+and the RBBoxRCNN training loss.
 
 Port of `aidet_tpu/models/detectors/two_stage.py::TwoStageDetector`
 for the RBBoxRCNN branch of
 
 - `predict`: uint8 normalize, backbone, FPN, RPN proposals, multi-level
   RoIAlign, SharedFC bbox head, HBB decode and multiclass NMS, then the
-  rbbox head on the kept crops only and the thetaobb decode chosen
-  through the NMS keep provenance;
+  rbbox head on the kept crops only and the rotated decode (thetaobb or
+  pointobb) chosen through the NMS keep provenance; with a refinement
+  head (RBBoxRCNNRRoI), the selected rboxes are re-cropped by rotated
+  RoIAlign (kernel K4 on the card) and refined by rtheta deltas;
 - `loss`: the RPN's anchor-target loss, proposals without gradient,
   gt boxes prepended as candidates, MaxIoU assignment and fixed random
   sampling per image, one RoIAlign (kernel K2 on the card) whose crops
   feed both the bbox and the thetaobb rbbox head, and their losses.
 
-The GA-RPN, OHEM and combined samplers, and the grid, semantic,
-shared-head, mask and refine branches are not ported.
+The GA-RPN, OHEM and combined samplers, the grid, semantic,
+shared-head and mask branches, and the refinement head's training are
+not ported.
 """
 
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
 
 import torch
@@ -26,10 +31,12 @@ from torch.profiler import record_function
 
 from ...core.anchors import build_pyramid_anchors
 from ...core.assign import max_iou_assign
+from ...core.rboxes import delta2rtheta, pointobb2thetaobb
 from ...core.sample import sample_fixed
 from ...core.targets import bbox_target, rbbox_target
 from ...ops.nms import multiclass_nms, select_parallel_rboxes
-from ...ops.roi_align import roi_align_forward
+from ...ops.roi_align import roi_align_bandx_forward, roi_align_forward
+from ...ops.rroi_align import rroi_align_forward
 from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
                                  rpn_proposals)
 from ..heads.bbox_head import (bbox_head_decode, bbox_head_loss,
@@ -72,7 +79,10 @@ def _merge(default: dict, override) -> dict:
 
 
 class TwoStageDetector(nn.Module):
-    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head.
+    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head, and
+    with ``rbbox_refine_head`` (an rtheta `RBBoxHead`) RBBoxRCNNRRoI.
+    The first-stage rbbox codec (the reference's ``rbbox_encode``) is
+    the rbbox head's ``encode``: thetaobb or pointobb.
 
     compute_dtype: the dtype of `loss`'s convolutions and matrix
     products when it differs from the parameters' (the training build
@@ -87,13 +97,18 @@ class TwoStageDetector(nn.Module):
 
     def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head,
                  img_size=1024, train_cfg=None, test_cfg=None,
-                 compute_dtype=None):
+                 compute_dtype=None, rbbox_refine_head=None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
         self.bbox_head = bbox_head
         self.rbbox_head = rbbox_head
+        if rbbox_refine_head is not None \
+                and rbbox_refine_head.encode != "rtheta":
+            raise ValueError("rbbox_refine_head regresses against rotated "
+                             "proposals; encode must be 'rtheta'")
+        self.rbbox_refine_head = rbbox_refine_head
         self.img_size = img_size
         self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
         self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
@@ -106,6 +121,16 @@ class TwoStageDetector(nn.Module):
         self.register_buffer("anchors", anchors, persistent=False)
         self.level_sizes = sizes
 
+    def _apply(self, fn, recurse=True):
+        """Module.to and friends: the anchors follow the device but stay
+        float32 in a bfloat16 model, as the reference's, so that the
+        proposals decode in float32."""
+        super()._apply(fn, recurse)
+        if self.anchors.dtype != torch.float32:
+            self.anchors = build_pyramid_anchors(
+                self.img_size, self.strides)[0].to(self.anchors.device)
+        return self
+
     @property
     def dtype(self):
         return self.bbox_head.fc_cls.weight.dtype
@@ -116,22 +141,32 @@ class TwoStageDetector(nn.Module):
         with record_function("neck"):
             return self.neck(feats)
 
-    def _roi_features(self, feats, rois_b, out_size):
+    def _roi_features(self, feats, rois_b, out_size, infer=False):
         """Multi-level RoIAlign over the first 4 levels: [B, R, s, s, C].
         On CUDA tensors this launches kernel K1 under no_grad and K2
         (forward, then its backward kernel) when the features need a
-        gradient."""
-        return roi_align_forward(
-            [f.contiguous() for f in feats[:4]], rois_b.float(), out_size,
-            self.strides[:4])
+        gradient.  ``infer`` on bfloat16 features with AIDET_ROI_BAND=x
+        (read at each call, as the reference does) takes K3 instead of
+        K1: the same function, reduced from band-chunked rois."""
+        levels = [f.contiguous() for f in feats[:4]]
+        if (infer and levels[0].dtype == torch.bfloat16
+                and os.environ.get("AIDET_ROI_BAND", "1") == "x"):
+            return roi_align_bandx_forward(levels, rois_b.float(), out_size,
+                                           self.strides[:4])
+        return roi_align_forward(levels, rois_b.float(), out_size,
+                                 self.strides[:4])
 
     @torch.no_grad()
     def predict(self, imgs, img_shapes):
         """imgs [B, H, W, 3] (uint8 BGR, or normalized floats),
         img_shapes [B, 2] (h, w).  Returns fixed-size results: boxes
-        [B, K, 4], rboxes [B, K, 5], and scores, labels (0-based, -1 if
-        invalid) and valid [B, K].
-        Heads run in the model's dtype; decode and NMS in float32.
+        [B, K, 4], rboxes [B, K, D] (D = 5 thetaobbs, or 8 pointobb
+        corners without a refinement head), and scores, labels (0-based,
+        -1 if invalid) and valid [B, K].
+        Heads run in the model's dtype, and so do the sigmoid and softmax
+        scores, their ranking (stable, ties to the lower index) and the
+        returned ``scores``, as in the reference; box decodes promote to
+        float32 against the float32 anchors and proposals.
         Each stage is a `torch.profiler.record_function` span (read by
         tools/torch_profile_predict.py; no cost beyond the call when no
         profiler runs)."""
@@ -144,22 +179,22 @@ class TwoStageDetector(nn.Module):
             cls_flat, reg_flat = flatten_level_outputs(
                 rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
             props, _, prop_valid = rpn_proposals(
-                cls_flat.float(), reg_flat.float(), self.anchors,
-                self.level_sizes, img_shapes, target_stds=RPN_TARGET_STDS,
-                **ec["rpn"])
+                cls_flat, reg_flat, self.anchors, self.level_sizes,
+                img_shapes, target_stds=RPN_TARGET_STDS, **ec["rpn"])
 
         b, p = props.shape[:2]
         with record_function("roi_align"):
             crops = self._roi_features(feats, props,
-                                       self.bbox_head.roi_feat_size)
+                                       self.bbox_head.roi_feat_size,
+                                       infer=True)
         with record_function("bbox_head"):
             cls_score, bbox_pred = self.bbox_head(
                 crops.reshape((b * p,) + crops.shape[2:]))
         rc = ec["rcnn"]
         with record_function("bbox_decode_nms"):
             boxes, scores = bbox_head_decode(
-                props, cls_score.float().reshape(b, p, -1),
-                bbox_pred.float().reshape(b, p, -1), RCNN_TARGET_MEANS,
+                props, cls_score.reshape(b, p, -1),
+                bbox_pred.reshape(b, p, -1), RCNN_TARGET_MEANS,
                 RCNN_TARGET_STDS, img_shape=img_shapes[:, None, :])
             dets = multiclass_nms(boxes, scores, rc["score_thr"],
                                   iou_thr=rc["nms_thr"],
@@ -179,12 +214,44 @@ class TwoStageDetector(nn.Module):
                 kcrops.reshape((b * k,) + kcrops.shape[2:]))
             rboxes, _ = rbbox_head_decode(
                 props[bi, roi], rreg.new_zeros(b, k, 1),
-                rreg.float().reshape(b, k, -1), self.rbbox_head.encode)
+                rreg.reshape(b, k, -1), self.rbbox_head.encode)
             local = dets._replace(roi_idx=torch.arange(
                 k, device=props.device).expand(b, k))
             out["rboxes"] = select_parallel_rboxes(
                 rboxes, local, self.rbbox_head.out_dim_reg)
+        if self.rbbox_refine_head is not None:
+            with record_function("rroi_refine"):
+                out["rboxes"] = self._refine(feats, out["rboxes"], dets)
         return out
+
+    def _refine(self, feats, rboxes, dets):
+        """The rotated-RoI refinement of RBBoxRCNNRRoI's predict
+        (reference two_stage.py:1052-1086): the selected first-stage
+        rboxes as thetaobbs, w and h clipped to [2, img_size], re-cropped
+        by rotated RoIAlign over the first 4 levels in the model's
+        dtype (kernel K4 on the card), the refinement head's rtheta
+        deltas of each detection's class (group labels + 1) applied to
+        them, invalid rows zero."""
+        rb = rboxes
+        if self.rbbox_head.encode == "pointobb":
+            rb = pointobb2thetaobb(rb)
+        rb = torch.cat([rb[..., :2], rb[..., 2:4].clamp(2.0, self.img_size),
+                        rb[..., 4:]], -1)
+        head = self.rbbox_refine_head
+        b, k = rb.shape[:2]
+        with record_function("rroi_align"):
+            rcrops = rroi_align_forward(
+                [f.contiguous() for f in feats[:4]], rb.float(),
+                head.roi_feat_size, self.strides[:4])
+        _, ref_reg = head(rcrops.reshape((b * k,) + rcrops.shape[2:]))
+        d2 = head.out_dim_reg
+        grp = ref_reg.reshape(b, k, -1, d2)
+        cls = (dets.labels + 1).clamp(0, grp.shape[2] - 1)
+        ref_sel = torch.gather(
+            grp, 2, cls[..., None, None].expand(b, k, 1, d2))[:, :, 0]
+        refined = delta2rtheta(rb, ref_sel)
+        return torch.where(dets.valid[..., None], refined,
+                           refined.new_zeros(()))
 
     def _mixed_precision(self, device):
         """Autocast to ``compute_dtype`` (convolutions and linears in it,
@@ -213,6 +280,11 @@ class TwoStageDetector(nn.Module):
         Each stage is a `torch.profiler.record_function` span (read by
         tools/torch_profile_train.py).
         """
+        if self.rbbox_refine_head is not None:
+            raise NotImplementedError(
+                "the rotated-RoI refinement head's training (rtheta "
+                "targets, refine losses, rotated RoIAlign backward) is not "
+                "ported; predict is")
         tc = self.train_cfg
         rc = tc["rcnn"]
         if rc.get("sampler", "random") != "random":

@@ -53,6 +53,14 @@ def anchor_head_loss(cls_flat, box_flat, anchors, gt_boxes, gt_valid,
                             weight=tg.bbox_weights, avg_factor=num_total))
 
 
+def sigmoid(x):
+    """1 / (1 + exp(-x)), each operation in x's dtype: the reference's
+    sigmoid (XLA's logistic) bit for bit in bfloat16, where
+    `torch.sigmoid` rounds once and differs by an ulp in a third of
+    the values."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def rpn_proposals(cls_flat, box_flat, anchors, level_sizes, img_shapes,
                   nms_pre=2000, nms_post=2000, max_num=2000, nms_thr=0.7,
                   min_bbox_size=0.0, target_means=(0., 0., 0., 0.),
@@ -67,13 +75,15 @@ def rpn_proposals(cls_flat, box_flat, anchors, level_sizes, img_shapes,
     uses an exact top-k everywhere.
 
     cls_flat [B, A, 1] (sigmoid objectness logits), box_flat [B, A, 4],
+    in the heads' dtype: the scores are computed, ranked and returned
+    in cls_flat's dtype, the boxes promote to the anchors' float32;
     anchors [A, 4],
     img_shapes [B, 2] (h, w).  Returns (boxes [B, max_num, 4],
     scores [B, max_num], valid [B, max_num]).
     """
     k_list = [min(nms_pre, n) if nms_pre > 0 else n for n in level_sizes]
     k_max = max(k_list)
-    scores_all = torch.sigmoid(cls_flat[..., 0])
+    scores_all = sigmoid(cls_flat[..., 0])
     b = cls_flat.shape[0]
     max_shape = img_shapes[:, None, :]
     lvl_boxes, lvl_scores, lvl_valid = [], [], []

@@ -46,13 +46,16 @@ class SharedFCBBoxHead(nn.Module):
 
 class RBBoxHead(SharedFCBBoxHead):
     """Rotated-box head: the same FC trunk with per-class rotated
-    regression (5 outputs per class for thetaobb)."""
+    regression of ``RBBOX_CODECS[encode]``'s width: 5 for thetaobb and
+    rtheta (the refinement head on rotated crops), 8 for pointobb.  The
+    reference's class-agnostic option is not ported: no configuration
+    of the ported paths sets it."""
 
     def __init__(self, num_classes=16, in_channels=256, fc_out_channels=1024,
                  num_shared_fcs=2, roi_feat_size=7, encode="thetaobb"):
         if encode not in RBBOX_CODECS:
             raise NotImplementedError(f"rbbox encode {encode!r} is not "
-                                      "ported; thetaobb is")
+                                      f"ported; {sorted(RBBOX_CODECS)} are")
         super().__init__(num_classes, in_channels, fc_out_channels,
                          num_shared_fcs, roi_feat_size,
                          RBBOX_CODECS[encode][0])
@@ -82,13 +85,26 @@ def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
     return loss_cls, loss_bbox
 
 
+def softmax(x):
+    """Softmax over the last dim as the reference computes it in x's
+    dtype: exp(x - max) rounded to x's dtype over the sum of the
+    unrounded exps rounded to x's dtype (XLA keeps the float32 exps of
+    a bfloat16 softmax for the sum); bit for bit with the reference in
+    bfloat16 up to the order of that float32 sum."""
+    z = x - x.amax(-1, keepdim=True)
+    e = torch.exp(z.float())
+    return e.to(x.dtype) / e.sum(-1, keepdim=True).to(x.dtype)
+
+
 def bbox_head_decode(rois, cls_score, bbox_pred,
                      target_means=(0., 0., 0., 0.),
                      target_stds=(0.1, 0.1, 0.2, 0.2), img_shape=None):
     """Per-class boxes [..., C*4] and softmax scores [..., C].
     img_shape: None or (h, w) [..., 2] broadcasting like the rois'
-    leading dims (see `core.boxes.delta2bbox`)."""
-    scores = torch.softmax(cls_score, dim=-1)
+    leading dims (see `core.boxes.delta2bbox`).  The softmax runs in
+    cls_score's dtype (bfloat16 in the full model), as the reference's;
+    the boxes promote to float32 against float32 rois."""
+    scores = softmax(cls_score)
     boxes = delta2bbox(rois, bbox_pred, target_means, target_stds,
                        max_shape=img_shape)
     return boxes, scores
@@ -96,9 +112,12 @@ def bbox_head_decode(rois, cls_score, bbox_pred,
 
 def rbbox_head_decode(rois, cls_score, rbbox_pred, encode="thetaobb",
                       target_means=None, target_stds=None):
-    """Per-class thetaobbs [..., C*5] and softmax scores."""
+    """Per-class rotated boxes [..., C*D] in the ``encode`` format (D =
+    5 for thetaobb and rtheta, 8 for pointobb; rtheta decodes onto
+    rotated rois [..., 5], the others onto HBB rois [..., 4]) and
+    softmax scores in cls_score's dtype."""
     dim, _, decode = RBBOX_CODECS[encode]
     target_means = target_means or (0.,) * dim
     target_stds = target_stds or (1.,) * dim
-    scores = torch.softmax(cls_score, dim=-1)
+    scores = softmax(cls_score)
     return decode(rois, rbbox_pred, target_means, target_stds), scores

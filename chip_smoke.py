@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's flagship predict and train paths on one CUDA
-card.
+"""Run the PyTorch port's flagship predict and train paths and the
+RBBoxRCNNRRoI predict path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -10,16 +10,21 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    limit.  Exits non-zero when ``torch.cuda.is_available()`` is false.
 2. build: nvcc builds every kernel library of the paths from the
    checkout, one nvcc process per source, all at once: the RoIAlign
-   forward (`aidet_tpu_torch/csrc/roi_align.cu`: K1, and K2's forward)
-   and K2's backward (`csrc/roi_align_backward.cu`), with ptxas's
-   registers, shared memory and spills.
+   forward (`aidet_tpu_torch/csrc/roi_align.cu`: K1, and K2's forward),
+   K2's backward (`csrc/roi_align_backward.cu`), K3
+   (`csrc/roi_align_bandx.cu`) and K4 (`csrc/rroi_align.cu`), with
+   ptxas's registers, shared memory and spills.
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at its path's shapes, its time from CUDA events and the
    plain version's, and its bound: K1 at predict's (2 images of
    1024^2, 1000 rois per image, the four pyramid levels at C=256,
    bfloat16, 7x7 and 14x14), K2's forward and backward at the train
    step's (512 rois per image, 7x7; the backward in bfloat16 and
-   float32, against the autograd gradient of the plain version).
+   float32, against the autograd gradient of the plain version), K3 at
+   the RRoI predict's horizontal crops (2000 rois per image, 7x7) and
+   K4 at its rotated crops (100 rotated rois per image, 7x7, without
+   and with the TPU kernel's window bump), both in bfloat16 and
+   float32.
 4. reference: the small flagship (ResNet-18, float32) predict on the
    card against the same weights on the CPU, where the plain versions
    run.
@@ -33,6 +38,14 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    bfloat16 compute, the reference's train_cfg and optimizer), batch 2
    of 1024^2 with 64 gts, 1 warm-up and 3 timed steps, with K2's
    launch counts (1 forward and 1 backward per step).
+8. rroi_reference: the small RBBoxRCNNRRoI (ResNet-18, float32)
+   predict on the card against the same weights on the CPU.
+9. rroi_predict: the full-width RBBoxRCNNRRoI (ResNet-50 FPN, pointobb
+   and rtheta heads, bfloat16, 1024^2, 2000 proposals, 100 detections)
+   on 3 requests of 2 seeded random uint8 images, with K1's and K4's
+   launch counts (1 each per call).
+10. rroi_predict_bandx: one more call under AIDET_ROI_BAND=x: K3 once,
+   K1 never, K4 once, its detections paired with the last K1 call's.
 
 Then one ``{"kernels": [...]}`` line, nvidia-smi's name and power limit
 line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
@@ -62,14 +75,21 @@ ATOL_BF16 = 0.05              # kernel vs plain version, bfloat16 features
 # a few rois per image) sum tens of terms a cell and hold float32 to
 # 1e-5
 BWD_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+ATOL_F32 = 1e-4               # the same in float32 (summation order)
 MAIN = dict(batch=2, rois=1000, img=1024, channels=256,
             strides=(4, 8, 16, 32))
 TRAIN = dict(batch=2, rois=512, img=1024, channels=256, max_gt=64)
-# the kernels' wrappers (in aidet_tpu_torch.ops.roi_align) by the name
-# of their entry in the kernels line
-HANDLES = dict(roi_align="roi_align_kernel",
-               roi_align_train_forward="roi_align_train_kernel",
-               roi_align_backward="roi_align_backward_kernel")
+# the RRoI predict's crops: 2000 proposals per image (K1 or K3), 100
+# detections per image re-cropped rotated (K4)
+RROI = dict(batch=2, rois=2000, img=1024, channels=256, rrois=100)
+# the kernels' wrappers (module of aidet_tpu_torch.ops, handle) by the
+# name of their entry in the kernels line
+HANDLES = dict(roi_align=("roi_align", "roi_align_kernel"),
+               roi_align_train_forward=("roi_align",
+                                        "roi_align_train_kernel"),
+               roi_align_backward=("roi_align", "roi_align_backward_kernel"),
+               roi_align_bandx=("roi_align", "roi_align_bandx_kernel"),
+               rroi_align=("rroi_align", "rroi_align_kernel"))
 
 
 def emit(obj):
@@ -100,15 +120,22 @@ def run_device():
     return info
 
 
+def handle(name):
+    """The kernel wrapper of the kernels line's entry ``name``."""
+    import importlib
+    module, attr = HANDLES[name]
+    return getattr(importlib.import_module(f"aidet_tpu_torch.ops.{module}"),
+                   attr)
+
+
 def run_build():
     """One nvcc per kernel source, all started together; every handle
     is loaded from its source's build."""
     from concurrent.futures import ThreadPoolExecutor
     from aidet_tpu_torch.cuda_build import (REPO_ROOT, build_shared_library,
                                             ptxas_report)
-    from aidet_tpu_torch.ops import roi_align as ra
     t0 = time.perf_counter()
-    handles = [getattr(ra, attr) for attr in HANDLES.values()]
+    handles = [handle(name) for name in HANDLES]
     sources = sorted({h.source for h in handles})
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         builds = list(pool.map(build_shared_library, sources))
@@ -137,13 +164,12 @@ def main_path_rois(gen, batch, n, img):
 def launch_counts(reset=False):
     """Every kernel's launch count by name (set to 0 first if
     ``reset``)."""
-    from aidet_tpu_torch.ops import roi_align as ra
     counts = {}
-    for name, attr in HANDLES.items():
-        handle = getattr(ra, attr)
+    for name in HANDLES:
+        h = handle(name)
         if reset:
-            handle.launches = 0
-        counts[name] = handle.launches
+            h.launches = 0
+        counts[name] = h.launches
     return counts
 
 
@@ -161,25 +187,32 @@ def cuda_ms(fn, iters, warmup):
     return start.elapsed_time(end) / iters
 
 
-def samples_inside(feats, rois, lvls, strides, out_size,
-                   sampling_ratio=2):
-    """The number of bilinear samples of these rois that fall inside
-    their level's map (the others add nothing, in either direction)."""
+def cells_and_samples(feats, ys, xs, lvls, bidx):
+    """(distinct feature cells that the samples (y, x) [K, n, n] of rois
+    on levels ``lvls`` of images ``bidx`` read, samples inside their
+    map).  A sample outside its map reads nothing; the others read their
+    4 clamped bilinear corners.  The cells are what a RoIAlign forward
+    must read of the pyramid: the rest of it is no input of this run's
+    work."""
     import torch
-    n_pts = out_size * sampling_ratio
-    hs = torch.tensor([f.shape[1] for f in feats], device=rois.device)
-    ws = torch.tensor([f.shape[2] for f in feats], device=rois.device)
+    dev = ys.device
     lv = lvls.long()
-    inv = 1.0 / torch.tensor(strides, dtype=torch.float32,
-                             device=rois.device)[lv]
-    grid = (torch.arange(n_pts, device=rois.device) + 0.5) / sampling_ratio
-    inside = []
-    for lo, hi, dim in ((0, 2, ws), (1, 3, hs)):
-        a = rois[:, lo] * inv - 0.5
-        span = rois[:, hi] * inv - 0.5 - a
-        pts = a[:, None] + grid[None] * (span / out_size)[:, None]
-        inside.append(((pts >= -1) & (pts <= dim[lv][:, None])).sum(1))
-    return float((inside[0] * inside[1]).sum())
+    hs = torch.tensor([f.shape[1] for f in feats], device=dev)[lv]
+    ws = torch.tensor([f.shape[2] for f in feats], device=dev)[lv]
+    sizes = [f.shape[1] * f.shape[2] for f in feats]
+    off = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))],
+                       device=dev)[lv]
+    h, w = hs[:, None, None].float(), ws[:, None, None].float()
+    inside = (ys >= -1) & (ys <= h) & (xs >= -1) & (xs <= w)
+    y = torch.minimum(ys.clamp(min=0.0), h - 1)
+    x = torch.minimum(xs.clamp(min=0.0), w - 1)
+    y0, x0 = torch.floor(y), torch.floor(x)
+    y1, x1 = torch.minimum(y0 + 1, h - 1), torch.minimum(x0 + 1, w - 1)
+    base = (bidx.long() * sum(sizes) + off)[:, None, None]
+    wl = ws[:, None, None]
+    ids = torch.cat([(base + (yi * wl + xi).long())[inside]
+                     for yi in (y0, y1) for xi in (x0, x1)])
+    return int(torch.unique(ids).numel()), float(inside.sum())
 
 
 def bound(nbytes, flops):
@@ -191,20 +224,30 @@ def bound(nbytes, flops):
                                  else "operations")
 
 
-def roi_align_bound(feats, rois, lvls, out, strides, sampling_ratio=2):
-    """Least time for the RoIAlign forward's work on this card: every
-    input read once and the output written once, against the FMAs of
-    the samples inside their map (4 corners, 2 flops each, per
+def gather_bound(feats, coords, rois, lvls, bidx, out):
+    """Least time for a RoIAlign forward's work on this card: the cells
+    its samples read (`cells_and_samples` of ``coords``, the plain
+    version's `sample_coords`), the rois and their routing (level and
+    image, int32) read once and the output written once, against the
+    FMAs of the samples inside their map (4 corners, 2 flops each, per
     channel)."""
-    nbytes = (sum(f.numel() * f.element_size() for f in feats)
-              + rois.numel() * 4 + 2 * lvls.numel() * 4
-              + out.numel() * out.element_size())
-    s, c = out.shape[-2], out.shape[-1]
-    n = samples_inside(feats, rois, lvls, strides, s, sampling_ratio)
-    return bound(nbytes, n * c * 4 * 2)
+    cells, samples = cells_and_samples(feats, *coords, lvls, bidx)
+    c = feats[0].shape[-1]
+    nbytes = (cells * c * feats[0].element_size() + rois.numel() * 4
+              + 2 * lvls.numel() * 4 + out.numel() * out.element_size())
+    return bound(nbytes, samples * c * 4 * 2)
 
 
-def roi_align_backward_bound(feats, rois, lvls, grad_out, strides,
+def roi_align_bound(feats, rois, lvls, bidx, out, strides,
+                    sampling_ratio=2):
+    """`gather_bound` of the (horizontal) RoIAlign forward."""
+    from aidet_tpu_torch.ops.roi_align import sample_coords
+    coords = sample_coords(rois, lvls, strides, out.shape[-2],
+                           sampling_ratio)
+    return gather_bound(feats, coords, rois, lvls, bidx, out)
+
+
+def roi_align_backward_bound(feats, rois, lvls, bidx, grad_out, strides,
                              sampling_ratio=2):
     """Least time for K2's backward: grad_out, the rois and the routing
     read once and the gradient written once in its dtype; against one
@@ -218,9 +261,10 @@ def roi_align_backward_bound(feats, rois, lvls, grad_out, strides,
               + rois.numel() * 4 + 2 * lvls.numel() * 4
               + n_table * feats[0].element_size())
     table_bytes = 4 * n_table * (1 if feats[0].element_size() == 4 else 2)
+    from aidet_tpu_torch.ops.roi_align import sample_coords
     s, c = grad_out.shape[-2], grad_out.shape[-1]
-    atomics = samples_inside(feats, rois, lvls, strides, s,
-                             sampling_ratio) * 4 * c
+    coords = sample_coords(rois, lvls, strides, s, sampling_ratio)
+    atomics = cells_and_samples(feats, *coords, lvls, bidx)[1] * 4 * c
     return (*bound(nbytes, 2 * atomics), atomics, table_bytes)
 
 
@@ -270,7 +314,8 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
         if not math.isfinite(err) or err > ATOL_BF16:
             raise AssertionError(f"{name} s={s}: max abs err {err} > "
                                  f"{ATOL_BF16} against the plain version")
-        bound_ms, bound_by = roi_align_bound(feats, rois, lvls, out, strides)
+        bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
+                                             strides)
         fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
@@ -325,7 +370,7 @@ def run_backward_kernel(device="cuda"):
             raise AssertionError(f"K2 backward {name}: max abs err per "
                                  f"level {errs} over the limits {limits}")
         bound_ms, bound_by, atomics, table_bytes = roi_align_backward_bound(
-            feats, rois, lvls, grad_out, strides)
+            feats, rois, lvls, bidx, grad_out, strides)
         fields = dict(max_abs_err=max(errs), ms=cuda_ms(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
@@ -335,6 +380,144 @@ def run_backward_kernel(device="cuda"):
               atomic_adds=atomics, table_bytes=table_bytes,
               table_ms=table_bytes / HBM_BYTES_PER_S * 1e3, **fields)
         result = result or fields
+    return result
+
+
+def run_bandx_kernel(device="cuda"):
+    """K3 against its plain version at the RRoI predict's horizontal
+    crops (2 x 2000 rois, 7x7), bfloat16 then float32; returns the
+    bfloat16 fields of its entry in the kernels line."""
+    import torch
+    from aidet_tpu_torch.ops.roi_align import (BAND_H, bandx_chunks,
+                                               roi_align_bandx_kernel,
+                                               roi_align_bandx_plain)
+    strides = MAIN["strides"]
+    s = 7
+    result = None
+    for dtype, atol in ((torch.bfloat16, ATOL_BF16), (torch.float32,
+                                                      ATOL_F32)):
+        name = str(dtype).split(".")[-1]
+        feats, rois_b, rois, lvls, bidx = main_path_inputs(
+            torch.Generator().manual_seed(2), RROI, dtype, device)
+        level_hw = [tuple(f.shape[1:3]) for f in feats]
+        out = torch.empty((rois.shape[0], s, s, RROI["channels"]),
+                          dtype=dtype, device=device)
+
+        def chunk():
+            return bandx_chunks(rois, bidx, lvls, level_hw, strides,
+                                RROI["batch"], s)
+
+        chunks = chunk()
+
+        def launch():
+            roi_align_bandx_kernel(feats, rois, bidx, lvls, chunks, out,
+                                   strides, 2, True)
+
+        def plain():
+            return roi_align_bandx_plain(feats, rois_b, s, strides)
+
+        launch()
+        ref = plain()
+        torch.cuda.synchronize()
+        err = float((out.reshape(ref.shape).float() - ref.float())
+                    .abs().max())
+        if not math.isfinite(err) or err > atol:
+            raise AssertionError(f"roi_align_bandx {name}: max abs err "
+                                 f"{err} > {atol} against the plain version")
+        used = chunks.count > 0
+        first = chunks.perm[chunks.start[used]]
+        lv = lvls[first].long()
+        hs = torch.tensor([h for h, _ in level_hw], device=device)[lv]
+        ws = torch.tensor([w for _, w in level_hw], device=device)[lv]
+        stage_w = min(max(w for _, w in level_hw),
+                      roi_align_bandx_kernel.STAGE_BYTES // (BAND_H * 16))
+        staged = float(((hs - chunks.row0[used]).clamp(max=BAND_H)
+                        * ws.clamp(max=stage_w)).sum()) \
+            * RROI["channels"] * out.element_size()
+        bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
+                                             strides)
+        fields = dict(max_abs_err=err, ms=cuda_ms(launch, 20, 3),
+                      plain_ms=cuda_ms(plain, 3, 1), bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=None)
+        phase("kernels", kernel="roi_align_bandx", out_size=s,
+              rois=rois.shape[0], dtype=name, atol=atol,
+              chunks=int(used.sum()), chunk_bound=chunks.start.shape[0],
+              staged_bytes=staged,
+              staged_ms=staged / HBM_BYTES_PER_S * 1e3,
+              chunking_ms=cuda_ms(chunk, 5, 1), **fields)
+        result = result or fields
+    return result
+
+
+def rroi_path_inputs(gen, dtype, device):
+    """Seeded levels as the RRoI predict's and 2 x 100 rotated rois
+    drawn like its detections: centres inside the image, sides
+    log-uniform over 8..512 px, thetas in [-pi/2, 0)."""
+    import torch
+    b, n, img, c = (RROI[k] for k in ("batch", "rrois", "img", "channels"))
+    feats = [torch.randn(b, img // s, img // s, c, generator=gen)
+             .to(device=device, dtype=dtype) for s in MAIN["strides"]]
+    u = torch.rand(b, n, 5, generator=gen)
+    rrois_b = torch.stack([u[..., 0] * img, u[..., 1] * img,
+                           8.0 * 64.0 ** u[..., 2], 8.0 * 64.0 ** u[..., 3],
+                           -math.pi / 2 * u[..., 4]], -1).to(device)
+    return feats, rrois_b
+
+
+def run_rroi_kernel(device="cuda"):
+    """K4 against its plain version at the RRoI predict's rotated crops
+    (2 x 100 rrois, 7x7), routed without and with the TPU kernel's
+    window bump, bfloat16 then float32; returns the fields of its
+    entry in the kernels line (bfloat16, no bump: the path's)."""
+    import torch
+    from aidet_tpu_torch.ops.rroi_align import (batched_rroi_align,
+                                                route_rrois,
+                                                rroi_align_kernel,
+                                                sample_coords)
+    strides = MAIN["strides"]
+    s = 7
+    result = None
+    for dtype, atol in ((torch.bfloat16, ATOL_BF16), (torch.float32,
+                                                      ATOL_F32)):
+        name = str(dtype).split(".")[-1]
+        feats, rrois_b = rroi_path_inputs(torch.Generator().manual_seed(3),
+                                          dtype, device)
+        b, r = rrois_b.shape[:2]
+        rrois = rrois_b.reshape(b * r, 5).contiguous()
+        bidx = torch.arange(b, dtype=torch.int32,
+                            device=device).repeat_interleave(r)
+        for bump in (False, True):
+            lvls = route_rrois(rrois, [f.shape[1:3] for f in feats],
+                               strides, bump_to_window=bump)
+            out = torch.empty((b * r, s, s, RROI["channels"]), dtype=dtype,
+                              device=device)
+
+            def launch():
+                rroi_align_kernel(feats, rrois, bidx, lvls, out, strides, 2,
+                                  True)
+
+            def plain():
+                return batched_rroi_align(feats, rrois_b, s, strides,
+                                          bump_to_window=bump)
+
+            launch()
+            ref = plain()
+            torch.cuda.synchronize()
+            err = float((out.reshape(ref.shape).float() - ref.float())
+                        .abs().max())
+            if not math.isfinite(err) or err > atol:
+                raise AssertionError(f"rroi_align {name} bump={bump}: max "
+                                     f"abs err {err} > {atol} against the "
+                                     "plain version")
+            coords = sample_coords(rrois, lvls, strides, s)
+            bound_ms, bound_by = gather_bound(feats, coords, rrois, lvls,
+                                              bidx, out)
+            fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
+                          plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+            phase("kernels", kernel="rroi_align", out_size=s, rrois=b * r,
+                  dtype=name, bump_to_window=bump, atol=atol, **fields)
+            result = result or fields
     return result
 
 
@@ -348,7 +531,9 @@ def run_kernels():
                                      (7, 14)),
         roi_align_train_forward=run_forward_kernel(
             roi_align_train_kernel, "roi_align_train_forward", TRAIN, (7,)),
-        roi_align_backward=run_backward_kernel())
+        roi_align_backward=run_backward_kernel(),
+        roi_align_bandx=run_bandx_kernel(),
+        rroi_align=run_rroi_kernel())
 
 
 def run_reference(device="cuda"):
@@ -372,24 +557,76 @@ def run_reference(device="cuda"):
           n_valid=int(got["valid"].sum()), max_abs_err=errs, limits=limits)
 
 
-def match_detections(got, ref, limits):
+def run_rroi_reference(device="cuda"):
+    """Small RBBoxRCNNRRoI (float32) on ``device`` against the same
+    weights and images on the CPU: equal valid counts, every detection
+    paired by label with scores within 1e-2, boxes within 1 px, refined
+    rboxes within 1 px plus 1e-4 of their largest coordinate (random
+    weights decode boxes thousands of pixels wide) and theta within
+    1e-2, the rboxes compared where the first-stage quad is clear of a
+    tie (`rbox_clear_of_ties`), and a detection at the 20-per-image cut
+    whose score ties the other run's last within 1e-2 may be another
+    member of the tie."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from aidet_tpu_torch.rroi import build_rroi
+    img = 256
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    models = [build_rroi(img, small=True, device=d) for d in (device, "cpu")]
+    got, ref = ({k: v.cpu() for k, v in m.predict(
+        imgs.to(d), shapes.to(d)).items()}
+        for m, d in zip(models, (device, "cpu")))
+    clear = rbox_clear_of_ties(first_stage_quads(models[1], imgs, shapes))
+    limits = dict(boxes=1.0, rboxes=1.0, rboxes_rel=1e-4, theta=1e-2,
+                  scores=1e-2)
+    errs = match_detections(got, ref, limits, rbox_clear=clear,
+                            cut_slack=True)
+    n_valid = int(got["valid"].sum())
+    n_clear = int((clear & ref["valid"]).sum())
+    if n_clear < n_valid / 2:
+        raise AssertionError(f"rroi_reference: only {n_clear} of {n_valid} "
+                             "first-stage quads are clear of a tie")
+    phase("rroi_reference", model="small RBBoxRCNNRRoI float32", img=img,
+          n_valid=n_valid, n_rbox_compared=n_clear, max_abs_err=errs,
+          limits=limits)
+
+
+def match_detections(got, ref, limits, rbox_clear=None, max_unpaired=0,
+                     cut_slack=False):
     """Pair every valid detection of ``got`` with one of ``ref`` of the
     same image and label whose score, box, rbox centre and size (px)
-    and theta are within ``limits``; raise if one finds no partner or
-    the valid counts differ.  Detections whose scores differ by less
-    than the two devices' rounding may come out in either order, so
-    partners are searched for, not taken by position.  Returns the
-    largest differences over the pairs."""
-    errs = dict.fromkeys(limits, 0.0)
+    and theta are within ``limits`` (with "rboxes_rel", the rbox limit
+    grows by that share of the rbox's largest coordinate); raise if the
+    valid counts differ or more than ``max_unpaired`` detections find no
+    partner.  Detections whose scores differ by less than the two runs'
+    rounding may come out in either order, so partners are searched
+    for, not taken by position.  ``rbox_clear`` [B, K] (bool, over
+    ``ref``'s detections): where False, the rbox is not compared (see
+    `rbox_clear_of_ties`).  ``cut_slack``: a detection without a partner
+    whose score is within the score limit of ``ref``'s lowest kept
+    score of its image is excused (counted as "at_cut"): at the
+    max_per_img cut, two runs may keep different members of a tie.
+    Returns the largest differences over the pairs, the counts of
+    detections without a partner, and for up to 8 of those the
+    differences to the nearest box of their label ("nearest")."""
+    rel = limits.get("rboxes_rel", 0.0)
+    keys = [k for k in limits if k != "rboxes_rel"]
+    errs = dict.fromkeys(keys, 0.0)
+    unpaired = at_cut = 0
+    nearest = []
     for b in range(got["valid"].shape[0]):
         gi = got["valid"][b].nonzero().flatten().tolist()
         ri = ref["valid"][b].nonzero().flatten().tolist()
         if len(gi) != len(ri):
-            raise AssertionError(f"reference: image {b} has {len(gi)} "
-                                 f"detections, the CPU run {len(ri)}")
+            raise AssertionError(f"image {b} has {len(gi)} detections, "
+                                 f"the run it is held to {len(ri)}")
+        cut = float(ref["scores"][b, ri].float().min()) if ri else 0.0
         free = set(ri)
         for i in gi:
-            best = None
+            best = near = None
             for j in free:
                 if got["labels"][b, i] != ref["labels"][b, j]:
                     continue
@@ -402,15 +639,64 @@ def match_detections(got, ref, limits):
                                   - ref["rboxes"][b, j, :4]).abs().max()),
                     theta=abs(float(got["rboxes"][b, i, 4]
                                     - ref["rboxes"][b, j, 4])))
-                if all(d[k] <= limits[k] for k in limits) and (
+                lim = dict(limits, rboxes=limits["rboxes"] + rel * float(
+                    ref["rboxes"][b, j, :4].abs().max()))
+                if rbox_clear is not None and not bool(rbox_clear[b, j]):
+                    d.update(rboxes=0.0, theta=0.0)
+                if near is None or d["boxes"] < near["boxes"]:
+                    near = dict(d, rbox_limit=lim["rboxes"])
+                if all(d[k] <= lim[k] for k in keys) and (
                         best is None or d["scores"] < best[1]["scores"]):
                     best = (j, d)
             if best is None:
-                raise AssertionError(f"reference: detection {i} of image "
-                                     f"{b} has no partner in the CPU run")
+                if cut_slack and float(got["scores"][b, i]) \
+                        <= cut + limits["scores"]:
+                    at_cut += 1
+                    continue
+                unpaired += 1
+                if len(nearest) < 8:
+                    nearest.append(dict(image=b, index=i, nearest=near))
+                if unpaired > max_unpaired:
+                    raise AssertionError(
+                        f"detection {i} of image {b} (score "
+                        f"{float(got['scores'][b, i])}, label "
+                        f"{int(got['labels'][b, i])}) has no partner in "
+                        f"the run it is held to ({unpaired} so far; "
+                        f"nearest {nearest})")
+                continue
             free.discard(best[0])
             errs = {k: max(errs[k], best[1][k]) for k in errs}
-    return errs
+    return dict(errs, unpaired=unpaired, at_cut=at_cut, nearest=nearest)
+
+
+def rbox_clear_of_ties(quads, gap=1e-3):
+    """[B, K] bool: the first-stage pointobbs [B, K, 8] whose smallest
+    candidate rectangle in `pointobb2thetaobb` is ``gap`` (relative)
+    below the next.  Random weights decode self-intersecting quads whose two
+    smallest candidates tie; two runs a rounding apart may then pick
+    the other edge (the same rectangle with theta shifted by pi/2 and
+    w, h swapped) and re-crop and refine it differently, so their
+    refined rboxes are not comparable."""
+    import torch
+    pts = quads.double().reshape(quads.shape[:2] + (4, 2))
+    e = torch.roll(pts, -1, -2) - pts
+    ang = torch.atan2(e[..., 1], e[..., 0])[..., None]      # [B, K, 4, 1]
+    x, y = pts[..., None, :, 0], pts[..., None, :, 1]       # [B, K, 1, 4]
+    u = x * torch.cos(ang) + y * torch.sin(ang)
+    v = -x * torch.sin(ang) + y * torch.cos(ang)
+    area = ((u.amax(-1) - u.amin(-1)) * (v.amax(-1) - v.amin(-1))).sort(-1)
+    a = area.values
+    return (a[..., 1] - a[..., 0]) > gap * a[..., 0].clamp(min=1e-9)
+
+
+def first_stage_quads(model, imgs, shapes):
+    """The first-stage pointobbs of an RBBoxRCNNRRoI: its predict with
+    the refinement head taken off for the call."""
+    head, model.rbbox_refine_head = model.rbbox_refine_head, None
+    try:
+        return model.predict(imgs, shapes)["rboxes"]
+    finally:
+        model.rbbox_refine_head = head
 
 
 def run_predict(device="cuda", small=False, calls=3, batch=2, seed=0):
@@ -450,8 +736,8 @@ def run_predict(device="cuda", small=False, calls=3, batch=2, seed=0):
             if not bool(torch.isfinite(out[key]).all()):
                 raise AssertionError(f"predict: {key} not finite")
     launches = launch_counts()
-    want = dict(roi_align=calls if on_card else 0,
-                roi_align_train_forward=0, roi_align_backward=0)
+    want = dict.fromkeys(HANDLES, 0)
+    want["roi_align"] = calls if on_card else 0
     if launches != want:
         raise AssertionError(f"predict: launches {launches} in {calls} "
                              f"calls, expected {want}")
@@ -462,6 +748,74 @@ def run_predict(device="cuda", small=False, calls=3, batch=2, seed=0):
                 first_call_ms=times[0], ms_per_call=ms,
                 images_per_s=batch * 1e3 / ms, launches=launches,
                 n_valid=int(out["valid"].sum()))
+
+
+def run_rroi_predict(device="cuda", small=False, calls=3, batch=2, seed=0,
+                     band="1"):
+    """Drive the RBBoxRCNNRRoI predict ``calls`` times on ``batch``
+    seeded random uint8 images with AIDET_ROI_BAND=``band`` for the
+    calls; check the outputs and the launch counts (on the card K4 once
+    per call, and K1 once per call, or K3 under band "x" in bfloat16;
+    none on the CPU, where the plain versions run).  Returns (the
+    phase's fields, the model, the images, their shapes, the last
+    call's outputs)."""
+    import os
+    import torch
+    from aidet_tpu_torch.rroi import build_rroi
+    img = 256 if small else RROI["img"]
+    model = build_rroi(img, small=small, device=device, seed=seed)
+    imgs = torch.randint(0, 256, (batch, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed))
+    imgs = imgs.to(device)
+    shapes = torch.full((batch, 2), float(img), device=device)
+    on_card = torch.device(device).type == "cuda"
+    k = model.test_cfg["rcnn"]["max_per_img"]
+    shapes_want = dict(boxes=(batch, k, 4), rboxes=(batch, k, 5),
+                       scores=(batch, k), labels=(batch, k),
+                       valid=(batch, k))
+    before = os.environ.get("AIDET_ROI_BAND")
+    os.environ["AIDET_ROI_BAND"] = band
+    try:
+        launch_counts(reset=True)
+        times = []
+        for _ in range(calls):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.predict(imgs, shapes)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for key, shape in shapes_want.items():
+                if tuple(out[key].shape) != shape:
+                    raise AssertionError(f"rroi_predict: {key} shape "
+                                         f"{tuple(out[key].shape)} != "
+                                         f"{shape}")
+            for key in ("boxes", "rboxes", "scores"):
+                if not bool(torch.isfinite(out[key]).all()):
+                    raise AssertionError(f"rroi_predict: {key} not finite")
+        launches = launch_counts()
+    finally:
+        if before is None:
+            del os.environ["AIDET_ROI_BAND"]
+        else:
+            os.environ["AIDET_ROI_BAND"] = before
+    want = dict.fromkeys(HANDLES, 0)
+    if on_card:
+        bandx = band == "x" and model.dtype == torch.bfloat16
+        want["roi_align_bandx" if bandx else "roi_align"] = calls
+        want["rroi_align"] = calls
+    if launches != want:
+        raise AssertionError(f"rroi_predict: launches {launches} in "
+                             f"{calls} calls, expected {want}")
+    steady = times[1:] or times
+    ms = sum(steady) / len(steady)
+    fields = dict(img=img, batch=batch, calls=calls, roi_band=band,
+                  dtype=str(next(model.parameters()).dtype),
+                  first_call_ms=times[0], call_ms=times, ms_per_call=ms,
+                  images_per_s=batch * 1e3 / ms, launches=launches,
+                  n_valid=int(out["valid"].sum()))
+    return fields, model, imgs, shapes, out
 
 
 def train_step_once(device, img, n_gt, train_cfg, seed=0):
@@ -579,7 +933,8 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
         if bad:
             raise AssertionError(f"train: {bad} not finite")
     launches = launch_counts()
-    want = dict(roi_align=0, roi_align_train_forward=steps if on_card else 0,
+    want = dict.fromkeys(HANDLES, 0)
+    want.update(roi_align_train_forward=steps if on_card else 0,
                 roi_align_backward=steps if on_card else 0)
     if launches != want:
         raise AssertionError(f"train: launches {launches} in {steps} "
@@ -612,7 +967,39 @@ KERNELS = (
      "aidet_tpu/ops/roi_align_pallas.py:344", "train"),
     ("roi_align_backward", "aidet_tpu_torch/csrc/roi_align_backward.cu",
      "aidet_tpu/ops/roi_align_pallas.py:378-393", "train"),
+    ("roi_align_bandx", "aidet_tpu_torch/csrc/roi_align_bandx.cu",
+     "aidet_tpu/ops/roi_align_bandx.py:124", "rroi_predict_bandx"),
+    ("rroi_align", "aidet_tpu_torch/csrc/rroi_align.cu",
+     "aidet_tpu/ops/rroi_align_pallas.py:247", "rroi_predict"),
 )
+
+
+def run_rroi_paths(card):
+    """The rroi_predict phase (3 calls, K1 and K4), then one call under
+    AIDET_ROI_BAND=x (K3 and K4) whose detections are paired with the
+    last K1 call's: same labels, scores within 2e-2 (a few bfloat16
+    ulps), boxes within 2 px, rboxes within 2 px plus 1e-2 of their
+    largest coordinate and theta within 5e-2 where the first-stage
+    quad is clear of a tie by 5e-2 (bfloat16 deltas move a quad's
+    corners by up to 2^-8 of its size).  K1 and K3 compute one function
+    in another order, so a crop may differ by an ulp of bfloat16, and
+    random weights rank near-tied scores: at most 5 of the 200
+    detections may find no partner, besides those at the 100-per-image
+    cut.  Returns the two runs' fields by phase name."""
+    fields, model, imgs, shapes, k1_out = run_rroi_predict()
+    phase("rroi_predict", model="RBBoxRCNNRRoI R50-FPN", card=card,
+          **fields)
+    clear = rbox_clear_of_ties(first_stage_quads(model, imgs, shapes),
+                               gap=5e-2)
+    del model
+    bandx, _, _, _, k3_out = run_rroi_predict(calls=1, band="x")
+    limits = dict(boxes=2.0, rboxes=2.0, rboxes_rel=1e-2, theta=5e-2,
+                  scores=2e-2)
+    errs = match_detections(k3_out, k1_out, limits, rbox_clear=clear,
+                            max_unpaired=5, cut_slack=True)
+    phase("rroi_predict_bandx", model="RBBoxRCNNRRoI R50-FPN", card=card,
+          against_k1=errs, limits=limits, **bandx)
+    return dict(rroi_predict=fields, rroi_predict_bandx=bandx)
 
 
 def main() -> int:
@@ -627,6 +1014,8 @@ def main() -> int:
     runs["train"] = run_train()
     phase("train", model="flagship R50-FPN", card=info["nvidia_smi"],
           **runs["train"])
+    run_rroi_reference()
+    runs.update(run_rroi_paths(info["nvidia_smi"]))
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name], **measured[name])

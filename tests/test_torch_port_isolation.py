@@ -2,8 +2,10 @@
 torchvision and the reference package are absent, as on the machine
 with the card.  A subprocess makes every such import raise, imports
 every module of `aidet_tpu_torch` and `chip_smoke`, and rehearses
-chip_smoke's predict and train phases on the CPU (small flagship,
-plain versions, no kernel launch) to their ends."""
+chip_smoke's flagship predict and train phases and its RBBoxRCNNRRoI
+predict (also under AIDET_ROI_BAND=x) on the CPU (small models, plain
+versions, no kernel launch) to their ends.  The kernels' CUDA sources
+include no framework header."""
 
 import ast
 import os
@@ -40,6 +42,11 @@ out = chip_smoke.run_predict(device="cpu", small=True)
 assert set(out["launches"].values()) == {{0}}, out
 train = chip_smoke.run_train(device="cpu", small=True, steps=1)
 assert set(train["launches"].values()) == {{0}}, train
+for band in ("1", "x"):
+    rroi = chip_smoke.run_rroi_predict(device="cpu", small=True, calls=1,
+                                       band=band)[0]
+    assert set(rroi["launches"].values()) == {{0}}, rroi
+    assert rroi["n_valid"] > 0, rroi
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
@@ -94,3 +101,26 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                               timeout=120)
         assert proc.returncode != 0, proc.stdout
         assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+SOURCES = ("roi_align.cu", "roi_align_backward.cu", "roi_align_bandx.cu",
+           "rroi_align.cu", "roi_common.cuh")
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_kernel_source_includes_no_framework_header(name):
+    """Each kernel source is plain CUDA C++ with an extern "C" entry
+    (built by nvcc alone and loaded with ctypes): its includes are the
+    CUDA runtime's and the C library's, or the shared header."""
+    csrc = REPO / "aidet_tpu_torch" / "csrc"
+    assert sorted(p.name for p in csrc.iterdir()) == sorted(SOURCES)
+    text = (csrc / name).read_text()
+    includes = [line.split()[1].strip('<>"') for line in text.splitlines()
+                if line.startswith("#include")]
+    assert includes
+    assert set(includes) <= {"cuda_bf16.h", "cuda_runtime.h", "stdint.h",
+                             "roi_common.cuh"}, includes
+    for word in ("torch", "ATen", "pybind", "jax", "aidet_tpu/"):
+        assert word not in "".join(includes), (name, word)
+    if name.endswith(".cu"):
+        assert 'extern "C" int aidet_' in text
