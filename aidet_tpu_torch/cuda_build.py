@@ -68,7 +68,8 @@ def build_shared_library(source: Path) -> BuildResult:
 
 
 def ptxas_report(log: str) -> list[dict]:
-    """Registers, shared memory and spills per kernel from ptxas -v."""
+    """Registers, shared memory, stack frame and spills per kernel from
+    ptxas -v."""
     kernels, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -83,6 +84,9 @@ def ptxas_report(log: str) -> list[dict]:
             cur["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(s.group(1)) if s else 0
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:

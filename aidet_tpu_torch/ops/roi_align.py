@@ -374,7 +374,10 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 
 class RoIAlignKernel(_KernelLibrary):
     """The CUDA RoIAlign forward (`csrc/roi_align.cu`): K1 on the
-    predict path, and K2's forward inside `RoIAlignFunction`."""
+    predict path, and K2's forward inside `RoIAlignFunction`: one block
+    per roi, its window staged once in shared memory."""
+
+    MAX_SAMPLES = 1024      # out_size * sampling_ratio (kMaxSamples)
 
     def __init__(self):
         super().__init__(CSRC / "roi_align.cu", "aidet_roi_align_forward",
@@ -385,6 +388,10 @@ class RoIAlignKernel(_KernelLibrary):
                  sampling_ratio, aligned):
         """Launch on the current stream; rois [K, 4] f32, bidx/lvls [K]
         int32, out [K, s, s, C] (all contiguous, on the card)."""
+        if out.shape[1] * sampling_ratio > self.MAX_SAMPLES:
+            raise ValueError(f"out_size {out.shape[1]} x sampling_ratio "
+                             f"{sampling_ratio} exceeds the kernel's "
+                             f"{self.MAX_SAMPLES} samples per roi side")
         ptrs = [f.data_ptr() for f in feats] + [None] * (4 - len(feats))
         stream = torch.cuda.current_stream(rois.device).cuda_stream
         self._launch(
@@ -397,17 +404,46 @@ class RoIAlignKernel(_KernelLibrary):
         return out
 
 
+# K2's backward cuts each level into BWD_TILE x BWD_TILE-cell tiles
+# (kTile of csrc/roi_align_backward.cu)
+BWD_TILE = 4
+
+
+def backward_tile_count(level_shapes) -> int:
+    """Tiles of K2's backward over levels [B, H, W, C]."""
+    return sum(b * -(-h // BWD_TILE) * -(-w // BWD_TILE)
+               for b, h, w, _ in level_shapes)
+
+
+def backward_scratch_ints(level_shapes, num_rois, out_size,
+                          sampling_ratio) -> int:
+    """int32 values of K2's backward scratch: counts per tile, a
+    running total, offsets and cursors per tile, then the entry lists
+    at their upper bound, 4 * K * (out_size * ratio)^2 (every sample of
+    every bin in a tile of its own)."""
+    n = out_size * sampling_ratio
+    return (3 * backward_tile_count(level_shapes) + 1
+            + 4 * num_rois * n * n)
+
+
 class RoIAlignBackwardKernel(_KernelLibrary):
     """K2's backward (`csrc/roi_align_backward.cu`): the features'
-    gradient from grad_out, summed in one float32 table for all levels
-    and cast once to the features' dtype."""
+    gradient from grad_out, binned into 4x4-cell tiles and summed tile
+    by tile in shared memory, written once in grad_out's dtype.
+
+    ``scratch`` keeps the last launch's int32 bookkeeping (sized by
+    `backward_scratch_ints`): its first ``tiles`` values are the
+    entries per tile."""
 
     def __init__(self):
         super().__init__(CSRC / "roi_align_backward.cu",
                          "aidet_roi_align_backward",
-                         [_I, _I, _P, ctypes.c_longlong, _P] + [_I] * 8
+                         [_I, _I, _P, ctypes.c_longlong, _P,
+                          ctypes.c_longlong] + [_I] * 8
                          + [_I] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 4
                          + [_P, _P])
+        self.scratch: torch.Tensor | None = None
+        self.tiles = 0
 
     def __call__(self, grad_out, rois, bidx, lvls, level_shapes,
                  featmap_strides, sampling_ratio, aligned):
@@ -432,17 +468,19 @@ class RoIAlignBackwardKernel(_KernelLibrary):
         if not grad_out.is_contiguous() or grad_out.data_ptr() % 16:
             raise ValueError("grad_out must be contiguous and 16-byte "
                              "aligned")
+        if 4 * k * (s * sampling_ratio) ** 2 >= 2 ** 31:
+            raise ValueError("too many rois for one launch")
         sizes = [math.prod(shape) for shape in level_shapes]
         total = sum(sizes)
         dev = grad_out.device
-        table = torch.empty(total, dtype=torch.float32, device=dev)
-        grads = (table if dtype == torch.float32
-                 else torch.empty(total, dtype=dtype, device=dev))
+        grads = torch.empty(total, dtype=dtype, device=dev)
+        n_scratch = backward_scratch_ints(level_shapes, k, s, sampling_ratio)
+        self.scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+        self.tiles = backward_tile_count(level_shapes)
         stream = torch.cuda.current_stream(dev).cuda_stream
         self._launch(
             "roi_align backward", dev.index, self._DTYPE_CODE[dtype],
-            table.data_ptr(), total,
-            None if grads is table else grads.data_ptr(),
+            grads.data_ptr(), total, self.scratch.data_ptr(), n_scratch,
             *self._level_args(level_shapes, featmap_strides),
             len(level_shapes), level_shapes[0][0], c, rois.data_ptr(),
             bidx.data_ptr(), lvls.data_ptr(), k, s, sampling_ratio,

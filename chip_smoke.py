@@ -16,11 +16,15 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    ptxas's registers, shared memory and spills.
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at its path's shapes, its time from CUDA events and the
-   plain version's, and its bound: K1 at predict's (2 images of
-   1024^2, 1000 rois per image, the four pyramid levels at C=256,
-   bfloat16, 7x7 and 14x14), K2's forward and backward at the train
-   step's (512 rois per image, 7x7; the backward in bfloat16 and
-   float32, against the autograd gradient of the plain version), K3 at
+   plain version's, its bound and its share of the bound (bound_ms /
+   ms): K1 at the RRoI predict's 2000 rois per image (7x7) and at
+   predict's (2 images of 1024^2, 1000 rois per image, the four
+   pyramid levels at C=256, bfloat16, 7x7 and 14x14), K2's forward and
+   backward at the train step's (512 rois per image, 7x7; the backward
+   in bfloat16 and float32, against the autograd gradient of the plain
+   version, launched twice and the two held to the same limits, with
+   its tile lists: entries, the longest list and the spread of the
+   lengths, and its scratch bytes), K3 at
    the RRoI predict's horizontal crops (2000 rois per image, 7x7) and
    K4 at its rotated crops (100 rotated rois per image, 7x7, without
    and with the TPU kernel's window bump), both in bfloat16 and
@@ -37,7 +41,8 @@ Phases, each printing one JSON line with its ``elapsed_s``:
 7. train: the full-width flagship's train step (float32 parameters,
    bfloat16 compute, the reference's train_cfg and optimizer), batch 2
    of 1024^2 with 64 gts, 1 warm-up and 3 timed steps, with K2's
-   launch counts (1 forward and 1 backward per step).
+   launch counts (1 forward and 1 backward per step) and the last
+   backward's tile lists.
 8. rroi_reference: the small RBBoxRCNNRRoI (ResNet-18, float32)
    predict on the card against the same weights on the CPU.
 9. rroi_predict: the full-width RBBoxRCNNRRoI (ResNet-50 FPN, pointobb
@@ -251,21 +256,32 @@ def roi_align_backward_bound(feats, rois, lvls, bidx, grad_out, strides,
                              sampling_ratio=2):
     """Least time for K2's backward: grad_out, the rois and the routing
     read once and the gradient written once in its dtype; against one
-    multiply and one add per atomic add (4 corners per sample inside its
-    map, per channel).  Also returns the number of atomic adds and the
-    bytes of the kernel's own float32 table (memset, and for bfloat16
-    read once more by the cast), traffic of this design that the
-    function does not need and the bound leaves out."""
-    n_table = sum(f.numel() for f in feats)
+    multiply and one add per corner of every sample inside its map, per
+    channel."""
     nbytes = (grad_out.numel() * grad_out.element_size()
               + rois.numel() * 4 + 2 * lvls.numel() * 4
-              + n_table * feats[0].element_size())
-    table_bytes = 4 * n_table * (1 if feats[0].element_size() == 4 else 2)
+              + sum(f.numel() for f in feats) * feats[0].element_size())
     from aidet_tpu_torch.ops.roi_align import sample_coords
     s, c = grad_out.shape[-2], grad_out.shape[-1]
     coords = sample_coords(rois, lvls, strides, s, sampling_ratio)
-    atomics = cells_and_samples(feats, *coords, lvls, bidx)[1] * 4 * c
-    return (*bound(nbytes, 2 * atomics), atomics, table_bytes)
+    adds = cells_and_samples(feats, *coords, lvls, bidx)[1] * 4 * c
+    return bound(nbytes, 2 * adds)
+
+
+def backward_lists(kernel):
+    """K2's backward's tile lists from its last launch's scratch:
+    entries, the longest list and the spread of the lengths of the
+    non-empty ones, and the scratch's bytes."""
+    import torch
+    counts = kernel.scratch[:kernel.tiles].long()
+    used = counts[counts > 0].float()
+    q = (torch.quantile(used, torch.tensor([0.5, 0.9, 0.99],
+                                           device=used.device)).tolist()
+         if used.numel() else [0.0] * 3)
+    return dict(entries=int(counts.sum()), longest_list=int(counts.max()),
+                tiles=int(counts.numel()), tiles_used=int(used.numel()),
+                list_p50=q[0], list_p90=q[1], list_p99=q[2],
+                scratch_bytes=kernel.scratch.numel() * 4)
 
 
 def main_path_inputs(gen, shape, dtype, device):
@@ -289,7 +305,7 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
     """A RoIAlign forward handle (K1, or K2's forward) against the
     plain version at ``shape`` for each out_size in ``sizes``, bfloat16;
     returns the fields of its entry in the kernels line (the first
-    size's)."""
+    size's), with its share of the bound (bound_ms / ms)."""
     import torch
     from aidet_tpu_torch.ops.roi_align import batched_multilevel_roi_align
     strides = MAIN["strides"]
@@ -319,6 +335,7 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
         fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
+        fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=name, out_size=s, rois=rois.shape[0],
               dtype="bfloat16", atol=ATOL_BF16, **fields)
         result = result or fields
@@ -369,16 +386,25 @@ def run_backward_kernel(device="cuda"):
                    for e, lim in zip(errs, limits)):
             raise AssertionError(f"K2 backward {name}: max abs err per "
                                  f"level {errs} over the limits {limits}")
-        bound_ms, bound_by, atomics, table_bytes = roi_align_backward_bound(
+        lists = backward_lists(roi_align_backward_kernel)
+        again = launch()
+        torch.cuda.synchronize()
+        rerun = [float((a.float() - b.float()).abs().max())
+                 for a, b in zip(again, got)]
+        if not all(e <= lim for e, lim in zip(rerun, limits)):
+            raise AssertionError(f"K2 backward {name}: two launches differ "
+                                 f"by {rerun} per level, limits {limits}")
+        rerun_err = max(rerun)
+        bound_ms, bound_by = roi_align_backward_bound(
             feats, rois, lvls, bidx, grad_out, strides)
         fields = dict(max_abs_err=max(errs), ms=cuda_ms(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
+        fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel="roi_align_backward", out_size=s,
               rois=rois.shape[0], dtype=name, max_abs_err_per_level=errs,
               limit_per_level=limits, rel_tol=BWD_REL_TOL[name],
-              atomic_adds=atomics, table_bytes=table_bytes,
-              table_ms=table_bytes / HBM_BYTES_PER_S * 1e3, **fields)
+              rerun_max_abs_diff=rerun_err, lists=lists, **fields)
         result = result or fields
     return result
 
@@ -439,6 +465,7 @@ def run_bandx_kernel(device="cuda"):
         fields = dict(max_abs_err=err, ms=cuda_ms(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 3, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
+        fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel="roi_align_bandx", out_size=s,
               rois=rois.shape[0], dtype=name, atol=atol,
               chunks=int(used.sum()), chunk_bound=chunks.start.shape[0],
@@ -515,6 +542,7 @@ def run_rroi_kernel(device="cuda"):
             fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
                           plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
+            fields["bound_share"] = bound_ms / fields["ms"]
             phase("kernels", kernel="rroi_align", out_size=s, rrois=b * r,
                   dtype=name, bump_to_window=bump, atol=atol, **fields)
             result = result or fields
@@ -526,6 +554,8 @@ def run_kernels():
     fields of each one's entry in the kernels line, by name."""
     from aidet_tpu_torch.ops.roi_align import (roi_align_kernel,
                                                roi_align_train_kernel)
+    # K1 at the RRoI predict's 2 x 2000 proposals too (a phase line)
+    run_forward_kernel(roi_align_kernel, "roi_align", RROI, (7,))
     return dict(
         roi_align=run_forward_kernel(roi_align_kernel, "roi_align", MAIN,
                                      (7, 14)),
@@ -933,6 +963,8 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
         if bad:
             raise AssertionError(f"train: {bad} not finite")
     launches = launch_counts()
+    lists = (backward_lists(handle("roi_align_backward")) if on_card
+             else None)
     want = dict.fromkeys(HANDLES, 0)
     want.update(roi_align_train_forward=steps if on_card else 0,
                 roi_align_backward=steps if on_card else 0)
@@ -957,7 +989,8 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
                 peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
                                  if on_card else None),
                 metrics={k: float(v) for k, v in metrics.items()},
-                params_moved=moved, launches=launches)
+                params_moved=moved, launches=launches,
+                backward_lists=lists)
 
 
 KERNELS = (

@@ -1,0 +1,261 @@
+"""Torch twins of the integer bookkeeping of two CUDA kernels of the
+port, for the CPU tests only (the port itself never calls them).
+
+K1, `aidet_tpu_torch/csrc/roi_align.cu`: each roi's window is the
+product of its distinct clamped corner rows and columns
+(`window_plan`, and `scan_axis`, the kernel's `plan_axis` rule as a
+serial walk), walked in tiles of at most ``cap`` cells (`stripe_plan`,
+the kernel's loop bounds) and reduced in x then in y
+(`separable_roi_align`).
+
+K2's backward, `aidet_tpu_torch/csrc/roi_align_backward.cu`: every
+(roi, bin) is an entry of each 4x4-cell tile that a corner of one of
+its samples falls in (`tile_binning`), and each tile sums its entries'
+corners that lie in it (`binned_backward`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from aidet_tpu_torch.ops.roi_align import BWD_TILE, sample_coords
+
+
+def axis_samples(rois, lvls, strides, out_size, ratio, aligned):
+    """The sample rows ys [K, n] and columns xs [K, n] of the kernels'
+    geometry (the plain version's `sample_coords`)."""
+    ys, xs = sample_coords(rois, lvls, strides, out_size, ratio, aligned)
+    return ys[:, :, 0], xs[:, 0, :]
+
+
+def corners(p, size):
+    """(inside [n] bool, c0, c1 [n] long, weight of c1 [n]) of samples
+    p [n] on an axis of ``size`` cells."""
+    inside = (p >= -1.0) & (p <= size)
+    c = p.clamp(min=0.0, max=size - 1)
+    c0 = torch.floor(c)
+    return inside, c0.long(), torch.clamp(c0 + 1, max=size - 1).long(), \
+        c - c0
+
+
+def window_axis(p, size):
+    """K1's plan of one axis by sorting: the distinct corners of the
+    samples p [n] inside the map, and each sample's two list indices
+    idx [2, n] (-1 outside the map) and weights w [2, n]."""
+    inside, c0, c1, l = corners(p, size)
+    listed = torch.unique(torch.cat([c0[inside], c1[inside]]))
+    idx = torch.stack([torch.searchsorted(listed, c0),
+                       torch.searchsorted(listed, c1)])
+    idx = torch.where(inside, idx, -1)
+    w = torch.where(inside, torch.stack([1.0 - l, l]), 0.0)
+    return listed, idx, w
+
+
+def scan_axis(p, size):
+    """The rule of the kernel's `plan_axis` as one serial walk in
+    increasing coordinate: a corner is listed when it exceeds the
+    largest listed so far, and one that is not is the last or the one
+    before it (the kernel decides this for 32 samples at a time with a
+    ballot).  Returns what `window_axis` returns."""
+    n = p.shape[0]
+    rev = bool(n > 1 and p[-1] < p[0])
+    listed, idx = [], [[-1] * n, [-1] * n]
+    w = torch.zeros(2, n, dtype=p.dtype)
+    for t in range(n):
+        m = n - 1 - t if rev else t
+        if p[m] < -1.0 or p[m] > size:
+            continue
+        c = min(max(float(p[m]), 0.0), size - 1.0)
+        c0 = math.floor(c)
+        c1 = min(c0 + 1, size - 1)
+        if not listed or c0 > listed[-1]:
+            listed.append(c0)
+        i0 = len(listed) - 1 if listed[-1] == c0 else len(listed) - 2
+        if c1 > listed[-1]:
+            listed.append(c1)
+        idx[0][m], idx[1][m] = i0, (i0 if c1 == c0 else i0 + 1)
+        w[0, m], w[1, m] = 1.0 - (c - c0), c - c0
+    return torch.tensor(listed, dtype=torch.long), torch.tensor(idx), w
+
+
+def window_plan(rois, lvls, level_hw, strides, out_size, ratio, aligned):
+    """Per roi: (rows, row idx, row w, cols, col idx, col w) of
+    `window_axis`."""
+    ys, xs = axis_samples(rois, lvls, strides, out_size, ratio, aligned)
+    plans = []
+    for k in range(rois.shape[0]):
+        h, w = level_hw[int(lvls[k])]
+        plans.append(window_axis(ys[k], h) + window_axis(xs[k], w))
+    return plans
+
+
+def stripe_plan(nrows, ncols, cap):
+    """K1's tiles of a nrows x ncols window, in its order: (first row,
+    rows, first column, columns).  Whole rows, cap // ncols of them at a
+    time, when a row fits ``cap`` cells; else one row at a time in
+    stripes of ``cap`` columns."""
+    if nrows == 0 or ncols == 0:
+        return []
+    rows_per = cap // ncols if ncols <= cap else 1
+    width = min(ncols, cap)
+    return [(q0, min(rows_per, nrows - q0), s0, min(width, ncols - s0))
+            for q0 in range(0, nrows, rows_per)
+            for s0 in range(0, ncols, width)]
+
+
+def bin_rows_span(idx, ratio):
+    """The most listed rows one bin row reads (the kernel keeps a ring
+    of 2 * ratio of them)."""
+    span = 0
+    for b in range(idx.shape[1] // ratio):
+        i = idx[:, b * ratio:(b + 1) * ratio]
+        i = i[i >= 0]
+        if i.numel():
+            span = max(span, int(i.max() - i.min()) + 1)
+    return span
+
+
+def separable_roi_align(feats, rois, bidx, lvls, out_size, strides,
+                        ratio=2, aligned=True, cap=32):
+    """K1's reduction over its planned windows: every tile of cells
+    staged from the level, reduced in x at the bin columns, then in y
+    at the bin rows; the result [K, s, s, C] in the features' dtype
+    (sums in float32, float64 for float64)."""
+    compute = torch.promote_types(feats[0].dtype, torch.float32)
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    plans = window_plan(rois.to(compute), lvls, level_hw, strides,
+                        out_size, ratio, aligned)
+    c = feats[0].shape[-1]
+    out = torch.zeros(rois.shape[0], out_size, out_size, c, dtype=compute)
+    n = out_size * ratio
+    for k, (rows, ri, rw, cols, ci, cw) in enumerate(plans):
+        fmap = feats[int(lvls[k])][int(bidx[k])].to(compute)
+        x_rows = torch.zeros(rows.numel(), out_size, c, dtype=compute)
+        for q0, nr, s0, ns in stripe_plan(rows.numel(), cols.numel(), cap):
+            staged = fmap[rows[q0:q0 + nr]][:, cols[s0:s0 + ns]]
+            wx = torch.zeros(out_size, ns, dtype=compute)
+            for m in range(n):
+                for corner in range(2):
+                    j = int(ci[corner, m]) - s0
+                    if 0 <= j < ns:
+                        wx[m // ratio, j] += cw[corner, m]
+            x_rows[q0:q0 + nr] += torch.einsum("pj,rjc->rpc", wx, staged)
+        wy = torch.zeros(out_size, rows.numel(), dtype=compute)
+        for m in range(n):
+            for corner in range(2):
+                if ri[corner, m] >= 0:
+                    wy[m // ratio, ri[corner, m]] += rw[corner, m]
+        out[k] = torch.einsum("yr,rpc->ypc", wy, x_rows) / ratio ** 2
+    return out.to(feats[0].dtype)
+
+
+def tile_layout(level_shapes, tile=BWD_TILE):
+    """(first tile id per level and the total, tiles across per level,
+    tiles per image per level) of K2's backward."""
+    first, across, per_image, total = [], [], [], 0
+    for b, h, w, _ in level_shapes:
+        first.append(total)
+        across.append(-(-w // tile))
+        per_image.append(across[-1] * -(-h // tile))
+        total += b * per_image[-1]
+    return first + [total], across, per_image
+
+
+def tile_binning(rois, bidx, lvls, level_shapes, strides, out_size,
+                 ratio=2, aligned=True, tile=BWD_TILE):
+    """K2's backward's lists: every (roi, bin), e = k * out_size^2 + py
+    * out_size + px, once in each tile that a corner of one of its
+    samples inside the map falls in: its distinct tile rows times its
+    distinct tile columns.  Returns dict(entries [E] bin ids and tiles
+    [E] tile ids, sorted by tile then bin; counts [T]; offsets [T + 1];
+    bound, the kernel's 4 K n^2).  The geometry is computed in the
+    rois' dtype."""
+    k, s = rois.shape[0], out_size
+    first, across, per_image = tile_layout(level_shapes, tile)
+    ys, xs = axis_samples(rois, lvls, strides, s, ratio, aligned)
+    pairs = []
+    for kk in range(k):
+        l = int(lvls[kk])
+        _, h, w, _ = level_shapes[l]
+        base = first[l] + int(bidx[kk]) * per_image[l]
+        tiles_y = _bin_tiles(ys[kk], h, s, ratio, tile)
+        tiles_x = _bin_tiles(xs[kk], w, s, ratio, tile)
+        for py in range(s):
+            for px in range(s):
+                e = (kk * s + py) * s + px
+                pairs += [(base + ty * across[l] + tx, e)
+                          for ty in tiles_y[py] for tx in tiles_x[px]]
+    t = torch.tensor([p[0] for p in pairs], dtype=torch.long)
+    e = torch.tensor([p[1] for p in pairs], dtype=torch.long)
+    order = torch.argsort(t * max(k * s * s, 1) + e)
+    counts = torch.bincount(t, minlength=first[-1])
+    offsets = torch.zeros(first[-1] + 1, dtype=torch.long)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return dict(entries=e[order], tiles=t[order], counts=counts,
+                offsets=offsets, bound=4 * k * (s * ratio) ** 2)
+
+
+def _bin_tiles(p, size, out_size, ratio, tile):
+    """Per bin of one axis (samples p [n]): the sorted distinct tiles of
+    its samples' corners inside the map."""
+    inside, c0, c1, _ = corners(p, size)
+    return [sorted({int(c) // tile for m in range(b * ratio, (b + 1) * ratio)
+                    if inside[m] for c in (c0[m], c1[m])})
+            for b in range(out_size)]
+
+
+def binned_backward(grad_out, rois, bidx, lvls, level_shapes, strides,
+                    ratio=2, aligned=True, tile=BWD_TILE):
+    """K2's backward from its lists: each tile adds, for each of its
+    entries, the bin's grad_out times the weight of every corner of the
+    bin's samples that lies in the tile (sums in float32, float64 for
+    float64), and every tile is written once.  Returns the levels'
+    gradients [B, H, W, C] in grad_out's dtype."""
+    k, s = rois.shape[0], grad_out.shape[1]
+    c = grad_out.shape[-1]
+    compute = torch.promote_types(grad_out.dtype, torch.float32)
+    first, across, per_image = tile_layout(level_shapes, tile)
+    rois = rois.to(compute)
+    lists = tile_binning(rois, bidx, lvls, level_shapes, strides, s, ratio,
+                         aligned, tile)
+    e, t = lists["entries"], lists["tiles"]
+    kk, py, px = e // (s * s), (e // s) % s, e % s
+    lv = lvls.long()[kk]
+    ys, xs = axis_samples(rois, lvls, strides, s, ratio, aligned)
+    # every entry's ratio x ratio samples: [E, ratio, ratio]
+    iy = py[:, None] * ratio + torch.arange(ratio)
+    ix = px[:, None] * ratio + torch.arange(ratio)
+    y_s = ys[kk[:, None], iy][:, :, None].expand(-1, ratio, ratio)
+    x_s = xs[kk[:, None], ix][:, None, :].expand(-1, ratio, ratio)
+    hs = torch.tensor([q[1] for q in level_shapes])[lv][:, None, None]
+    ws = torch.tensor([q[2] for q in level_shapes])[lv][:, None, None]
+    inside = (y_s >= -1) & (y_s <= hs) & (x_s >= -1) & (x_s <= ws)
+    y = torch.minimum(y_s.clamp(min=0.0), hs - 1)
+    x = torch.minimum(x_s.clamp(min=0.0), ws - 1)
+    y0, x0 = torch.floor(y), torch.floor(x)
+    ly, lx = y - y0, x - x0
+    y0, x0 = y0.long(), x0.long()
+    y1, x1 = torch.minimum(y0 + 1, hs - 1), torch.minimum(x0 + 1, ws - 1)
+    local = t - torch.tensor(first[:-1])[lv]
+    img = (local // torch.tensor(per_image)[lv])[:, None, None]
+    r = local % torch.tensor(per_image)[lv]
+    ty = ((r // torch.tensor(across)[lv]) * tile)[:, None, None]
+    tx = ((r % torch.tensor(across)[lv]) * tile)[:, None, None]
+    g = grad_out.reshape(k * s * s, c).to(compute)[e]
+    sizes = [math.prod(q) for q in level_shapes]
+    level_off = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))])
+    grad = torch.zeros(sum(sizes) // c, c, dtype=compute)
+    lo = (level_off[lv] // c)[:, None, None]
+    for yc, xc, wgt in ((y0, x0, (1 - ly) * (1 - lx)),
+                        (y0, x1, (1 - ly) * lx),
+                        (y1, x0, ly * (1 - lx)), (y1, x1, ly * lx)):
+        keep = (inside & (yc >= ty) & (yc < ty + tile) & (xc >= tx)
+                & (xc < tx + tile))
+        cell = lo + (img * hs + yc) * ws + xc
+        rows = torch.arange(e.shape[0])[:, None, None].expand_as(keep)
+        grad.index_add_(0, cell[keep],
+                        g[rows[keep]] * (wgt[keep] / ratio ** 2)[:, None])
+    grads = grad.reshape(-1).to(grad_out.dtype).split(sizes)
+    return [q.view(shape) for q, shape in zip(grads, level_shapes)]

@@ -1,0 +1,298 @@
+"""The integer bookkeeping of kernels K1 and K2's backward, on the CPU.
+
+The CUDA kernels run only on the card (tests/test_torch_port_kernels.py
+holds them to the plain versions there); their plans are held here
+through torch twins (tests/roi_kernel_twins.py):
+
+- K1 (`csrc/roi_align.cu`): the kernel's one-pass listing of a roi's
+  distinct corner rows and columns (`scan_axis`) equals a sort of them;
+  a bin row reads at most 2 * ratio listed rows (the kernel's ring);
+  the tiles cover a window's cells once, each within the budget; and a
+  separable x-then-y reduction over the planned windows equals
+  `roi_align_plain` (atol 1e-5, float32) and the JAX reference's XLA
+  RoIAlign (atol 1e-5).
+- K2's backward (`csrc/roi_align_backward.cu`): the tile of each
+  corner, the entries per tile and their upper bound, and per-tile sums
+  over the binned entries equal the autograd gradient of
+  `batched_multilevel_roi_align` (1e-5 of the largest, float32; 1e-13
+  float64) and the JAX reference's linear transpose (1e-5 of the
+  largest).
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aidet_tpu_torch.ops import roi_align
+from roi_kernel_twins import (BWD_TILE, axis_samples, bin_rows_span,
+                              binned_backward, corners, scan_axis,
+                              separable_roi_align, stripe_plan, tile_binning,
+                              tile_layout, window_axis, window_plan)
+from torch_port_helpers import STRIDES, make_inputs, to_np
+
+j_roi_align = importlib.import_module("aidet_tpu.ops.roi_align")
+
+# K1's edge cases: a whole-image roi (level 3 by its size), 1:40 rois
+# across and down, rois partly and fully outside the map, a tiny roi
+EDGE_ROIS = [[0., 0., 255., 255.], [4., 100., 244., 106.],
+             [120., 2., 126., 242.], [-30., -20., 40., 60.],
+             [300., 310., 380., 400.], [200., 230., 290., 300.],
+             [50., 50., 51.5, 50.5]]
+
+
+def routed(seed, b=2, r=24, c=16, edge=True):
+    feats, rois = make_inputs(seed, b=b, r=r, c=c)
+    if edge:
+        rois[0, :len(EDGE_ROIS)] = EDGE_ROIS
+    tf = [torch.from_numpy(f) for f in feats]
+    flat = torch.from_numpy(rois.reshape(-1, 4))
+    lvls = roi_align.route_rois(flat, [f.shape[1:3] for f in tf], STRIDES)
+    bidx = torch.arange(b).repeat_interleave(r)
+    return tf, torch.from_numpy(rois), flat, lvls, bidx
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned", [
+    (7, 2, True), (14, 1, True), (14, 3, True), (7, 2, False),
+    (32, 2, True)])
+def test_k1_scan_lists_distinct_corners(out_size, ratio, aligned):
+    """The kernel's walk gives the sorted distinct corners and the same
+    indices and weights as a sort, for every roi and both axes."""
+    feats, _, flat, lvls, _ = routed(30)
+    ys, xs = axis_samples(flat, lvls, STRIDES, out_size, ratio, aligned)
+    for k in range(flat.shape[0]):
+        h, w = feats[int(lvls[k])].shape[1:3]
+        for p, size in ((ys[k], h), (xs[k], w)):
+            listed, idx, wts = window_axis(p, size)
+            s_listed, s_idx, s_wts = scan_axis(p, size)
+            assert torch.equal(s_listed, listed)
+            assert torch.equal(s_idx, idx)
+            torch.testing.assert_close(s_wts, wts.to(s_wts.dtype),
+                                       atol=1e-6, rtol=0)
+            assert listed.numel() <= 2 * out_size * ratio
+
+
+def test_k1_scan_walks_reversed_rois():
+    """A roi with x2 < x1 (aligned mode does not clamp its size) has
+    decreasing samples: the kernel walks them from the end."""
+    p = 10.0 - torch.arange(14, dtype=torch.float32) * 0.7
+    listed, idx, _ = window_axis(p, 16)
+    s_listed, s_idx, _ = scan_axis(p, 16)
+    assert torch.equal(s_listed, listed) and torch.equal(s_idx, idx)
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 3])
+def test_k1_bin_row_fits_the_ring(ratio):
+    """Every bin row reads at most 2 * ratio consecutive listed rows,
+    which the kernel's ring of X rows holds."""
+    feats, _, flat, lvls, _ = routed(31)
+    for rows, ri, _, cols, ci, _ in window_plan(
+            flat, lvls, [f.shape[1:3] for f in feats], STRIDES, 7, ratio,
+            True):
+        assert bin_rows_span(ri, ratio) <= 2 * ratio
+        assert bin_rows_span(ci, ratio) <= 2 * ratio
+
+
+@pytest.mark.parametrize("nrows,ncols,cap", [
+    (28, 28, 32), (5, 6, 32), (3, 100, 32), (1, 1, 1), (40, 7, 16),
+    (17, 33, 33), (0, 5, 8)])
+def test_k1_stripes_cover_the_window_once(nrows, ncols, cap):
+    seen = torch.zeros(nrows, ncols, dtype=torch.long)
+    for q0, nr, s0, ns in stripe_plan(nrows, ncols, cap):
+        assert 1 <= nr * ns <= cap
+        seen[q0:q0 + nr, s0:s0 + ns] += 1
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned,cap", [
+    (7, 2, True, 32), (7, 2, True, 3), (14, 1, True, 32),
+    (14, 3, True, 16), (7, 2, False, 32)])
+def test_k1_separable_matches_plain(out_size, ratio, aligned, cap):
+    """x-then-y over the planned windows, in tiles of ``cap`` cells (3:
+    every row in stripes), equals the plain gather."""
+    feats, _, flat, lvls, bidx = routed(32)
+    got = separable_roi_align(feats, flat, bidx, lvls, out_size, STRIDES,
+                              ratio, aligned, cap)
+    ref = roi_align.roi_align_plain(feats, flat, bidx, lvls, out_size,
+                                    STRIDES, ratio, aligned)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+def test_k1_separable_one_image_float64():
+    """All rois on one image, in float64: equal to rounding."""
+    feats, _, flat, lvls, bidx = routed(33, b=1, r=30)
+    feats = [f.double() for f in feats]
+    got = separable_roi_align(feats, flat, bidx, lvls, 7, STRIDES)
+    ref = roi_align.roi_align_plain(feats, flat, bidx, lvls, 7, STRIDES)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, ref, atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("out_size,aligned", [(7, True), (7, False)])
+def test_k1_separable_matches_jax_reference(out_size, aligned):
+    feats, rois, flat, lvls, bidx = routed(34)
+    got = separable_roi_align(feats, flat, bidx, lvls, out_size, STRIDES,
+                              aligned=aligned)
+    ref = j_roi_align.batched_multilevel_roi_align(
+        [jnp.asarray(to_np(f)) for f in feats], jnp.asarray(to_np(rois)),
+        out_size, STRIDES, aligned=aligned)
+    np.testing.assert_allclose(to_np(got).reshape(ref.shape),
+                               np.asarray(ref), atol=1e-5)
+
+
+def brute_force_tiles(flat, lvls, bidx, level_shapes, out_size, ratio):
+    """{(bin id, tile id)} by walking every corner of every sample."""
+    first, across, per_image = tile_layout(level_shapes)
+    ys, xs = axis_samples(flat, lvls, STRIDES, out_size, ratio, True)
+    pairs = set()
+    for k in range(flat.shape[0]):
+        l = int(lvls[k])
+        _, h, w, _ = level_shapes[l]
+        yin, y0, y1, _ = (t.tolist() for t in corners(ys[k], h))
+        xin, x0, x1, _ = (t.tolist() for t in corners(xs[k], w))
+        base = first[l] + int(bidx[k]) * per_image[l]
+        for i in range(out_size * ratio):
+            for j in range(out_size * ratio):
+                if not (yin[i] and xin[j]):
+                    continue
+                e = (k * out_size + i // ratio) * out_size + j // ratio
+                for yy in (y0[i], y1[i]):
+                    for xx in (x0[j], x1[j]):
+                        pairs.add((e, base + int(yy) // BWD_TILE * across[l]
+                                   + int(xx) // BWD_TILE))
+    return pairs
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 3])
+def test_k2_tile_binning_counts(ratio):
+    """One entry per (bin, tile) that a corner of the bin's samples
+    falls in, found by the product of its tile rows and columns."""
+    feats, _, flat, lvls, bidx = routed(35, r=12)
+    shapes = [tuple(f.shape) for f in feats]
+    lists = tile_binning(flat, bidx, lvls, shapes, STRIDES, 7, ratio)
+    got = set(zip(lists["entries"].tolist(), lists["tiles"].tolist()))
+    assert got == brute_force_tiles(flat, lvls, bidx, shapes, 7, ratio)
+    assert len(got) == lists["entries"].numel()      # no duplicates
+    counts = lists["counts"]
+    assert counts.shape[0] == roi_align.backward_tile_count(shapes)
+    assert int(counts.sum()) <= lists["bound"] \
+        == 4 * flat.shape[0] * (7 * ratio) ** 2
+    assert torch.equal(lists["offsets"][1:] - lists["offsets"][:-1], counts)
+
+
+def test_k2_tiles_partition_the_cells():
+    """Every cell of every level and image lies in exactly one tile, so
+    writing each tile once writes the gradient once."""
+    shapes = [(2, 13, 21, 8), (2, 7, 11, 8), (2, 4, 6, 8), (2, 2, 3, 8)]
+    first, across, per_image = tile_layout(shapes)
+    hits = torch.zeros(first[-1], dtype=torch.long)
+    for l, (b, h, w, _) in enumerate(shapes):
+        y, x = torch.meshgrid(torch.arange(h), torch.arange(w),
+                              indexing="ij")
+        for img in range(b):
+            t = (first[l] + img * per_image[l] + y // BWD_TILE * across[l]
+                 + x // BWD_TILE)
+            hits += torch.bincount(t.flatten(), minlength=first[-1])
+    cells = torch.tensor([min(BWD_TILE, h - ty * BWD_TILE)
+                          * min(BWD_TILE, w - tx * BWD_TILE)
+                          for b, h, w, _ in shapes for _ in range(b)
+                          for ty in range(-(-h // BWD_TILE))
+                          for tx in range(-(-w // BWD_TILE))])
+    assert torch.equal(hits, cells)
+
+
+def test_k2_scratch_size_matches_the_lists():
+    feats, _, flat, lvls, bidx = routed(36, r=8)
+    shapes = [tuple(f.shape) for f in feats]
+    lists = tile_binning(flat, bidx, lvls, shapes, STRIDES, 7)
+    t = lists["counts"].shape[0]
+    assert roi_align.backward_scratch_ints(shapes, flat.shape[0], 7, 2) \
+        == 3 * t + 1 + lists["bound"]
+
+
+def plain_gradient(feats, rois, grad_out, out_size=7, aligned=True):
+    leaves = [f.detach().clone().requires_grad_() for f in feats]
+    out = roi_align.batched_multilevel_roi_align(leaves, rois, out_size,
+                                                 aligned=aligned)
+    return torch.autograd.grad(out, leaves, grad_out.reshape(out.shape))
+
+
+@pytest.mark.parametrize("out_size,ratio_aligned", [
+    (7, True), (14, True), (7, False)])
+def test_k2_binned_backward_matches_autograd(out_size, ratio_aligned):
+    feats, rois, flat, lvls, bidx = routed(37)
+    g = torch.from_numpy(np.random.RandomState(37).randn(
+        flat.shape[0], out_size, out_size, feats[0].shape[-1])
+        .astype(np.float32))
+    shapes = [tuple(f.shape) for f in feats]
+    got = binned_backward(g, flat, bidx, lvls, shapes, STRIDES,
+                          aligned=ratio_aligned)
+    ref = plain_gradient(feats, rois, g, out_size, ratio_aligned)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+
+
+def test_k2_binned_backward_float64_hot_tile():
+    """200 rois stacked on one tile (a cluster on one gt), on one image,
+    in float64: one tile's list dominates and the sums stay exact to
+    rounding."""
+    rng = np.random.RandomState(38)
+    feats = [torch.from_numpy(rng.randn(1, 256 // s, 256 // s, 4))
+             for s in STRIDES]
+    xy = rng.uniform(100.5, 101.5, (200, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(2, 6, (200, 2))], -1)
+    rois_b = torch.from_numpy(rois[None].astype(np.float32))
+    flat = rois_b.reshape(-1, 4)
+    shapes = [tuple(f.shape) for f in feats]
+    lvls = roi_align.route_rois(flat, [s[1:3] for s in shapes], STRIDES)
+    bidx = torch.zeros(200, dtype=torch.long)
+    lists = tile_binning(flat, bidx, lvls, shapes, STRIDES, 7)
+    counts = lists["counts"]
+    assert int(counts.max()) >= 0.9 * int(counts.sum())
+    g = torch.from_numpy(rng.randn(200, 7, 7, 4))
+    got = binned_backward(g, flat, bidx, lvls, shapes, STRIDES)
+    ref = plain_gradient([f for f in feats], rois_b.double(), g)
+    for a, b in zip(got, ref):   # sums of ~800 terms: 1e-13 of the largest
+        torch.testing.assert_close(a, b, atol=1e-13 * float(b.abs().max()),
+                                   rtol=0)
+
+
+def test_k2_binned_backward_no_rois():
+    shapes = [(2, 64 // s, 64 // s, 8) for s in STRIDES]
+    empty = torch.zeros(0, 4)
+    lists = tile_binning(empty, torch.zeros(0, dtype=torch.long),
+                         torch.zeros(0, dtype=torch.int32), shapes, STRIDES,
+                         7)
+    assert int(lists["counts"].sum()) == 0 and lists["bound"] == 0
+    got = binned_backward(torch.zeros(0, 7, 7, 8, dtype=torch.bfloat16),
+                          empty, torch.zeros(0, dtype=torch.long),
+                          torch.zeros(0, dtype=torch.int32), shapes, STRIDES)
+    for g, shape in zip(got, shapes):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == shape
+        assert not bool(g.any())
+
+
+def test_k2_binned_backward_matches_jax_transpose():
+    """Against jax.vjp of the reference's XLA RoIAlign: its linear
+    transpose, which the TPU kernel's custom_vjp returns."""
+    feats, rois, flat, lvls, bidx = routed(39)
+    c = feats[0].shape[-1]
+    g = np.random.RandomState(39).randn(
+        rois.shape[0], rois.shape[1], 7, 7, c).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda fs: j_roi_align.batched_multilevel_roi_align(
+            fs, jnp.asarray(to_np(rois)), 7, STRIDES),
+        [jnp.asarray(to_np(f)) for f in feats])
+    ref = vjp(jnp.asarray(g))[0]
+    got = binned_backward(torch.from_numpy(g.reshape(-1, 7, 7, c)), flat,
+                          bidx, lvls, [tuple(f.shape) for f in feats],
+                          STRIDES)
+    for a, b in zip(got, ref):
+        b = np.asarray(b)
+        np.testing.assert_allclose(to_np(a), b,
+                                   atol=1e-5 * np.abs(b).max())

@@ -279,3 +279,177 @@ def test_rroi_predict_launches_k4_and_k1_or_k3(cuda, band, dtype,
         [0 if bandx else 2, 2 if bandx else 0, 2]
     assert out["rboxes"].shape == (2, 20, 5)
     assert torch.isfinite(out["rboxes"]).all()
+
+
+# K1's window plan and stripes, and K2's tile lists, where the designs
+# can break; each against the plain version at the tolerances above
+def k1_case(cuda, feats, rois, dtype, out_size=7, ratio=2, aligned=True):
+    tf = [torch.from_numpy(f).to(cuda, dtype) for f in feats]
+    tr = torch.from_numpy(np.asarray(rois, np.float32)).to(cuda)
+    got = roi_align.roi_align_forward(tf, tr, out_size, STRIDES, ratio,
+                                      aligned=aligned)
+    torch.cuda.synchronize()
+    ref = roi_align.batched_multilevel_roi_align(tf, tr, out_size, STRIDES,
+                                                 ratio, aligned=aligned)
+    assert got.dtype == dtype and got.shape == ref.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(ref.float()),
+                               atol=1e-4 if dtype == torch.float32 else 0.05)
+
+
+K1_EDGE = [[0., 0., 1023., 1023.],      # the whole image: level 3
+           [4., 500., 1000., 525.],     # 1:40 across: stripes of columns
+           [600., 8., 625., 1000.],     # 1:40 down: many listed rows
+           [-60., -40., 90., 70.],      # partly outside the map
+           [1100., 1200., 1300., 1500.],   # fully outside it
+           [1010., 1015., 1040., 1030.],   # across the last row and column
+           [300., 300., 302., 301.]]    # smaller than a cell
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size,ratio,aligned", [
+    (7, 2, True), (7, 3, True), (14, 1, True), (14, 3, True),
+    (7, 2, False)])
+def test_k1_window_edge_cases(cuda, dtype, out_size, ratio, aligned):
+    """C=256 gives the bfloat16 block 16 vectors and tiles of 32 cells:
+    the 1:40 rois need several stripes at ratio >= 3."""
+    rng = np.random.RandomState(40)
+    feats = [rng.randn(2, 1024 // s, 1024 // s, 256).astype(np.float32)
+             for s in STRIDES]
+    rois = np.stack([K1_EDGE, K1_EDGE[::-1]]).astype(np.float32)
+    k1_case(cuda, feats, rois, dtype, out_size, ratio, aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_all_rois_on_one_image(cuda, dtype):
+    feats, rois = make_inputs(41, b=1, r=60, c=64)
+    k1_case(cuda, feats, rois, dtype)
+
+
+def k2_case(cuda, dtype, feats, rois, out_size=7, seed=42):
+    """K2's backward on levels ``feats`` (numpy) and rois [B, R, 4];
+    returns (its gradients, the plain ones, the flat inputs)."""
+    tf = [torch.from_numpy(f).to(cuda, dtype) for f in feats]
+    tr = torch.from_numpy(np.asarray(rois, np.float32)).to(cuda)
+    b, r = tr.shape[:2]
+    flat = tr.reshape(-1, 4).contiguous()
+    lvls = roi_align.route_rois(flat, [f.shape[1:3] for f in tf], STRIDES)
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=cuda).repeat_interleave(r)
+    g = torch.randn((b * r, out_size, out_size, tf[0].shape[-1]),
+                    generator=torch.Generator().manual_seed(seed))
+    g = g.to(cuda, dtype)
+    got = roi_align.roi_align_backward_kernel(
+        g, flat, bidx, lvls, [tuple(f.shape) for f in tf], STRIDES, 2, True)
+    torch.cuda.synchronize()
+    ref = plain_grads(tf, tr, g.reshape((b, r) + g.shape[1:]), out_size)
+    return got, ref, (g, flat, bidx, lvls, [tuple(f.shape) for f in tf])
+
+
+def assert_k2_close(got, ref, dtype):
+    for a, w in zip(got, ref):
+        assert a.dtype == dtype and a.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        np.testing.assert_allclose(to_np(a.float()), to_np(w.float()),
+                                   atol=K2_TOL[dtype] * scale, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_hot_tile(cuda, dtype):
+    """200 rois stacked on one 4x4-cell tile: one list holds nearly all
+    entries."""
+    rng = np.random.RandomState(43)
+    feats = [rng.randn(1, 256 // s, 256 // s, 64).astype(np.float32)
+             for s in STRIDES]
+    xy = rng.uniform(100.5, 101.5, (200, 2))
+    rois = np.concatenate([xy, xy + rng.uniform(2, 6, (200, 2))], -1)[None]
+    got, ref, _ = k2_case(cuda, dtype, feats, rois)
+    assert_k2_close(got, ref, dtype)
+    counts = roi_align.roi_align_backward_kernel.scratch[
+        :roi_align.roi_align_backward_kernel.tiles]
+    assert int(counts.max()) >= 0.9 * int(counts.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_tile_edges_and_map_edges(cuda, dtype):
+    """Rois whose samples straddle 4-cell tile edges, and rois across the
+    map's last row and column (clamped corners that coincide); levels 1
+    to 3 get no roi."""
+    rng = np.random.RandomState(44)
+    feats = [rng.randn(2, 256 // s, 256 // s, 32).astype(np.float32)
+             for s in STRIDES]
+    rois = np.array([[[14., 14., 50., 30.], [230., 240., 262., 270.],
+                      [62.5, 31., 66., 97.], [250., 0., 290., 40.]],
+                     [[0., 0., 15., 15.], [240., 200., 255., 255.],
+                      [-8., 100., 30., 130.], [31.5, 31.5, 33.5, 33.5]]],
+                    np.float32)
+    got, ref, (_, _, _, lvls, _) = k2_case(cuda, dtype, feats, rois)
+    assert set(lvls.tolist()) == {0}
+    assert_k2_close(got, ref, dtype)
+    for g in got[1:]:
+        assert not bool(g.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_no_rois(cuda, dtype):
+    shapes = [(2, 64 // s, 64 // s, 32) for s in STRIDES]
+    got = roi_align.roi_align_backward_kernel(
+        torch.zeros(0, 7, 7, 32, dtype=dtype, device=cuda),
+        torch.zeros(0, 4, device=cuda),
+        torch.zeros(0, dtype=torch.int32, device=cuda),
+        torch.zeros(0, dtype=torch.int32, device=cuda), shapes, STRIDES, 2,
+        True)
+    torch.cuda.synchronize()
+    for g, shape in zip(got, shapes):
+        assert g.dtype == dtype and tuple(g.shape) == shape
+        assert not bool(g.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_backward_twice_and_its_lists(cuda, dtype):
+    """Two launches on the same inputs agree within the tolerance (the
+    lists' order follows the fill's atomics, so the float32 sums' order
+    may differ), and the kernel's entries per tile equal the torch
+    twin's (tests/roi_kernel_twins.py)."""
+    from roi_kernel_twins import tile_binning
+    feats, rois = make_inputs(45, c=64)
+    got, ref, args = k2_case(cuda, dtype, feats, rois)
+    kernel = roi_align.roi_align_backward_kernel
+    counts = kernel.scratch[:kernel.tiles].cpu().long()
+    g, flat, bidx, lvls, shapes = args
+    twin = tile_binning(flat.cpu(), bidx.cpu(), lvls.cpu(), shapes, STRIDES,
+                        7)
+    assert torch.equal(counts, twin["counts"])
+    again = kernel(g, flat, bidx, lvls, shapes, STRIDES, 2, True)
+    torch.cuda.synchronize()
+    assert_k2_close(again, got, dtype)
+    assert_k2_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ratio,aligned", [(1, True), (3, True),
+                                           (2, False)])
+def test_k2_backward_sampling_ratio_and_v1(cuda, dtype, ratio, aligned):
+    """Bins of 1 and 9 samples, and the v1 offsets and size clamp: the
+    tile lists follow each bin's sample grid."""
+    feats, rois, grad_out = k2_inputs(cuda, dtype, seed=46)
+    b, r = rois.shape[:2]
+    flat = rois.reshape(-1, 4).contiguous()
+    lvls = roi_align.route_rois(flat, [f.shape[1:3] for f in feats],
+                                STRIDES)
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=cuda).repeat_interleave(r)
+    got = roi_align.roi_align_backward_kernel(
+        grad_out.reshape(b * r, 7, 7, -1).contiguous(), flat, bidx, lvls,
+        [tuple(f.shape) for f in feats], STRIDES, ratio, aligned)
+    torch.cuda.synchronize()
+    leaves = [f.detach().requires_grad_() for f in feats]
+    out = roi_align.batched_multilevel_roi_align(
+        leaves, rois, 7, STRIDES, ratio, aligned=aligned)
+    assert_k2_close(got, torch.autograd.grad(out, leaves, grad_out), dtype)

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Time the port's RoIAlign kernels against those of another checkout,
+in turns, on one CUDA card.
+
+    python tools/torch_kernel_ab.py --parent DIR [--rounds 2]
+
+DIR is the root of another tree of this repository (an unpacked
+``git archive`` of an earlier commit).  Both trees' K1 (the RoIAlign
+forward, `aidet_tpu_torch/csrc/roi_align.cu`, also K2's forward) and
+K2's backward (`csrc/roi_align_backward.cu`) are built with nvcc, four
+nvcc processes at once, each into its tree's build directory, and
+called through each tree's own wrapper on the same seeded inputs as
+`chip_smoke.py`'s kernels phase:
+
+- K1 at the flagship predict's 2 x 1000 rois, 7x7 and 14x14, and at
+  the RRoI predict's 2 x 2000 rois, 7x7 (bfloat16);
+- K2's forward at the train step's 2 x 512 rois, 7x7 (bfloat16);
+- K2's backward there, in bfloat16 and float32.
+
+Each case checks both kernels against the plain version (the limits of
+`chip_smoke.py`), then times them with CUDA events in the order parent,
+this tree, this tree, parent, ``--rounds`` times, and prints one JSON
+line: the times of each tree (ms per launch, in order), their means,
+the bound and each tree's share of it (bound / mean time), and the
+errors.  The first line is nvidia-smi's name and power limit.
+
+Needs a CUDA card; imports nothing of JAX or of the reference package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import math
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def load_tree(root: Path, name: str):
+    """The `ops.roi_align` module of the port in the tree ``root``,
+    imported as package ``name`` (its kernels build under ``root``)."""
+    init = root / "aidet_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{name}.ops.roi_align")
+
+
+def build(modules):
+    """Build every tree's forward and backward library at once (each
+    handle with its own tree's builder); returns (source, nvcc seconds)
+    per library."""
+    handles = [h for m in modules for h in (m.roi_align_kernel,
+                                            m.roi_align_backward_kernel)]
+    with ThreadPoolExecutor(max_workers=len(handles)) as pool:
+        builds = list(pool.map(lambda h: h.load(), handles))
+    return [(str(h.source), b.seconds) for h, b in zip(handles, builds)]
+
+
+def in_turns(fns, rounds, iters, warmup):
+    """ms per launch of fns = (parent, tree), timed parent, tree, tree,
+    parent, ``rounds`` times."""
+    times = ([], [])
+    for _ in range(rounds):
+        for i in (0, 1, 1, 0):
+            times[i].append(cs.cuda_ms(fns[i], iters, warmup))
+    return times
+
+
+def forward_case(mods, shape, s, rounds):
+    import torch
+    strides = cs.MAIN["strides"]
+    feats, rois_b, rois, lvls, bidx = cs.main_path_inputs(
+        torch.Generator().manual_seed(0), shape, torch.bfloat16, "cuda")
+    ref = mods[0].batched_multilevel_roi_align(feats, rois_b, s, strides)
+    outs, fns, errs = [], [], []
+    for m in mods:
+        out = torch.empty((rois.shape[0], s, s, shape["channels"]),
+                          dtype=torch.bfloat16, device="cuda")
+
+        def launch(m=m, out=out):
+            m.roi_align_kernel(feats, rois, bidx, lvls, out, strides, 2, True)
+        launch()
+        torch.cuda.synchronize()
+        errs.append(float((out.reshape(ref.shape).float() - ref.float())
+                          .abs().max()))
+        outs.append(out)
+        fns.append(launch)
+    if not all(math.isfinite(e) and e <= cs.ATOL_BF16 for e in errs):
+        raise AssertionError(f"forward s={s}: errors {errs}")
+    bound_ms, bound_by = cs.roi_align_bound(feats, rois, lvls, bidx,
+                                            outs[1], strides)
+    return dict(kernel="roi_align", rois=rois.shape[0], out_size=s,
+                dtype="bfloat16", max_abs_err=errs, bound_ms=bound_ms,
+                bound_by=bound_by, **timed(fns, rounds, 50, 5, bound_ms))
+
+
+def backward_case(mods, dtype, rounds):
+    import torch
+    strides = cs.MAIN["strides"]
+    gen = torch.Generator().manual_seed(1)
+    feats, rois_b, rois, lvls, bidx = cs.main_path_inputs(
+        gen, cs.TRAIN, dtype, "cuda")
+    shapes = [tuple(f.shape) for f in feats]
+    grad_out = torch.randn(rois.shape[0], 7, 7, cs.TRAIN["channels"],
+                           generator=gen).to(device="cuda", dtype=dtype)
+    leaves = [f.detach().requires_grad_() for f in feats]
+    out = mods[0].batched_multilevel_roi_align(leaves, rois_b, 7, strides)
+    ref = torch.autograd.grad(out, leaves, grad_out.reshape(out.shape))
+    name = str(dtype).split(".")[-1]
+    fns, errs = [], []
+    for m in mods:
+        def launch(m=m):
+            return m.roi_align_backward_kernel(grad_out, rois, bidx, lvls,
+                                               shapes, strides, 2, True)
+        got = launch()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for g, r in zip(got, ref):
+            err = float((g.float() - r.float()).abs().max())
+            lim = cs.BWD_REL_TOL[name] * float(r.float().abs().max())
+            if not (math.isfinite(err) and err <= lim):
+                raise AssertionError(f"backward {name}: {err} > {lim}")
+            worst = max(worst, err)
+        errs.append(worst)
+        fns.append(launch)
+    bound_ms, bound_by = cs.roi_align_backward_bound(feats, rois, lvls, bidx,
+                                                     grad_out, strides)
+    return dict(kernel="roi_align_backward", rois=rois.shape[0], out_size=7,
+                dtype=name, max_abs_err=errs, bound_ms=bound_ms,
+                bound_by=bound_by, **timed(fns, rounds, 20, 3, bound_ms))
+
+
+def timed(fns, rounds, iters, warmup, bound_ms):
+    parent, tree = in_turns(fns, rounds, iters, warmup)
+    mean = [sum(t) / len(t) for t in (parent, tree)]
+    return dict(parent_ms=parent, ms=tree, parent_mean_ms=mean[0],
+                mean_ms=mean[1], speedup=mean[0] / mean[1],
+                parent_bound_share=bound_ms / mean[0],
+                bound_share=bound_ms / mean[1])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    print(cs.nvidia_smi_line(), flush=True)
+    mods = [load_tree(args.parent.resolve(), "aidet_tpu_torch_parent"),
+            importlib.import_module("aidet_tpu_torch.ops.roi_align")]
+    print(json.dumps(dict(build=build(mods))), flush=True)
+    cases = [lambda: forward_case(mods, cs.MAIN, 7, args.rounds),
+             lambda: forward_case(mods, cs.MAIN, 14, args.rounds),
+             lambda: forward_case(mods, cs.RROI, 7, args.rounds),
+             lambda: dict(forward_case(mods, cs.TRAIN, 7, args.rounds),
+                          kernel="roi_align_train_forward"),
+             lambda: backward_case(mods, torch.bfloat16, args.rounds),
+             lambda: backward_case(mods, torch.float32, args.rounds)]
+    for case in cases:
+        print(json.dumps(case()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,11 @@ ms_per_step, images_per_s, device_ms_per_step and device_busy_share,
 the spans of `TwoStageDetector.loss` and of the step (backbone, neck,
 rpn_head, rpn_loss, rpn_proposals, rcnn_sample, roi_align, roi_heads,
 backward, optimizer) with host ms and device extent per step, the top
-kernels, K2's launches per step, and peak memory.
+kernels, K2's launches per step, and peak memory; port_kernels, the
+port's RoIAlign device kernels by name with their ms and count per
+step on the path, and k2_device_ms_per_step: K2's forward
+(`roi_align_kernel`) and backward (its zero, count, place, fill and
+accumulate kernels, `roi_align_bwd_*`) summed.
 
 Needs a CUDA card; imports nothing of JAX or of the reference package.
 """
@@ -84,6 +88,11 @@ def profile(batch, steps):
                max_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     out["device_ms_per_step"] = out.pop("device_ms_per_call")
     out["profiled_ms_per_step"] = out.pop("profiled_ms_per_call")
+    out["k2_device_ms_per_step"] = {
+        part: sum(v["ms"] for name, v in out["port_kernels"].items()
+                  if tag in name)
+        for part, tag in (("forward", "::roi_align_kernel"),
+                          ("backward", "::roi_align_bwd_"))}
     return out
 
 
