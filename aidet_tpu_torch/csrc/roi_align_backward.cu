@@ -31,34 +31,26 @@
 // pass: 3x the bytes the function needs, and the atomics' rate besides.
 // Measured times, and the variants that led to this design: PERF.md.
 //
-// Design: a gather, tile by tile, in shared memory.
-// 1. Binning.  Each level's [B, H, W] cells are cut into 4x4-cell
-//    tiles.  One thread per (roi, bin) finds the tiles the corners of
-//    the bin's samples fall in (its distinct tile rows times its
-//    distinct tile columns, as the samples form a grid) and counts one
-//    entry for each with an integer atomic; each warp of a pass over
-//    the tiles places 32 lists at once, one atomic on the running total
-//    (lists are contiguous, in no fixed order); the same threads then
-//    fill each tile's list with their bin index (roi * out_size^2 +
-//    bin).  The lists live in a scratch buffer sized by the upper
-//    bound 4 * K * n^2 entries (n = out_size * ratio), so no count goes
-//    back to the host.
+// Design: a gather, tile by tile, in shared memory (roi_tiles.cuh, the
+// lists and the per-tile sums it shares with K4's backward,
+// rroi_align_backward.cu).
+// 1. Binning.  One thread per (roi, bin) finds the 4x4-cell tiles the
+//    corners of the bin's samples fall in (its distinct tile rows times
+//    its distinct tile columns, as the samples form a grid) and lists
+//    the bin once in each: count, place and fill passes.
 // 2. Accumulate.  One warp per (tile, 32 16-byte channel vectors, 256
 //    bfloat16 or 128 float32 channels): lane j owns vector j of all 16
-//    cells, float32 sums in shared memory (16 KB in bfloat16) that no
-//    other thread touches, so it adds without atomics.  For 32 entries
-//    at a time, lane j computes entry j's weights on the tile's 4 rows
-//    and 4 columns (a bin's samples are a grid, so cell (y, x) gets
-//    wy[y] * wx[x] of the bin's gradient, every corner summed); the
-//    warp then takes the entries kInFlight at a time: every lane loads
-//    its 16 bytes of each entry's grad_out bin (512 bytes a warp, the
-//    next group's loads issued before this group's sums), receives the
-//    weights by shuffles and adds the weighted vector into each cell
-//    with weight, one read-modify-write per cell and bin.  A bin's
-//    grad_out is read once per tile it touches (about 2.2 times at the
-//    train path's shapes), not once per sample.  Then the warp writes
-//    the whole tile once, in the gradient's dtype, zeros where no
-//    sample fell.
+//    cells.  For 32 entries at a time, lane j computes entry j's
+//    weights on the tile's 4 rows and 4 columns (a bin's samples are a
+//    grid, so cell (y, x) gets wy[y] * wx[x] of the bin's gradient,
+//    every corner summed); the warp then takes the entries kInFlight at
+//    a time: every lane loads its 16 bytes of each entry's grad_out bin
+//    (512 bytes a warp, the next group's loads issued before this
+//    group's sums), receives the weights by shuffles and adds the
+//    weighted vector into each cell with weight, one read-modify-write
+//    per cell and bin.  A bin's grad_out is read once per tile it
+//    touches (about 2.2 times at the train path's shapes), not once per
+//    sample.  Then the warp writes the whole tile once.
 // No float atomics, no global float32 table, no memset, no cast pass.
 // The order in which entries reach a list follows the atomics of the
 // fill, so the float32 sums' order (and the last bit of a gradient) may
@@ -67,28 +59,9 @@
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and called through ctypes (aidet_tpu_torch/ops/roi_align.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "roi_tiles.cuh"
 
 namespace {
-
-constexpr int kMaxLevels = 4;
-constexpr long long kMaxInt = 0x7fffffffLL;
-constexpr int kTile = 4;                  // tile side in cells
-constexpr int kCells = kTile * kTile;
-constexpr int kInFlight = 4;   // grad_out loads a lane keeps in flight
-
-struct Tiles {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int stride[kMaxLevels];
-  int across[kMaxLevels];     // tiles along a row of the level
-  int per_image[kMaxLevels];  // tiles of one image's level
-  int first[kMaxLevels + 1];  // first tile id of each level; the total
-  long long grad_off[kMaxLevels];   // the level's gradient in grad_feats
-};
 
 // The forward's geometry of roi k on its level: first sample row and
 // column, bin height and width, in level pixels.
@@ -151,8 +124,14 @@ __device__ __forceinline__ int next_tile(float start, float bin, int m0,
 }
 
 __global__ void roi_align_bwd_zero_kernel(int* __restrict__ p, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) p[i] = 0;
+  zero_ints(p, n);
+}
+
+__global__ void roi_align_bwd_place_kernel(const int* __restrict__ counts,
+                                           int n, int* __restrict__ used,
+                                           int* __restrict__ offsets,
+                                           int* __restrict__ cursor) {
+  place_lists(counts, n, used, offsets, cursor);
 }
 
 // One thread per (roi, bin) e = k * out_size^2 + py * out_size + px.
@@ -181,101 +160,15 @@ __global__ void roi_align_bwd_bin_kernel(
     for (int tx = next_tile(g.x1, g.bin_w, px * ratio, ratio, tb.w[l], -1);
          tx >= 0;
          tx = next_tile(g.x1, g.bin_w, px * ratio, ratio, tb.w[l], tx)) {
-      const int tile = base + ty * tb.across[l] + tx;
-      if (kFill) {
-        entries[atomicAdd(cursor + tile, 1)] = e;
-      } else {
-        atomicAdd(counts + tile, 1);
-      }
+      list_entry<kFill>(base + ty * tb.across[l] + tx, e, counts, cursor,
+                        entries);
     }
   }
-}
-
-// Places every tile's list in the entry buffer: offsets[t] and
-// cursor[t] get the start of a run of counts[t] entries.  The lanes of
-// a warp take consecutive runs with one atomic on the running total
-// (*used, zeroed before), so the lists are contiguous but not in tile
-// order.
-__global__ void roi_align_bwd_place_kernel(const int* __restrict__ counts,
-                                           int n, int* __restrict__ used,
-                                           int* __restrict__ offsets,
-                                           int* __restrict__ cursor) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int v = t < n ? counts[t] : 0;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  int at = 0;
-  if (lane == 31) at = atomicAdd(used, x);
-  at = __shfl_sync(0xffffffffu, at, 31) + x - v;
-  if (t < n) {
-    offsets[t] = at;
-    cursor[t] = at;
-  }
-}
-
-// 16 bytes of channels: 8 bfloat16 or 4 float32
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void to_float(const uint4& q, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(&q);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void to_float(const uint4& q, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    }
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-};
-
-// Lane's 16 bytes of grad_out's bin of the warp's entry i of a batch
-// of cnt (lane i holds it); zeros past cnt.  Every lane calls it.
-template <typename T>
-__device__ __forceinline__ uint4 fetch(const T* __restrict__ grad_out,
-                                       int entry, int i, int cnt,
-                                       bool active, int channels, int c) {
-  const int bin = __shfl_sync(0xffffffffu, entry, min(i, 31));
-  if (!active || i >= cnt) return make_uint4(0u, 0u, 0u, 0u);
-  return __ldg(reinterpret_cast<const uint4*>(
-      grad_out + static_cast<size_t>(bin) * channels + c));
 }
 
 // One warp per block: blockIdx.x the tile, blockIdx.y the slice of 32
 // 16-byte channel vectors; lane j owns vector j of the slice in all the
-// tile's cells, its float32 sums at tile_sums[(cell * Q + q) * 32 + j]
-// (float4 q of the vector: consecutive lanes, consecutive banks).
+// tile's cells (its float32 sums: roi_tiles.cuh).
 template <typename T>
 __global__ void __launch_bounds__(32)
     roi_align_bwd_accumulate_kernel(Tiles tb, int num_levels, int channels,
@@ -286,29 +179,19 @@ __global__ void __launch_bounds__(32)
                                     const int* __restrict__ entries,
                                     const T* __restrict__ grad_out,
                                     T* __restrict__ grad) {
-  constexpr int V = Vec16<T>::kN;
-  constexpr int Q = V / 4;
+  constexpr int V = Vec<T>::kN;
   extern __shared__ float4 tile_sums[];
   const int lane = threadIdx.x;
   const int c = (blockIdx.y * 32 + lane) * V;
   const bool active = c < channels;
 
   const int t = blockIdx.x;
-  int l = 0;
-  while (l + 1 < num_levels && t >= tb.first[l + 1]) ++l;
-  const int local = t - tb.first[l];
-  const int b = local / tb.per_image[l];
-  const int r = local % tb.per_image[l];
-  const int ty0 = (r / tb.across[l]) * kTile;
-  const int tx0 = (r % tb.across[l]) * kTile;
+  int l, b, ty0, tx0;
+  tile_at(tb, num_levels, t, l, b, ty0, tx0);
   const int height = tb.h[l];
   const int width = tb.w[l];
   const int stride = tb.stride[l];
-
-#pragma unroll
-  for (int i = 0; i < kCells * Q; ++i) {
-    tile_sums[i * 32 + lane] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+  zero_tile<T>(tile_sums, lane);
 
   const int ss = out_size * out_size;
   const float inv_count = 1.0f / static_cast<float>(ratio * ratio);
@@ -379,25 +262,15 @@ __global__ void __launch_bounds__(32)
         }
         if (i + u >= cnt) continue;   // uniform across the warp
         float f[V];
-        Vec16<T>::to_float(cur[u], f);
+        Vec<T>::to_float(cur[u], f);
 #pragma unroll
         for (int dy = 0; dy < kTile; ++dy) {
           if (ry[dy] == 0.0f) continue;
 #pragma unroll
           for (int dx = 0; dx < kTile; ++dx) {
             if (rx[dx] == 0.0f) continue;
-            const float w = ry[dy] * rx[dx];
-#pragma unroll
-            for (int j = 0; j < Q; ++j) {
-              float4* p =
-                  tile_sums + ((dy * kTile + dx) * Q + j) * 32 + lane;
-              float4 v = *p;
-              v.x += w * f[4 * j];
-              v.y += w * f[4 * j + 1];
-              v.z += w * f[4 * j + 2];
-              v.w += w * f[4 * j + 3];
-              *p = v;
-            }
+            add_to_cell<T>(tile_sums, dy * kTile + dx, ry[dy] * rx[dx], f,
+                           lane);
           }
         }
       }
@@ -405,25 +278,7 @@ __global__ void __launch_bounds__(32)
   }
 
   if (!active) return;
-  T* out = grad + tb.grad_off[l] +
-           static_cast<size_t>(b) * height * width * channels + c;
-#pragma unroll
-  for (int cell = 0; cell < kCells; ++cell) {
-    const int y = ty0 + cell / kTile;
-    const int x = tx0 + cell % kTile;
-    if (y >= height || x >= width) continue;
-    float v[V];
-#pragma unroll
-    for (int j = 0; j < Q; ++j) {
-      const float4 a = tile_sums[(cell * Q + j) * 32 + lane];
-      v[4 * j] = a.x;
-      v[4 * j + 1] = a.y;
-      v[4 * j + 2] = a.z;
-      v[4 * j + 3] = a.w;
-    }
-    Vec16<T>::store(out + (static_cast<size_t>(y) * width + x) * channels,
-                    v);
-  }
+  write_tile<T>(tb, l, b, ty0, tx0, channels, c, tile_sums, lane, grad);
 }
 
 template <typename T>
@@ -432,7 +287,7 @@ int launch_accumulate(const Tiles& tb, int num_levels, int channels,
                       int aligned, const int* counts, const int* offsets,
                       const int* entries, const void* grad_out, void* grad,
                       cudaStream_t stream) {
-  constexpr int V = Vec16<T>::kN;
+  constexpr int V = Vec<T>::kN;
   if (channels % V) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kCells * 32 * V * 4;   // at most 16 KB
   const dim3 grid(tb.first[num_levels], (channels / V + 31) / 32);
@@ -467,49 +322,17 @@ extern "C" int aidet_roi_align_backward(
     int num_levels, int batch, int channels, const void* rois,
     const void* bidx, const void* lvls, int num_rois, int out_size,
     int sampling_ratio, int aligned, const void* grad_out, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || out_size < 1 ||
-      out_size > 32 || sampling_ratio < 1 || channels < 4 ||
-      num_rois < 0 || batch < 1 || (dtype != 0 && dtype != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long n = static_cast<long long>(out_size) * sampling_ratio;
-  const long long bound = 4LL * num_rois * n * n;
-  if (bound > kMaxInt ||
-      static_cast<long long>(num_rois) * out_size * out_size > kMaxInt) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int hs[kMaxLevels] = {h0, h1, h2, h3};
   const int ws[kMaxLevels] = {w0, w1, w2, w3};
   const int sts[kMaxLevels] = {st0, st1, st2, st3};
   Tiles tb;
-  long long elems = 0, tiles = 0;
-  for (int i = 0; i < kMaxLevels; ++i) {
-    tb.h[i] = hs[i];
-    tb.w[i] = ws[i];
-    tb.stride[i] = sts[i];
-    tb.across[i] = (ws[i] + kTile - 1) / kTile;
-    tb.per_image[i] = tb.across[i] * ((hs[i] + kTile - 1) / kTile);
-    tb.first[i] = static_cast<int>(tiles);
-    tb.grad_off[i] = elems;
-    if (i < num_levels) {
-      if (hs[i] < 1 || ws[i] < 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      elems += static_cast<long long>(batch) * hs[i] * ws[i] * channels;
-      tiles += static_cast<long long>(batch) * tb.per_image[i];
-    }
-  }
-  tb.first[num_levels] = static_cast<int>(tiles);
-  if (elems != grad_elems || tiles > kMaxInt / 4 ||
-      scratch_ints != 3 * tiles + 1 + bound) {
+  Lists ls;
+  if ((dtype != 0 && dtype != 1) ||
+      !tile_layout(hs, ws, sts, num_levels, batch, channels, num_rois,
+                   out_size, sampling_ratio, grad_elems, scratch,
+                   scratch_ints, tb, ls)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int nt = static_cast<int>(tiles);
-  int* counts = static_cast<int*>(scratch);
-  int* used = counts + nt;
-  int* offsets = used + 1;
-  int* cursor = offsets + nt;
-  int* entries = cursor + nt;
   // this library links its own CUDA runtime, whose current device is
   // not the caller's
   cudaError_t err = cudaSetDevice(device);
@@ -523,28 +346,30 @@ extern "C" int aidet_roi_align_backward(
   // 50k at the train path's shapes, to spread over the SMs
   const int threads = 64;
   const int bin_blocks = (total + threads - 1) / threads;
-  const int tile_blocks = (nt + 256) / 256;
-  roi_align_bwd_zero_kernel<<<tile_blocks, 256, 0, s>>>(counts, nt + 1);
-  if (total > 0) {
-    roi_align_bwd_bin_kernel<false><<<bin_blocks, threads, 0, s>>>(
-        tb, r, b, l, total, out_size, sampling_ratio, aligned, counts,
-        nullptr, nullptr);
-  }
-  roi_align_bwd_place_kernel<<<tile_blocks, 256, 0, s>>>(counts, nt, used,
-                                                         offsets, cursor);
-  if (total > 0) {
-    roi_align_bwd_bin_kernel<true><<<bin_blocks, threads, 0, s>>>(
-        tb, r, b, l, total, out_size, sampling_ratio, aligned, nullptr,
-        cursor, entries);
-  }
-  err = cudaGetLastError();
+  err = build_lists(
+      ls, tb.first[num_levels], roi_align_bwd_zero_kernel,
+      roi_align_bwd_place_kernel,
+      [&](bool fill) {
+        if (total == 0) return;
+        if (fill) {
+          roi_align_bwd_bin_kernel<true><<<bin_blocks, threads, 0, s>>>(
+              tb, r, b, l, total, out_size, sampling_ratio, aligned,
+              nullptr, ls.cursor, ls.entries);
+        } else {
+          roi_align_bwd_bin_kernel<false><<<bin_blocks, threads, 0, s>>>(
+              tb, r, b, l, total, out_size, sampling_ratio, aligned,
+              ls.counts, nullptr, nullptr);
+        }
+      },
+      s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return dtype == 1
       ? launch_accumulate<__nv_bfloat16>(tb, num_levels, channels, r,
                                          out_size, sampling_ratio, aligned,
-                                         counts, offsets, entries, grad_out,
-                                         grad_feats, s)
+                                         ls.counts, ls.offsets, ls.entries,
+                                         grad_out, grad_feats, s)
       : launch_accumulate<float>(tb, num_levels, channels, r, out_size,
-                                 sampling_ratio, aligned, counts, offsets,
-                                 entries, grad_out, grad_feats, s);
+                                 sampling_ratio, aligned, ls.counts,
+                                 ls.offsets, ls.entries, grad_out,
+                                 grad_feats, s);
 }

@@ -20,6 +20,9 @@
 // a sample with y < -1, y > H, x < -1 or x > W contributes 0 and still
 // counts in the mean; the others are clamped to the map.  Output
 // [K, out_size, out_size, C] in the features' dtype, caller order.
+// The sample points are the plain version's, bit for bit
+// (roi_common.cuh: rotated_roi_at, rotated_sample), as in the backward
+// (rroi_align_backward.cu).
 //
 // What bounds it on an H100: memory.  As for K1 (roi_align.cu), each
 // output element costs 4 * ratio^2 loads and as many FMAs, far below
@@ -63,18 +66,8 @@ __global__ void rroi_align_kernel(Levels lv, int channels,
   const int l = lvls[k];
   const int height = lv.h[l];
   const int width = lv.w[l];
-  const float inv = 1.0f / static_cast<float>(lv.stride[l]);
-  const float offset = aligned ? 0.5f : 0.0f;
-  const float* r = rrois + 5 * k;
-  const float cx = r[0] * inv - offset;
-  const float cy = r[1] * inv - offset;
-  const float rw = fmaxf(r[2] * inv, 1e-3f);
-  const float rh = fmaxf(r[3] * inv, 1e-3f);
-  float sin_t, cos_t;
-  sincosf(r[4], &sin_t, &cos_t);
-  const float fh = static_cast<float>(height);
-  const float fw = static_cast<float>(width);
-  const float fout = static_cast<float>(out_size);
+  const RotatedRoi g = rotated_roi_at(rrois, k, lv.stride[l], aligned);
+  const float inv_out = __fdiv_rn(1.0f, static_cast<float>(out_size));
 
   const T* feat = static_cast<const T*>(lv.ptr[l]) +
                   static_cast<size_t>(bidx[k]) * height * width * channels;
@@ -90,24 +83,16 @@ __global__ void rroi_align_kernel(Levels lv, int channels,
 #pragma unroll
     for (int j = 0; j < V; ++j) acc[j] = 0.0f;
     for (int iy = 0; iy < ratio; ++iy) {
-      const float gy =
-          (static_cast<float>(py * ratio + iy) + 0.5f) / ratio;
-      const float yl = (gy / fout - 0.5f) * rh;
       for (int ix = 0; ix < ratio; ++ix) {
-        const float gx =
-            (static_cast<float>(px * ratio + ix) + 0.5f) / ratio;
-        const float xl = (gx / fout - 0.5f) * rw;
-        const float xs = cx + xl * cos_t - yl * sin_t;
-        const float ys = cy + xl * sin_t + yl * cos_t;
-        if (ys < -1.0f || ys > fh || xs < -1.0f || xs > fw) continue;
-        const float y = fminf(fmaxf(ys, 0.0f), fh - 1.0f);
-        const float x = fminf(fmaxf(xs, 0.0f), fw - 1.0f);
-        const int y0 = static_cast<int>(floorf(y));
-        const int x0 = static_cast<int>(floorf(x));
-        const int y1i = min(y0 + 1, height - 1);
-        const int x1i = min(x0 + 1, width - 1);
-        const float ly = y - static_cast<float>(y0);
-        const float lx = x - static_cast<float>(x0);
+        float ys, xs;
+        rotated_sample(g, py * ratio + iy, px * ratio + ix, ratio, inv_out,
+                       ys, xs);
+        int y0, y1i, x0, x1i;
+        float ly, lx;
+        if (!sample_corners(ys, xs, height, width, y0, y1i, x0, x1i, ly,
+                            lx)) {
+          continue;
+        }
         const float hy = 1.0f - ly;
         const float hx = 1.0f - lx;
         const T* row0 = feat + static_cast<size_t>(y0) * width * channels + c;

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .core.rboxes import thetaobb2pointobb
 from .models.backbones.resnet import ResNet
 from .models.detectors.two_stage import TwoStageDetector, _merge
 from .models.heads.bbox_head import RBBoxHead, SharedFCBBoxHead
@@ -138,11 +139,13 @@ def keep_every_candidate_cfg(img_size: int, num_gts: int,
                           pos_fraction=1.0))
 
 
-def synthetic_train_batch(batch, img, max_gt, seed, device):
+def synthetic_train_batch(batch, img, max_gt, seed, device,
+                          encode="thetaobb"):
     """A seeded batch of `TwoStageDetector.loss`'s inputs like the
     reference bench's (bench.py measure_train): normalized float images
     and ``max_gt`` valid gts per image, boxes of 1/64 to 5/32 of the
-    image with matching thetaobbs, labels 1..15."""
+    image with matching rotated boxes in the rbbox head's ``encode``
+    (thetaobbs, or their corners for "pointobb"), labels 1..15."""
     rs = np.random.RandomState(seed)
     xy = rs.uniform(img / 32, img * 0.8, (batch, max_gt, 2))
     wh = rs.uniform(img / 64, img * 5 / 32, (batch, max_gt, 2))
@@ -158,4 +161,8 @@ def synthetic_train_batch(batch, img, max_gt, seed, device):
     for k, v in arrays.items():
         t = torch.from_numpy(v)
         out[k] = (t.float() if t.is_floating_point() else t).to(device)
+    if encode == "pointobb":
+        out["gt_rboxes"] = thetaobb2pointobb(out["gt_rboxes"])
+    elif encode != "thetaobb":
+        raise ValueError(f"encode {encode!r}: thetaobb or pointobb")
     return out

@@ -1,5 +1,5 @@
 """Two-stage detector: the RBBoxRCNN and RBBoxRCNNRRoI predict paths
-and the RBBoxRCNN training loss.
+and training losses.
 
 Port of `aidet_tpu/models/detectors/two_stage.py::TwoStageDetector`
 for the RBBoxRCNN branch of
@@ -13,11 +13,14 @@ for the RBBoxRCNN branch of
 - `loss`: the RPN's anchor-target loss, proposals without gradient,
   gt boxes prepended as candidates, MaxIoU assignment and fixed random
   sampling per image, one RoIAlign (kernel K2 on the card) whose crops
-  feed both the bbox and the thetaobb rbbox head, and their losses.
+  feed both the bbox and the rbbox head, and their losses; with a
+  refinement head, the class-selected first-stage rboxes of the
+  positive rois are re-cropped by rotated RoIAlign (kernel K4, forward
+  and backward, on the card) and the refinement head's rtheta and
+  classification losses are added.
 
-The GA-RPN, OHEM and combined samplers, the grid, semantic,
-shared-head and mask branches, and the refinement head's training are
-not ported.
+The GA-RPN, OHEM and combined samplers, and the grid, semantic,
+shared-head and mask branches are not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from torch.profiler import record_function
 
 from ...core.anchors import build_pyramid_anchors
 from ...core.assign import max_iou_assign
-from ...core.rboxes import delta2rtheta, pointobb2thetaobb
+from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, pointobb2thetaobb,
+                            rtheta2delta)
 from ...core.sample import sample_fixed
 from ...core.targets import bbox_target, rbbox_target
 from ...ops.nms import multiclass_nms, select_parallel_rboxes
@@ -224,6 +228,12 @@ class TwoStageDetector(nn.Module):
                 out["rboxes"] = self._refine(feats, out["rboxes"], dets)
         return out
 
+    def _clip_rboxes(self, rb):
+        """Thetaobbs [..., 5] with w and h clipped to [2, img_size]:
+        sane geometry for the rotated crop."""
+        return torch.cat([rb[..., :2], rb[..., 2:4].clamp(2.0, self.img_size),
+                          rb[..., 4:]], -1)
+
     def _refine(self, feats, rboxes, dets):
         """The rotated-RoI refinement of RBBoxRCNNRRoI's predict
         (reference two_stage.py:1052-1086): the selected first-stage
@@ -235,8 +245,7 @@ class TwoStageDetector(nn.Module):
         rb = rboxes
         if self.rbbox_head.encode == "pointobb":
             rb = pointobb2thetaobb(rb)
-        rb = torch.cat([rb[..., :2], rb[..., 2:4].clamp(2.0, self.img_size),
-                        rb[..., 4:]], -1)
+        rb = self._clip_rboxes(rb)
         head = self.rbbox_refine_head
         b, k = rb.shape[:2]
         with record_function("rroi_align"):
@@ -263,16 +272,19 @@ class TwoStageDetector(nn.Module):
 
     def loss(self, imgs, gt_boxes, gt_valid, gt_labels, img_shapes,
              gt_rboxes, generator: torch.Generator):
-        """The RBBoxRCNN training loss (reference: `loss`,
-        two_stage.py:367-681, without its optional branches).
+        """The RBBoxRCNN and RBBoxRCNNRRoI training loss (reference:
+        `loss`, two_stage.py:367-760, without its other optional
+        branches).
 
         imgs [B, S, S, 3] (uint8 BGR or normalized floats); gt_boxes
         [B, G, 4]; gt_valid [B, G]; gt_labels [B, G] (1-based);
-        img_shapes [B, 2] (h, w); gt_rboxes [B, G, 5] thetaobbs.
+        img_shapes [B, 2] (h, w); gt_rboxes [B, G, D] in the rbbox
+        head's encode: thetaobbs [B, G, 5] or pointobbs [B, G, 8].
         Sampling draws from ``generator`` (on the images' device): the
         RPN's positives and negatives, then the RoI sample's.
-        Returns the six losses, float32 scalars: loss_rpn_cls,
-        loss_rpn_bbox, loss_cls, loss_bbox, loss_rbbox_cls, loss_rbbox.
+        Returns float32 scalars: loss_rpn_cls, loss_rpn_bbox, loss_cls,
+        loss_bbox, loss_rbbox_cls, loss_rbbox, and with a refinement
+        head loss_rbbox_refine and loss_rbbox_refine_cls (`_refine_loss`).
 
         Mixed precision: the backbone, FPN, RPN head and RoI heads run
         under `_mixed_precision`; the heads' outputs are cast to float32
@@ -280,11 +292,6 @@ class TwoStageDetector(nn.Module):
         Each stage is a `torch.profiler.record_function` span (read by
         tools/torch_profile_train.py).
         """
-        if self.rbbox_refine_head is not None:
-            raise NotImplementedError(
-                "the rotated-RoI refinement head's training (rtheta "
-                "targets, refine losses, rotated RoIAlign backward) is not "
-                "ported; predict is")
         tc = self.train_cfg
         rc = tc["rcnn"]
         if rc.get("sampler", "random") != "random":
@@ -372,4 +379,73 @@ class TwoStageDetector(nn.Module):
         losses["loss_rbbox_cls"], losses["loss_rbbox"] = bbox_head_loss(
             rcls.float(), rreg.float(), rtgt, self.rcnn_cls_loss,
             self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg)
+        if self.rbbox_refine_head is not None:
+            with record_function("rroi_refine"):
+                losses.update(self._refine_loss(
+                    feats, rois, rreg.float().reshape(b, r, -1), sample,
+                    gt_rboxes.float(), gt_labels, amp))
         return losses
+
+    def _refine_loss(self, feats, rois, rreg, sample, gt_rboxes, gt_labels,
+                     amp):
+        """The rotated-RoI refinement's losses (reference two_stage.py:
+        683-760).  The first p_max = int(num_samples * pos_fraction)
+        sampled rois (the positives come first) are decoded by the first
+        stage at their target labels (rreg [B, R, C * D]), as thetaobbs
+        without gradient, w and h clipped to [2, img_size]; rotated
+        RoIAlign re-crops them from the first 4 levels in the model's
+        compute dtype (kernel K4 on the card, its backward kernel in the
+        backward pass), and the refinement head regresses rtheta deltas
+        against the matched gts (converted to thetaobbs) and classifies.
+        loss_rbbox_refine: smooth L1 (beta 1) summed over the 5 deltas of
+        the positives, over their count (at least 1);
+        loss_rbbox_refine_cls: CE at the labels (0 off the positives)
+        over the valid samples of those rows."""
+        rc = self.train_cfg["rcnn"]
+        b, r = rois.shape[:2]
+        p_max = int(rc["num_samples"] * rc["pos_fraction"])
+        g = gt_labels.shape[1]
+        first, head = self.rbbox_head, self.rbbox_refine_head
+        lbl = torch.where(sample.is_pos, torch.gather(
+            gt_labels.long(), 1, sample.gt_inds.clamp(0, g - 1)), 0)
+        grp = rreg.reshape(b, r, -1, first.out_dim_reg)
+        cls = lbl.clamp(0, grp.shape[2] - 1)
+        sel = torch.gather(grp, 2, cls[..., None, None].expand(
+            b, r, 1, first.out_dim_reg))[:, :, 0]
+        dec = RBBOX_CODECS[first.encode][2](rois, sel)
+        if first.encode == "pointobb":
+            dec = pointobb2thetaobb(dec)
+        stage1 = self._clip_rboxes(dec[:, :p_max].detach())
+
+        with record_function("rroi_align"):
+            rcrops = rroi_align_forward(
+                [f.contiguous() for f in feats[:4]], stage1,
+                head.roi_feat_size, self.strides[:4])
+        with amp:
+            ref_cls, ref_reg = head(
+                rcrops.reshape((b * p_max,) + rcrops.shape[2:]))
+        ref_cls, ref_reg = ref_cls.float(), ref_reg.float()
+
+        pos = sample.is_pos[:, :p_max]
+        gt_inds = sample.gt_inds[:, :p_max].clamp(0, g - 1)
+        gtm = torch.gather(gt_rboxes, 1, gt_inds[..., None].expand(
+            -1, -1, gt_rboxes.shape[-1]))
+        if first.encode == "pointobb":
+            gtm = pointobb2thetaobb(gtm)
+        target = rtheta2delta(stage1, gtm).reshape(b * p_max, -1)
+        is_pos = pos.reshape(-1).float()
+        lbl_pos = lbl[:, :p_max].reshape(-1)
+        d2 = head.out_dim_reg
+        grp2 = ref_reg.reshape(b * p_max, -1, d2)
+        ref_sel = torch.gather(grp2, 1, lbl_pos.clamp(
+            0, grp2.shape[1] - 1)[:, None, None].expand(-1, 1, d2))[:, 0]
+        diff = ref_sel - target
+        sl1 = torch.where(diff.abs() < 1.0, 0.5 * diff * diff,
+                          diff.abs() - 0.5)
+        npos = is_pos.sum().clamp(min=1.0)
+        ce = -torch.log_softmax(ref_cls, -1).gather(
+            1, lbl_pos[:, None])[:, 0]
+        lw = sample.valid[:, :p_max].reshape(-1).float()
+        return dict(
+            loss_rbbox_refine=(sl1.sum(-1) * is_pos).sum() / npos,
+            loss_rbbox_refine_cls=(ce * lw).sum() / lw.sum().clamp(min=1.0))

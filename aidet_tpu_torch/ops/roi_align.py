@@ -429,28 +429,36 @@ def backward_scratch_ints(level_shapes, num_rois, out_size,
 class RoIAlignBackwardKernel(_KernelLibrary):
     """K2's backward (`csrc/roi_align_backward.cu`): the features'
     gradient from grad_out, binned into 4x4-cell tiles and summed tile
-    by tile in shared memory, written once in grad_out's dtype.
+    by tile in shared memory, written once in grad_out's dtype.  K4's
+    backward (`csrc/rroi_align_backward.cu`, rotated rois) has the same
+    C interface and bookkeeping: a handle on it passes its ``source``,
+    ``symbol``, ``name`` and ``roi_dim`` (the floats per roi: 4, or 5
+    for a rotated roi).
 
     ``scratch`` keeps the last launch's int32 bookkeeping (sized by
     `backward_scratch_ints`): its first ``tiles`` values are the
     entries per tile."""
 
-    def __init__(self):
-        super().__init__(CSRC / "roi_align_backward.cu",
-                         "aidet_roi_align_backward",
+    def __init__(self, source=CSRC / "roi_align_backward.cu",
+                 symbol="aidet_roi_align_backward",
+                 name="roi_align backward", roi_dim=4):
+        super().__init__(source, symbol,
                          [_I, _I, _P, ctypes.c_longlong, _P,
                           ctypes.c_longlong] + [_I] * 8
                          + [_I] * 4 + [_I] * 3 + [_P] * 3 + [_I] * 4
                          + [_P, _P])
+        self.name = name
+        self.roi_dim = roi_dim
         self.scratch: torch.Tensor | None = None
         self.tiles = 0
 
     def __call__(self, grad_out, rois, bidx, lvls, level_shapes,
                  featmap_strides, sampling_ratio, aligned):
         """grad_out [K, s, s, C] (bfloat16 or float32, the features'
-        dtype), rois [K, 4] f32, bidx/lvls [K] int32 as for the
-        forward, level_shapes the levels' [B, H, W, C].  Returns the
-        levels' gradients, [B, H, W, C] each in grad_out's dtype."""
+        dtype), rois [K, roi_dim] f32, bidx/lvls [K] int32 as for the
+        forward (all contiguous), level_shapes the levels' [B, H, W, C].
+        Returns the levels' gradients, [B, H, W, C] each in grad_out's
+        dtype."""
         dtype = grad_out.dtype
         if grad_out.device.type != "cuda" or rois.device != grad_out.device:
             raise ValueError("the backward needs grad_out and rois on one "
@@ -460,6 +468,16 @@ class RoIAlignBackwardKernel(_KernelLibrary):
             raise TypeError(f"the backward takes bfloat16 or float32 "
                             f"gradients, not {dtype}")
         k, s = rois.shape[0], grad_out.shape[1]
+        if rois.dtype != torch.float32 or rois.dim() != 2 \
+                or rois.shape[1] != self.roi_dim or not rois.is_contiguous():
+            raise ValueError(f"rois must be contiguous float32 [K, "
+                             f"{self.roi_dim}], got {rois.dtype} "
+                             f"{tuple(rois.shape)}")
+        for t in (bidx, lvls):
+            if t.dtype != torch.int32 or tuple(t.shape) != (k,) \
+                    or t.device != rois.device or not t.is_contiguous():
+                raise ValueError(f"bidx and lvls must be contiguous int32 "
+                                 f"[{k}] on the rois' device")
         c = level_shapes[0][-1]
         if tuple(grad_out.shape) != (k, s, s, c) or c % self._VEC[dtype]:
             raise ValueError(f"grad_out {tuple(grad_out.shape)} is not "
@@ -479,7 +497,7 @@ class RoIAlignBackwardKernel(_KernelLibrary):
         self.tiles = backward_tile_count(level_shapes)
         stream = torch.cuda.current_stream(dev).cuda_stream
         self._launch(
-            "roi_align backward", dev.index, self._DTYPE_CODE[dtype],
+            self.name, dev.index, self._DTYPE_CODE[dtype],
             grads.data_ptr(), total, self.scratch.data_ptr(), n_scratch,
             *self._level_args(level_shapes, featmap_strides),
             len(level_shapes), level_shapes[0][0], c, rois.data_ptr(),

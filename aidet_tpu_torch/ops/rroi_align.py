@@ -1,10 +1,12 @@
 """Rotated multi-level RoIAlign: level routing, the plain PyTorch
-version, and the wrapper of the hand-written CUDA kernel K4.
+version, and the wrappers of the hand-written CUDA kernels of K4.
 
 Ports `aidet_tpu/ops/rroi_align.py` (`map_rroi_levels`,
-`rroi_align_fused`, `batched_rroi_align`) and replaces the forward of
-the TPU kernel `aidet_tpu/ops/rroi_align_pallas.py::rroi_align_pallas`
-(K4) by `csrc/rroi_align.cu`.
+`rroi_align_fused`, `batched_rroi_align`) and replaces the TPU kernel
+`aidet_tpu/ops/rroi_align_pallas.py::rroi_align_pallas` (K4) with its
+custom_vjp by `RRoIAlignFunction`: its forward launches
+`csrc/rroi_align.cu`, its backward (the reference's `_vjp_bwd`, the
+XLA vjp of `batched_rroi_align`) `csrc/rroi_align_backward.cu`.
 
 Feature maps are NHWC `[B, H_l, W_l, C]`, rotated rois `[B, R, 5]`
 (cx, cy, w, h, theta) in image pixels, theta in radians (any value:
@@ -14,16 +16,19 @@ aligned bilinear samples per bin; a sample outside the map contributes
 0 and still counts in the bin's mean.
 
 `rroi_align_forward` is the entry point: on CPU tensors it runs the
-plain version, on CUDA tensors it launches K4 (forward only; the
-reference's backward is the XLA vjp, ported with the RRoI train step)
-and raises on anything the kernel does not take.
+plain version (differentiable through autograd: its gradient is the
+plain backward), on CUDA tensors it raises on anything the kernels do
+not take and goes through `RRoIAlignFunction`, predict and train alike:
+its forward launches K4's forward kernel, its backward (when the
+features want a gradient) K4's backward kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .roi_align import ALIGN, CSRC, WIN_X, WIN_Y, _I, _KernelLibrary, _P
+from .roi_align import (ALIGN, CSRC, WIN_X, WIN_Y, RoIAlignBackwardKernel,
+                        _I, _KernelLibrary, _P)
 
 
 def map_rroi_levels(rrois: torch.Tensor, num_levels: int,
@@ -199,40 +204,110 @@ class RRoIAlignKernel(_KernelLibrary):
         return out
 
 
+class RRoIAlignBackwardKernel(RoIAlignBackwardKernel):
+    """K4's backward (`csrc/rroi_align_backward.cu`): the features'
+    gradient of rotated rois [K, 5] from grad_out, binned into 4x4-cell
+    tiles and summed tile by tile in shared memory, written once in
+    grad_out's dtype; K2's backward's interface and bookkeeping
+    (`scratch`, `tiles`, `backward_scratch_ints`)."""
+
+    def __init__(self):
+        super().__init__(CSRC / "rroi_align_backward.cu",
+                         "aidet_rroi_align_backward", "rroi_align backward",
+                         roi_dim=5)
+
+
+# K4's forward (predict, and inside RRoIAlignFunction) and its backward
 rroi_align_kernel = RRoIAlignKernel()
+rroi_align_backward_kernel = RRoIAlignBackwardKernel()
+
+
+def rroi_align_plain_backward(grad_out, rrois, bidx, lvls, level_shapes,
+                              featmap_strides, sampling_ratio=2,
+                              aligned=True):
+    """The plain version of K4's backward: the autograd gradient of
+    `rroi_align_plain` with respect to levels of ``level_shapes`` (in
+    grad_out's dtype), which does not depend on the levels' values
+    (the function is linear in them).  Returns the levels' gradients."""
+    leaves = [torch.zeros(shape, dtype=grad_out.dtype, device=grad_out.device,
+                          requires_grad=True) for shape in level_shapes]
+    with torch.enable_grad():
+        out = rroi_align_plain(leaves, rrois, bidx, lvls, grad_out.shape[1],
+                               featmap_strides, sampling_ratio, aligned)
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+class RRoIAlignFunction(torch.autograd.Function):
+    """K4: the rotated RoIAlign of rois [K, 5] routed by the caller
+    (image ``bidx``, level ``lvls``) with a gradient for the levels.
+
+    Forward: `rroi_align_kernel`; backward: `rroi_align_backward_kernel`
+    with the forward's rois and routing, so both directions route alike
+    (without the TPU kernel's window bump by default, as the reference's
+    XLA path), which makes the gradient the reference's linear
+    transpose.  The rois get no gradient (the reference's _vjp_bwd
+    returns None for them).  On CPU tensors both directions run the
+    plain version (`rroi_align_plain`, `rroi_align_plain_backward`).
+    """
+
+    @staticmethod
+    def forward(ctx, rrois, bidx, lvls, out_size, featmap_strides,
+                sampling_ratio, aligned, *feats):
+        if rrois.device.type == "cpu":
+            out = rroi_align_plain(feats, rrois, bidx, lvls, out_size,
+                                   featmap_strides, sampling_ratio, aligned)
+        else:
+            out = torch.empty((rrois.shape[0], out_size, out_size,
+                               feats[0].shape[-1]), dtype=feats[0].dtype,
+                              device=rrois.device)
+            if rrois.shape[0]:
+                rroi_align_kernel(feats, rrois, bidx, lvls, out,
+                                  featmap_strides, sampling_ratio, aligned)
+        ctx.save_for_backward(rrois, bidx, lvls)
+        ctx.level_shapes = [tuple(f.shape) for f in feats]
+        ctx.config = (featmap_strides, sampling_ratio, aligned)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        rrois, bidx, lvls = ctx.saved_tensors
+        if grad_out.device.type == "cpu":
+            grads = rroi_align_plain_backward(grad_out, rrois, bidx, lvls,
+                                              ctx.level_shapes, *ctx.config)
+        else:
+            grads = rroi_align_backward_kernel(
+                grad_out.contiguous(), rrois, bidx, lvls, ctx.level_shapes,
+                *ctx.config)
+        return (None,) * 7 + tuple(grads)
 
 
 def rroi_align_forward(feats, rrois_b, out_size=7,
                        featmap_strides=(4, 8, 16, 32), sampling_ratio=2,
                        finest_scale=56, aligned=True, bump_to_window=False):
-    """Batched rotated RoIAlign, forward only: [B, R, out_size,
-    out_size, C].  On CPU tensors: the plain version.  On CUDA tensors,
-    in the features' dtype (bfloat16 or float32), or an exception: the
-    rois are routed by plain torch and K4 launches once."""
+    """Batched rotated RoIAlign: [B, R, out_size, out_size, C].  On CPU
+    tensors: the plain version.  On CUDA tensors, in the features' dtype
+    (bfloat16 or float32), or an exception: the rois are routed by plain
+    torch, then `RRoIAlignFunction` launches K4's forward once (predict
+    and train), and its backward kernel in the backward pass."""
     feats = list(feats)
     devices = {f.device for f in feats} | {rrois_b.device}
     if devices == {torch.device("cpu")}:
         return batched_rroi_align(feats, rrois_b, out_size, featmap_strides,
                                   sampling_ratio, finest_scale, aligned,
                                   bump_to_window)
-    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
-        raise ValueError("the rotated RoIAlign kernel (K4) is forward "
-                         "only; its backward comes with the RRoI train "
-                         "step")
     rroi_align_kernel.check(feats, rrois_b, featmap_strides, out_size,
                             sampling_ratio, roi_dim=5)
     b, r = rrois_b.shape[:2]
     c = feats[0].shape[-1]
-    out = torch.empty((b * r, out_size, out_size, c), dtype=feats[0].dtype,
-                      device=rrois_b.device)
-    if b * r:
-        rrois = rrois_b.detach().reshape(b * r, 5).contiguous()
-        lvls = route_rrois(rrois, [tuple(f.shape[1:3]) for f in feats],
-                           featmap_strides, finest_scale,
-                           bump_to_window).contiguous()
-        bidx = torch.arange(b, dtype=torch.int32,
-                            device=rrois.device).repeat_interleave(r)
-        rroi_align_kernel(feats, rrois, bidx, lvls, out, featmap_strides,
-                          sampling_ratio, aligned)
+    rrois = rrois_b.detach().reshape(b * r, 5).contiguous()
+    lvls = route_rrois(rrois, [tuple(f.shape[1:3]) for f in feats],
+                       featmap_strides, finest_scale,
+                       bump_to_window).contiguous()
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=rrois.device).repeat_interleave(r)
+    out = RRoIAlignFunction.apply(rrois, bidx, lvls, out_size,
+                                  tuple(featmap_strides), sampling_ratio,
+                                  aligned, *feats)
     return out.reshape(b, r, out_size, out_size, c)
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's flagship predict and train paths and the
-RBBoxRCNNRRoI predict path on one CUDA card.
+RBBoxRCNNRRoI predict and train paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    checkout, one nvcc process per source, all at once: the RoIAlign
    forward (`aidet_tpu_torch/csrc/roi_align.cu`: K1, and K2's forward),
    K2's backward (`csrc/roi_align_backward.cu`), K3
-   (`csrc/roi_align_bandx.cu`) and K4 (`csrc/rroi_align.cu`), with
-   ptxas's registers, shared memory and spills.
+   (`csrc/roi_align_bandx.cu`), K4's forward (`csrc/rroi_align.cu`) and
+   K4's backward (`csrc/rroi_align_backward.cu`), with ptxas's
+   registers, shared memory and spills.
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at its path's shapes, its time from CUDA events and the
    plain version's, its bound and its share of the bound (bound_ms /
@@ -28,7 +29,9 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    the RRoI predict's horizontal crops (2000 rois per image, 7x7) and
    K4 at its rotated crops (100 rotated rois per image, 7x7, without
    and with the TPU kernel's window bump), both in bfloat16 and
-   float32.
+   float32, and K4's backward at the RRoI train step's (128 rotated
+   rois per image, 7x7, bfloat16 and float32, held and reported as K2's
+   backward).
 4. reference: the small flagship (ResNet-18, float32) predict on the
    card against the same weights on the CPU, where the plain versions
    run.
@@ -51,6 +54,14 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    launch counts (1 each per call).
 10. rroi_predict_bandx: one more call under AIDET_ROI_BAND=x: K3 once,
    K1 never, K4 once, its detections paired with the last K1 call's.
+11. rroi_reference_train: one train step of the small RBBoxRCNNRRoI
+   (float32) on the card against the CPU, as reference_train: its 8
+   losses, grad_norm and the parameters' updates.
+12. rroi_train: the full-width RBBoxRCNNRRoI's train step (float32
+   parameters, bfloat16 compute, the config's train_cfg), batch 2 of
+   1024^2 with 64 pointobb gts, 1 warm-up and 3 timed steps, with the
+   launch counts (K2's forward and backward and K4's forward and
+   backward, once each per step) and the last backwards' tile lists.
 
 Then one ``{"kernels": [...]}`` line, nvidia-smi's name and power limit
 line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
@@ -70,8 +81,8 @@ T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 ATOL_BF16 = 0.05              # kernel vs plain version, bfloat16 features
-# K2's backward against the plain gradient: max abs error over a
-# level's largest plain gradient.  bfloat16 outputs are rounded once on
+# K2's and K4's backward against the plain gradient: max abs error over
+# a level's largest plain gradient.  bfloat16 outputs are rounded once on
 # both sides (one ulp is 2^-8 of the magnitude); float32 ones differ by
 # the order of summation (atomics on both sides).  At the train step's
 # shapes (1024 rois, C=256) a cell sums up to thousands of terms of both
@@ -87,6 +98,8 @@ TRAIN = dict(batch=2, rois=512, img=1024, channels=256, max_gt=64)
 # the RRoI predict's crops: 2000 proposals per image (K1 or K3), 100
 # detections per image re-cropped rotated (K4)
 RROI = dict(batch=2, rois=2000, img=1024, channels=256, rrois=100)
+# the RRoI train step's rotated crops: 512 * 0.25 = 128 per image
+RTRAIN = dict(batch=2, img=1024, channels=256, rrois=128)
 # the kernels' wrappers (module of aidet_tpu_torch.ops, handle) by the
 # name of their entry in the kernels line
 HANDLES = dict(roi_align=("roi_align", "roi_align_kernel"),
@@ -94,7 +107,9 @@ HANDLES = dict(roi_align=("roi_align", "roi_align_kernel"),
                                         "roi_align_train_kernel"),
                roi_align_backward=("roi_align", "roi_align_backward_kernel"),
                roi_align_bandx=("roi_align", "roi_align_bandx_kernel"),
-               rroi_align=("rroi_align", "rroi_align_kernel"))
+               rroi_align=("rroi_align", "rroi_align_kernel"),
+               rroi_align_backward=("rroi_align",
+                                    "rroi_align_backward_kernel"))
 
 
 def emit(obj):
@@ -253,23 +268,25 @@ def roi_align_bound(feats, rois, lvls, bidx, out, strides,
 
 
 def roi_align_backward_bound(feats, rois, lvls, bidx, grad_out, strides,
-                             sampling_ratio=2):
-    """Least time for K2's backward: grad_out, the rois and the routing
-    read once and the gradient written once in its dtype; against one
-    multiply and one add per corner of every sample inside its map, per
-    channel."""
+                             sampling_ratio=2, coords_fn=None):
+    """Least time for K2's backward (K4's with ``coords_fn`` the rotated
+    `sample_coords`): grad_out, the rois and the routing read once and
+    the gradient written once in its dtype; against one multiply and
+    one add per corner of every sample inside its map, per channel."""
     nbytes = (grad_out.numel() * grad_out.element_size()
               + rois.numel() * 4 + 2 * lvls.numel() * 4
               + sum(f.numel() for f in feats) * feats[0].element_size())
     from aidet_tpu_torch.ops.roi_align import sample_coords
     s, c = grad_out.shape[-2], grad_out.shape[-1]
-    coords = sample_coords(rois, lvls, strides, s, sampling_ratio)
+    coords = (coords_fn or sample_coords)(rois, lvls, strides, s,
+                                          sampling_ratio)
     adds = cells_and_samples(feats, *coords, lvls, bidx)[1] * 4 * c
     return bound(nbytes, 2 * adds)
 
 
 def backward_lists(kernel):
-    """K2's backward's tile lists from its last launch's scratch:
+    """A backward's (K2's or K4's) tile lists from its last launch's
+    scratch:
     entries, the longest list and the spread of the lengths of the
     non-empty ones, and the scratch's bytes."""
     import torch
@@ -342,30 +359,40 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
     return result
 
 
-def run_backward_kernel(device="cuda"):
-    """K2's backward against the autograd gradient of the plain version
-    at the train step's shapes (7x7), in bfloat16 and in float32;
-    returns the bfloat16 fields of its entry in the kernels line."""
+def run_backward_kernel(device="cuda", rotated=False):
+    """K2's backward (K4's if ``rotated``) against the autograd gradient
+    of the plain version at the train step's shapes (7x7: 2 x 512 rois,
+    or 2 x 128 rotated rois), in bfloat16 and in float32, launched twice
+    and both launches held to the limits; returns the bfloat16 fields of
+    its entry in the kernels line."""
     import torch
-    from aidet_tpu_torch.ops.roi_align import (batched_multilevel_roi_align,
-                                               roi_align_backward_kernel)
+    from aidet_tpu_torch.ops import roi_align, rroi_align
     strides = MAIN["strides"]
     s = 7
+    kernel = (rroi_align.rroi_align_backward_kernel if rotated
+              else roi_align.roi_align_backward_kernel)
+    plain_fn = (rroi_align.batched_rroi_align if rotated
+                else roi_align.batched_multilevel_roi_align)
+    label = "K4 backward" if rotated else "K2 backward"
     result = None
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         gen = torch.Generator().manual_seed(1)
-        feats, rois_b, rois, lvls, bidx = main_path_inputs(
-            gen, TRAIN, dtype, device)
+        if rotated:
+            feats, rois_b, rois, lvls, bidx = rroi_train_inputs(gen, dtype,
+                                                                device)
+        else:
+            feats, rois_b, rois, lvls, bidx = main_path_inputs(
+                gen, TRAIN, dtype, device)
         shapes = [tuple(f.shape) for f in feats]
-        grad_out = torch.randn(rois.shape[0], s, s, TRAIN["channels"],
+        grad_out = torch.randn(rois.shape[0], s, s, feats[0].shape[-1],
                                generator=gen).to(device=device, dtype=dtype)
         leaves = [f.detach().requires_grad_() for f in feats]
-        out = batched_multilevel_roi_align(leaves, rois_b, s, strides)
+        out = plain_fn(leaves, rois_b, s, strides)
 
         def launch():
-            return roi_align_backward_kernel(grad_out, rois, bidx, lvls,
-                                             shapes, strides, 2, True)
+            return kernel(grad_out, rois, bidx, lvls, shapes, strides, 2,
+                          True)
 
         def plain():
             return torch.autograd.grad(out, leaves,
@@ -377,31 +404,33 @@ def run_backward_kernel(device="cuda"):
         errs, limits = [], []
         for g, r in zip(got, ref):
             if g.dtype != dtype or g.shape != r.shape:
-                raise AssertionError(f"K2 backward: {g.dtype} "
+                raise AssertionError(f"{label}: {g.dtype} "
                                      f"{tuple(g.shape)} for {r.dtype} "
                                      f"{tuple(r.shape)}")
             errs.append(float((g.float() - r.float()).abs().max()))
             limits.append(BWD_REL_TOL[name] * float(r.float().abs().max()))
         if not all(math.isfinite(e) and e <= lim
                    for e, lim in zip(errs, limits)):
-            raise AssertionError(f"K2 backward {name}: max abs err per "
+            raise AssertionError(f"{label} {name}: max abs err per "
                                  f"level {errs} over the limits {limits}")
-        lists = backward_lists(roi_align_backward_kernel)
+        lists = backward_lists(kernel)
         again = launch()
         torch.cuda.synchronize()
         rerun = [float((a.float() - b.float()).abs().max())
                  for a, b in zip(again, got)]
         if not all(e <= lim for e, lim in zip(rerun, limits)):
-            raise AssertionError(f"K2 backward {name}: two launches differ "
+            raise AssertionError(f"{label} {name}: two launches differ "
                                  f"by {rerun} per level, limits {limits}")
         rerun_err = max(rerun)
         bound_ms, bound_by = roi_align_backward_bound(
-            feats, rois, lvls, bidx, grad_out, strides)
+            feats, rois, lvls, bidx, grad_out, strides,
+            coords_fn=rroi_align.sample_coords if rotated else None)
         fields = dict(max_abs_err=max(errs), ms=cuda_ms(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
-        phase("kernels", kernel="roi_align_backward", out_size=s,
+        phase("kernels", kernel=("rroi_align_backward" if rotated
+                                 else "roi_align_backward"), out_size=s,
               rois=rois.shape[0], dtype=name, max_abs_err_per_level=errs,
               limit_per_level=limits, rel_tol=BWD_REL_TOL[name],
               rerun_max_abs_diff=rerun_err, lists=lists, **fields)
@@ -491,6 +520,30 @@ def rroi_path_inputs(gen, dtype, device):
     return feats, rrois_b
 
 
+def rroi_train_inputs(gen, dtype, device):
+    """Seeded levels as the RRoI train step's and 2 x 128 rotated rois
+    drawn like its stage-1 boxes under random weights: centres inside
+    the image, sides log-uniform over 2..1024 px (the clip the loss
+    applies; a 1024-px side spans all 32 cells of level 3), any theta
+    in [-pi, pi); with their routing (no window bump, as the path)."""
+    import torch
+    from aidet_tpu_torch.ops.rroi_align import route_rrois
+    b, n, img, c = (RTRAIN[k] for k in ("batch", "rrois", "img",
+                                        "channels"))
+    feats = [torch.randn(b, img // s, img // s, c, generator=gen)
+             .to(device=device, dtype=dtype) for s in MAIN["strides"]]
+    u = torch.rand(b, n, 5, generator=gen)
+    rrois_b = torch.stack([u[..., 0] * img, u[..., 1] * img,
+                           2.0 * 512.0 ** u[..., 2], 2.0 * 512.0 ** u[..., 3],
+                           math.pi * (2 * u[..., 4] - 1)], -1).to(device)
+    rrois = rrois_b.reshape(b * n, 5).contiguous()
+    lvls = route_rrois(rrois, [f.shape[1:3] for f in feats],
+                       MAIN["strides"])
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=device).repeat_interleave(n)
+    return feats, rrois_b, rrois, lvls, bidx
+
+
 def run_rroi_kernel(device="cuda"):
     """K4 against its plain version at the RRoI predict's rotated crops
     (2 x 100 rrois, 7x7), routed without and with the TPU kernel's
@@ -563,7 +616,8 @@ def run_kernels():
             roi_align_train_kernel, "roi_align_train_forward", TRAIN, (7,)),
         roi_align_backward=run_backward_kernel(),
         roi_align_bandx=run_bandx_kernel(),
-        rroi_align=run_rroi_kernel())
+        rroi_align=run_rroi_kernel(),
+        rroi_align_backward=run_backward_kernel(rotated=True))
 
 
 def run_reference(device="cuda"):
@@ -848,85 +902,191 @@ def run_rroi_predict(device="cuda", small=False, calls=3, batch=2, seed=0,
     return fields, model, imgs, shapes, out
 
 
-def train_step_once(device, img, n_gt, train_cfg, seed=0):
-    """One train step of the small flagship (float32) on ``device``;
+# The first stage's pointobb regression of the small RBBoxRCNNRRoI in
+# rroi_reference_train, as a trained one would be: its weight scaled by
+# 0.01 and a bias per class that moves each corner along its side by
+# 0.2 of the roi's w or h.  Random weights decode quads whose two
+# candidate rectangles in `pointobb2thetaobb` nearly tie, and two runs
+# a rounding apart (card and CPU) may pick different ones; the
+# parallelogram's candidates do not tie.
+POINTOBB_BIAS = (0.2, 0.0, 0.0, 0.2, -0.2, 0.0, 0.0, -0.2)
+
+
+def build_train_model(model, img, device, small=True, train_cfg=None,
+                      seed=0):
+    """The training build of ``model`` ("flagship" or "rroi") and the
+    encode of its gt rboxes."""
+    import torch
+    if model == "flagship":
+        from aidet_tpu_torch.flagship import build_flagship
+        return build_flagship(img, small=small, device=device, train=True,
+                              train_cfg=train_cfg, seed=seed), "thetaobb"
+    from aidet_tpu_torch.rroi import build_rroi
+    net = build_rroi(img, small=small, device=device, train=True,
+                     train_cfg=train_cfg, seed=seed)
+    if small:
+        reg = net.rbbox_head.fc_reg
+        with torch.no_grad():
+            reg.weight.mul_(0.01)
+            reg.bias.copy_(torch.tensor(POINTOBB_BIAS).repeat(
+                reg.bias.numel() // len(POINTOBB_BIAS)))
+    return net, "pointobb"
+
+
+def train_step_once(device, img, n_gt, train_cfg, seed=0, model="flagship"):
+    """One train step of the small ``model`` (float32) on ``device``;
     returns (metrics as floats, parameters before, after), on the
     CPU."""
     import torch
-    from aidet_tpu_torch.flagship import build_flagship, synthetic_train_batch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
     from aidet_tpu_torch.parallel.train import (build_lr_schedule,
                                                 build_optimizer,
                                                 create_train_state,
                                                 make_train_step)
-    model = build_flagship(img, small=True, device=device, train=True,
-                           train_cfg=train_cfg, seed=seed)
-    params = list(model.parameters())
+    net, encode = build_train_model(model, img, device, train_cfg=train_cfg,
+                                    seed=seed)
+    params = list(net.parameters())
     before = [p.detach().cpu().clone() for p in params]
     optimizer = build_optimizer(build_lr_schedule(base_lr=0.02))
-    state = create_train_state(model, optimizer)
-    step = make_train_step(model, optimizer)
-    batch = synthetic_train_batch(2, img, n_gt, seed, device)
+    state = create_train_state(net, optimizer)
+    step = make_train_step(net, optimizer)
+    batch = synthetic_train_batch(2, img, n_gt, seed, device, encode)
     _, metrics = step(state, batch,
                       torch.Generator(device=device).manual_seed(seed))
     return ({k: float(v) for k, v in metrics.items()}, before,
             [p.detach().cpu() for p in params])
 
 
-def run_reference_train(device="cuda"):
-    """The small flagship's train step (float32) on ``device`` against
-    the same step on the CPU, under a train_cfg that keeps every
-    candidate (so both sample the same rois): each loss and grad_norm
-    within 1e-3 relative; the parameters' update as a whole within 1e-3
-    (relative L2 norm of the difference), and each parameter's within
-    1e-2 of its largest update."""
+def compare_steps(name, got, ref, limits=None):
+    """Two train steps from the same weights (each `train_step_once`'s
+    (metrics, before, after)): each metric's relative difference, the
+    difference of the parameters' updates as a whole (relative L2 norm)
+    and per leaf (over the leaf's largest update), held to ``limits``
+    (losses_rel, update_rel_l2, leaf_over_largest) if given.  Returns
+    them."""
     import torch
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    from aidet_tpu_torch.flagship import build_flagship, keep_every_candidate_cfg
-    img, n_gt = 256, 8
-    max_num = build_flagship(img, small=True, device="cpu").train_cfg[
-        "rpn_proposal"]["max_num"]
-    cfg = keep_every_candidate_cfg(img, n_gt, max_num)
-    got, got_before, got_after = train_step_once(device, img, n_gt, cfg)
-    ref, ref_before, ref_after = train_step_once("cpu", img, n_gt, cfg)
-    rel = {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref}
-    if not all(math.isfinite(got[k]) and rel[k] <= 1e-3 for k in ref):
-        raise AssertionError(f"reference_train: card {got} against CPU "
-                             f"{ref} (relative {rel})")
-    worst, diff2, ref2 = (0.0, ""), 0.0, 0.0
-    names = [n for n, _ in build_flagship(img, small=True, device="cpu")
-             .named_parameters()]
-    for name, gb, ga, rb, ra in zip(names, got_before, got_after,
-                                    ref_before, ref_after):
+    rel = {k: abs(got[0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-6)
+           for k in ref[0]}
+    if limits and not all(math.isfinite(got[0][k])
+                          and rel[k] <= limits["losses_rel"]
+                          for k in ref[0]):
+        raise AssertionError(f"{name}: {got[0]} against {ref[0]} "
+                             f"(relative {rel})")
+    worst, diff2, ref2 = (0.0, 0), 0.0, 0.0
+    for i, (gb, ga, rb, ra) in enumerate(zip(*got[1:], *ref[1:])):
         if not torch.equal(gb, rb):
-            raise AssertionError("reference_train: initial weights differ")
+            raise AssertionError(f"{name}: initial weights differ")
         d_ref = ra - rb
         d = (ga - gb) - d_ref
         diff2 += float(d.double().square().sum())
         ref2 += float(d_ref.double().square().sum())
         err = float(d.abs().max()) / max(float(d_ref.abs().max()), 1e-30)
-        worst = max(worst, (err, name))
+        worst = max(worst, (err, i))
     update_rel = math.sqrt(diff2 / ref2)
-    if update_rel > 1e-3 or worst[0] > 1e-2:
-        raise AssertionError(f"reference_train: the update differs by "
+    if limits and (update_rel > limits["update_rel_l2"]
+                   or worst[0] > limits["leaf_over_largest"]):
+        raise AssertionError(f"{name}: the update differs by "
                              f"{update_rel} (relative L2), {worst[0]} of "
-                             f"the largest in {worst[1]}")
-    phase("reference_train", model="small flagship float32", img=img,
-          gts=n_gt, losses_card=got, losses_cpu=ref,
-          max_rel_err=max(rel.values()), update_rel_l2=update_rel,
-          worst_leaf=worst[1], worst_leaf_err_over_largest=worst[0],
-          limits=dict(losses_rel=1e-3, update_rel_l2=1e-3,
-                      leaf_over_largest=1e-2))
+                             f"the largest in leaf {worst[1]} (limits "
+                             f"{limits})")
+    return dict(max_rel_err=max(rel.values()), update_rel_l2=update_rel,
+                worst_leaf=worst[1], worst_leaf_err_over_largest=worst[0],
+                limits=limits)
 
 
-def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
-    """Drive the flagship's train step: 1 warm-up step, then ``steps``
-    timed ones on a synthetic batch; check that every loss is finite,
-    that the parameters moved, and K2's launch counts (one forward and
-    one backward per timed step on the card, none on the CPU, where
-    the plain version runs; K1 never).  Returns the phase's fields."""
+def plain_versions():
+    """A context in which `TwoStageDetector` crops with the plain
+    RoIAlign and rotated RoIAlign (torch ops and autograd) in place of
+    the kernels, on any device."""
+    import contextlib
+    from aidet_tpu_torch.models.detectors import two_stage
+    from aidet_tpu_torch.ops import roi_align, rroi_align
+
+    @contextlib.contextmanager
+    def swap():
+        saved = two_stage.roi_align_forward, two_stage.rroi_align_forward
+        two_stage.roi_align_forward = roi_align.batched_multilevel_roi_align
+        two_stage.rroi_align_forward = rroi_align.batched_rroi_align
+        try:
+            yield
+        finally:
+            two_stage.roi_align_forward, two_stage.rroi_align_forward = saved
+    return swap()
+
+
+def run_reference_train(device="cuda", model="flagship"):
+    """The small ``model``'s train step (float32; "flagship" or "rroi",
+    the RBBoxRCNNRRoI with its first stage's regression set as
+    `POINTOBB_BIAS` says) on ``device`` against the same step on the
+    CPU, under a train_cfg that keeps every candidate (so both sample
+    the same rois): each loss and grad_norm within 1e-3 relative; the
+    parameters' update as a whole within 1e-3 (relative L2 norm of the
+    difference), and each parameter's within 1e-2 of its largest
+    update.
+
+    For the RBBoxRCNNRRoI the step also runs on ``device`` with the
+    plain versions in place of the kernels (`plain_versions`), and the
+    kernels' step is held to it: the losses within 1e-4 relative, the
+    update within 1e-4 relative L2 and each leaf within 1e-3 of its
+    largest; the plain versions' step against the CPU's is reported.
+    That 1e-4 check is the one that catches a kernel's fault: a backward
+    that loses one value of the crops' gradient moves the update by
+    1.24e-3 relative L2 (tests/test_torch_port_train_rroi.py plants it
+    on the CPU).  The update's whole against the CPU's is held to 2e-3,
+    not 1e-3, which only bounds the card's float32 drift: on the NVIDIA
+    H100 80GB HBM3, 700.00 W it read 1.0996e-3 with the kernels and
+    1.0996e-3 with the plain versions on the card (the kernels against
+    the plain versions: 1.85e-6), so the difference is the rest of the
+    model's float32 arithmetic on the card (the flagship's reads
+    5.0e-4)."""
     import torch
-    from aidet_tpu_torch.flagship import build_flagship, synthetic_train_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from aidet_tpu_torch.flagship import keep_every_candidate_cfg
+    img, n_gt = 256, 8
+    net = build_train_model(model, img, "cpu")[0]
+    max_num = net.train_cfg["rpn_proposal"]["max_num"]
+    cfg = keep_every_candidate_cfg(img, n_gt, max_num)
+    got = train_step_once(device, img, n_gt, cfg, model=model)
+    ref = train_step_once("cpu", img, n_gt, cfg, model=model)
+    names = [n for n, _ in net.named_parameters()]
+    if model == "flagship":
+        name, title = "reference_train", "small flagship float32"
+        limits = dict(losses_rel=1e-3, update_rel_l2=1e-3,
+                      leaf_over_largest=1e-2)
+    else:
+        name, title = "rroi_reference_train", "small RBBoxRCNNRRoI float32"
+        limits = dict(losses_rel=1e-3, update_rel_l2=2e-3,
+                      leaf_over_largest=1e-2)
+    cpu = compare_steps(name, got, ref, limits)
+    cpu["worst_leaf"] = names[cpu["worst_leaf"]]
+    fields = dict(losses_card=got[0], losses_cpu=ref[0], **cpu)
+    if model == "rroi":
+        with plain_versions():
+            plain = train_step_once(device, img, n_gt, cfg, model=model)
+        k = compare_steps(f"{name} (kernels against plain versions)", got,
+                          plain, dict(losses_rel=1e-4, update_rel_l2=1e-4,
+                                      leaf_over_largest=1e-3))
+        k["worst_leaf"] = names[k["worst_leaf"]]
+        fields["kernels_against_plain_on_card"] = k
+        c = compare_steps(f"{name} (plain versions against the CPU)",
+                          plain, ref)
+        c["worst_leaf"] = names[c["worst_leaf"]]
+        fields["plain_on_card_against_cpu"] = c
+    phase(name, model=title, img=img, gts=n_gt, **fields)
+
+
+def run_train(device="cuda", small=False, steps=3, batch=2, seed=0,
+              model="flagship"):
+    """Drive the train step of ``model`` ("flagship", or "rroi": the
+    RBBoxRCNNRRoI with pointobb gts): 1 warm-up step, then ``steps``
+    timed ones on a synthetic batch; check that every loss is finite,
+    that the parameters moved, and the launch counts (per timed step on
+    the card K2's forward and backward once, and for the RRoI model K4's
+    forward and backward once; none on the CPU, where the plain versions
+    run; K1 and K3 never).  Returns the phase's fields."""
+    import torch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
     from aidet_tpu_torch.parallel.train import (build_lr_schedule,
                                                 build_optimizer,
                                                 create_train_state,
@@ -934,14 +1094,14 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
     img = 256 if small else TRAIN["img"]
     max_gt = 16 if small else TRAIN["max_gt"]
     on_card = torch.device(device).type == "cuda"
-    model = build_flagship(img, small=small, device=device, train=True,
-                           seed=seed)
-    params = list(model.parameters())
+    net, encode = build_train_model(model, img, device, small=small,
+                                    seed=seed)
+    params = list(net.parameters())
     before = [p.detach().clone() for p in params]
     optimizer = build_optimizer(build_lr_schedule(base_lr=0.02))
-    state = create_train_state(model, optimizer)
-    step = make_train_step(model, optimizer)
-    data = synthetic_train_batch(batch, img, max_gt, seed, device)
+    state = create_train_state(net, optimizer)
+    step = make_train_step(net, optimizer)
+    data = synthetic_train_batch(batch, img, max_gt, seed, device, encode)
     gen = torch.Generator(device=device).manual_seed(seed)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -963,27 +1123,30 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
         if bad:
             raise AssertionError(f"train: {bad} not finite")
     launches = launch_counts()
-    lists = (backward_lists(handle("roi_align_backward")) if on_card
-             else None)
+    kernels = ["roi_align_train_forward", "roi_align_backward"]
+    if model == "rroi":
+        kernels += ["rroi_align", "rroi_align_backward"]
+    lists = ({k: backward_lists(handle(k)) for k in kernels
+              if k.endswith("backward")} if on_card else None)
     want = dict.fromkeys(HANDLES, 0)
-    want.update(roi_align_train_forward=steps if on_card else 0,
-                roi_align_backward=steps if on_card else 0)
+    want.update(dict.fromkeys(kernels, steps if on_card else 0))
     if launches != want:
-        raise AssertionError(f"train: launches {launches} in {steps} "
-                             f"steps, expected {want}")
+        raise AssertionError(f"{model} train: launches {launches} in "
+                             f"{steps} steps, expected {want}")
     # every parameter of the heads must move; elsewhere a parameter
     # that is zero and gets no gradient stays (the frozen stages' FrozenBN
     # biases, and an FPN level whose anchors all lie across the border)
-    names = [n for n, _ in model.named_parameters()]
+    names = [n for n, _ in net.named_parameters()]
     still = [n for n, a, p in zip(names, before, params)
              if torch.equal(a, p.detach())]
     if any(n.split(".")[0].endswith("_head") for n in still):
-        raise AssertionError(f"train: parameters did not move: {still}")
+        raise AssertionError(f"{model} train: parameters did not move: "
+                             f"{still}")
     moved = len(params) - len(still)
     ms = sum(times) / len(times)
     return dict(img=img, batch=batch, max_gt=max_gt, steps=steps,
                 param_dtype=str(params[0].dtype),
-                compute_dtype=str(model.compute_dtype),
+                compute_dtype=str(net.compute_dtype),
                 first_step_ms=first_ms, step_ms=times, ms_per_step=ms,
                 images_per_s=batch * 1e3 / ms,
                 peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
@@ -991,6 +1154,11 @@ def run_train(device="cuda", small=False, steps=3, batch=2, seed=0):
                 metrics={k: float(v) for k, v in metrics.items()},
                 params_moved=moved, launches=launches,
                 backward_lists=lists)
+
+
+def run_rroi_train(device="cuda", small=False, steps=3, batch=2, seed=0):
+    """`run_train` of the RBBoxRCNNRRoI."""
+    return run_train(device, small, steps, batch, seed, model="rroi")
 
 
 KERNELS = (
@@ -1004,6 +1172,8 @@ KERNELS = (
      "aidet_tpu/ops/roi_align_bandx.py:124", "rroi_predict_bandx"),
     ("rroi_align", "aidet_tpu_torch/csrc/rroi_align.cu",
      "aidet_tpu/ops/rroi_align_pallas.py:247", "rroi_predict"),
+    ("rroi_align_backward", "aidet_tpu_torch/csrc/rroi_align_backward.cu",
+     "aidet_tpu/ops/rroi_align_pallas.py:282-296", "rroi_train"),
 )
 
 
@@ -1049,6 +1219,10 @@ def main() -> int:
           **runs["train"])
     run_rroi_reference()
     runs.update(run_rroi_paths(info["nvidia_smi"]))
+    run_reference_train(model="rroi")
+    runs["rroi_train"] = run_rroi_train()
+    phase("rroi_train", model="RBBoxRCNNRRoI R50-FPN",
+          card=info["nvidia_smi"], **runs["rroi_train"])
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name], **measured[name])

@@ -1,4 +1,4 @@
-"""Torch twins of the integer bookkeeping of two CUDA kernels of the
+"""Torch twins of the integer bookkeeping of three CUDA kernels of the
 port, for the CPU tests only (the port itself never calls them).
 
 K1, `aidet_tpu_torch/csrc/roi_align.cu`: each roi's window is the
@@ -12,6 +12,14 @@ K2's backward, `aidet_tpu_torch/csrc/roi_align_backward.cu`: every
 (roi, bin) is an entry of each 4x4-cell tile that a corner of one of
 its samples falls in (`tile_binning`), and each tile sums its entries'
 corners that lie in it (`binned_backward`).
+
+K4's backward, `aidet_tpu_torch/csrc/rroi_align_backward.cu`: the same
+lists and sums for rotated rois, whose bins' samples are no grid: a
+bin is listed in each distinct tile of its samples' corners, at the
+first sample that reaches it (`rotated_tile_binning`,
+`rotated_binned_backward`).  The sample points are the plain version's
+(`ops/rroi_align.py::sample_coords`), which the kernel reproduces bit
+for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import math
 
 import torch
 
+from aidet_tpu_torch.ops import rroi_align
 from aidet_tpu_torch.ops.roi_align import BWD_TILE, sample_coords
 
 
@@ -187,14 +196,7 @@ def tile_binning(rois, bidx, lvls, level_shapes, strides, out_size,
                 e = (kk * s + py) * s + px
                 pairs += [(base + ty * across[l] + tx, e)
                           for ty in tiles_y[py] for tx in tiles_x[px]]
-    t = torch.tensor([p[0] for p in pairs], dtype=torch.long)
-    e = torch.tensor([p[1] for p in pairs], dtype=torch.long)
-    order = torch.argsort(t * max(k * s * s, 1) + e)
-    counts = torch.bincount(t, minlength=first[-1])
-    offsets = torch.zeros(first[-1] + 1, dtype=torch.long)
-    offsets[1:] = torch.cumsum(counts, 0)
-    return dict(entries=e[order], tiles=t[order], counts=counts,
-                offsets=offsets, bound=4 * k * (s * ratio) ** 2)
+    return _lists(pairs, first[-1], k * s * s, 4 * k * (s * ratio) ** 2)
 
 
 def _bin_tiles(p, size, out_size, ratio, tile):
@@ -214,21 +216,103 @@ def binned_backward(grad_out, rois, bidx, lvls, level_shapes, strides,
     float64), and every tile is written once.  Returns the levels'
     gradients [B, H, W, C] in grad_out's dtype."""
     k, s = rois.shape[0], grad_out.shape[1]
-    c = grad_out.shape[-1]
     compute = torch.promote_types(grad_out.dtype, torch.float32)
-    first, across, per_image = tile_layout(level_shapes, tile)
     rois = rois.to(compute)
     lists = tile_binning(rois, bidx, lvls, level_shapes, strides, s, ratio,
                          aligned, tile)
+    ys, xs = axis_samples(rois, lvls, strides, s, ratio, aligned)
+    n = s * ratio
+    return tile_sums(grad_out, lists, ys[:, :, None].expand(k, n, n),
+                     xs[:, None, :].expand(k, n, n), lvls, level_shapes,
+                     ratio, tile)
+
+
+def rotated_tile_binning(rrois, bidx, lvls, level_shapes, strides,
+                         out_size, ratio=2, aligned=True, tile=BWD_TILE):
+    """K4's backward's lists: every (roi, bin) of rotated rois [K, 5]
+    once in each tile that a corner of one of its samples inside the map
+    falls in, counted at the first sample (row-major in the bin) whose
+    corners reach it, as the kernel's binning walks them.  Returns what
+    `tile_binning` returns (bound: the same 4 K n^2)."""
+    k, s = rrois.shape[0], out_size
+    first, across, per_image = tile_layout(level_shapes, tile)
+    ys, xs = rroi_align.sample_coords(rrois, lvls, strides, s, ratio,
+                                      aligned)
+    pairs = []
+    for kk in range(k):
+        l = int(lvls[kk])
+        _, h, w, _ = level_shapes[l]
+        base = first[l] + int(bidx[kk]) * per_image[l]
+        yin, y0, y1, _ = (t.tolist() for t in corners(ys[kk], h))
+        xin, x0, x1, _ = (t.tolist() for t in corners(xs[kk], w))
+        for py in range(s):
+            for px in range(s):
+                e = (kk * s + py) * s + px
+                seen = []
+                for i in range(py * ratio, (py + 1) * ratio):
+                    for j in range(px * ratio, (px + 1) * ratio):
+                        if not (yin[i][j] and xin[i][j]):
+                            continue
+                        for ty in sorted({y0[i][j] // tile,
+                                          y1[i][j] // tile}):
+                            for tx in sorted({x0[i][j] // tile,
+                                              x1[i][j] // tile}):
+                                t = base + ty * across[l] + tx
+                                if t not in seen:
+                                    seen.append(t)
+                pairs += [(t, e) for t in seen]
+    return _lists(pairs, first[-1], k * s * s, 4 * k * (s * ratio) ** 2)
+
+
+def rotated_binned_backward(grad_out, rrois, bidx, lvls, level_shapes,
+                            strides, ratio=2, aligned=True, tile=BWD_TILE):
+    """K4's backward from its lists (`rotated_tile_binning`), summed
+    tile by tile as `binned_backward` sums K2's.  Returns the levels'
+    gradients [B, H, W, C] in grad_out's dtype."""
+    s = grad_out.shape[1]
+    compute = torch.promote_types(grad_out.dtype, torch.float32)
+    rrois = rrois.to(compute)
+    lists = rotated_tile_binning(rrois, bidx, lvls, level_shapes, strides, s,
+                                 ratio, aligned, tile)
+    ys, xs = rroi_align.sample_coords(rrois, lvls, strides, s, ratio,
+                                      aligned)
+    return tile_sums(grad_out, lists, ys, xs, lvls, level_shapes, ratio,
+                     tile)
+
+
+def _lists(pairs, num_tiles, num_bins, bound):
+    """dict(entries, tiles, counts, offsets, bound) of (tile, bin id)
+    pairs, sorted by tile then bin."""
+    t = torch.tensor([p[0] for p in pairs], dtype=torch.long)
+    e = torch.tensor([p[1] for p in pairs], dtype=torch.long)
+    order = torch.argsort(t * max(num_bins, 1) + e)
+    counts = torch.bincount(t, minlength=num_tiles)
+    offsets = torch.zeros(num_tiles + 1, dtype=torch.long)
+    offsets[1:] = torch.cumsum(counts, 0)
+    return dict(entries=e[order], tiles=t[order], counts=counts,
+                offsets=offsets, bound=bound)
+
+
+def tile_sums(grad_out, lists, ys, xs, lvls, level_shapes, ratio=2,
+              tile=BWD_TILE):
+    """The accumulate pass of both backward kernels: each tile adds, for
+    each of its entries (``lists``), the bin's grad_out times the
+    weight of every corner of the bin's samples (ys, xs [K, n, n], the
+    sample points) that lies in the tile (sums in float32, float64 for
+    float64), and every tile is written once.  Returns the levels'
+    gradients [B, H, W, C] in grad_out's dtype."""
+    k, s = grad_out.shape[0], grad_out.shape[1]
+    c = grad_out.shape[-1]
+    compute = torch.promote_types(grad_out.dtype, torch.float32)
+    first, across, per_image = tile_layout(level_shapes, tile)
     e, t = lists["entries"], lists["tiles"]
     kk, py, px = e // (s * s), (e // s) % s, e % s
     lv = lvls.long()[kk]
-    ys, xs = axis_samples(rois, lvls, strides, s, ratio, aligned)
     # every entry's ratio x ratio samples: [E, ratio, ratio]
-    iy = py[:, None] * ratio + torch.arange(ratio)
-    ix = px[:, None] * ratio + torch.arange(ratio)
-    y_s = ys[kk[:, None], iy][:, :, None].expand(-1, ratio, ratio)
-    x_s = xs[kk[:, None], ix][:, None, :].expand(-1, ratio, ratio)
+    iy = (py[:, None] * ratio + torch.arange(ratio))[:, :, None]
+    ix = (px[:, None] * ratio + torch.arange(ratio))[:, None, :]
+    y_s = ys.to(compute)[kk[:, None, None], iy, ix]
+    x_s = xs.to(compute)[kk[:, None, None], iy, ix]
     hs = torch.tensor([q[1] for q in level_shapes])[lv][:, None, None]
     ws = torch.tensor([q[2] for q in level_shapes])[lv][:, None, None]
     inside = (y_s >= -1) & (y_s <= hs) & (x_s >= -1) & (x_s <= ws)

@@ -3,8 +3,8 @@ torchvision and the reference package are absent, as on the machine
 with the card.  A subprocess makes every such import raise, imports
 every module of `aidet_tpu_torch` and `chip_smoke`, and rehearses
 chip_smoke's flagship predict and train phases and its RBBoxRCNNRRoI
-predict (also under AIDET_ROI_BAND=x) on the CPU (small models, plain
-versions, no kernel launch) to their ends.  The kernels' CUDA sources
+predict (also under AIDET_ROI_BAND=x) and train on the CPU (small
+models, plain versions, no kernel launch) to their ends.  The kernels' CUDA sources
 include no framework header."""
 
 import ast
@@ -47,6 +47,9 @@ for band in ("1", "x"):
                                        band=band)[0]
     assert set(rroi["launches"].values()) == {{0}}, rroi
     assert rroi["n_valid"] > 0, rroi
+rtrain = chip_smoke.run_rroi_train(device="cpu", small=True, steps=1)
+assert set(rtrain["launches"].values()) == {{0}}, rtrain
+assert rtrain["params_moved"] > 0, rtrain
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
@@ -104,14 +107,15 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
 
 
 SOURCES = ("roi_align.cu", "roi_align_backward.cu", "roi_align_bandx.cu",
-           "rroi_align.cu", "roi_common.cuh")
+           "rroi_align.cu", "rroi_align_backward.cu", "roi_common.cuh",
+           "roi_tiles.cuh")
 
 
 @pytest.mark.parametrize("name", SOURCES)
 def test_kernel_source_includes_no_framework_header(name):
     """Each kernel source is plain CUDA C++ with an extern "C" entry
     (built by nvcc alone and loaded with ctypes): its includes are the
-    CUDA runtime's and the C library's, or the shared header."""
+    CUDA runtime's and the C library's, or the shared headers."""
     csrc = REPO / "aidet_tpu_torch" / "csrc"
     assert sorted(p.name for p in csrc.iterdir()) == sorted(SOURCES)
     text = (csrc / name).read_text()
@@ -119,7 +123,7 @@ def test_kernel_source_includes_no_framework_header(name):
                 if line.startswith("#include")]
     assert includes
     assert set(includes) <= {"cuda_bf16.h", "cuda_runtime.h", "stdint.h",
-                             "roi_common.cuh"}, includes
+                             "roi_common.cuh", "roi_tiles.cuh"}, includes
     for word in ("torch", "ATen", "pybind", "jax", "aidet_tpu/"):
         assert word not in "".join(includes), (name, word)
     if name.endswith(".cu"):

@@ -1,4 +1,5 @@
-"""The integer bookkeeping of kernels K1 and K2's backward, on the CPU.
+"""The integer bookkeeping of kernels K1, K2's backward and K4's
+backward, on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_port_kernels.py
 holds them to the plain versions there); their plans are held here
@@ -17,6 +18,13 @@ through torch twins (tests/roi_kernel_twins.py):
   `batched_multilevel_roi_align` (1e-5 of the largest, float32; 1e-13
   float64) and the JAX reference's linear transpose (1e-5 of the
   largest).
+- K4's backward (`csrc/rroi_align_backward.cu`): each rotated bin is
+  listed once in each distinct tile of its samples' corners (held to a
+  brute-force listing of every corner), within the same bound, and the
+  per-tile sums over the binned entries equal the autograd gradient of
+  the plain `batched_rroi_align` (1e-5 of the largest, float32; 1e-13
+  float64) and the JAX reference's linear transpose (1e-5 of the
+  largest).
 """
 
 import importlib
@@ -27,14 +35,18 @@ import numpy as np
 import pytest
 import torch
 
-from aidet_tpu_torch.ops import roi_align
+from aidet_tpu_torch.ops import roi_align, rroi_align
 from roi_kernel_twins import (BWD_TILE, axis_samples, bin_rows_span,
-                              binned_backward, corners, scan_axis,
-                              separable_roi_align, stripe_plan, tile_binning,
-                              tile_layout, window_axis, window_plan)
-from torch_port_helpers import STRIDES, make_inputs, to_np
+                              binned_backward, corners,
+                              rotated_binned_backward, rotated_tile_binning,
+                              scan_axis, separable_roi_align, stripe_plan,
+                              tile_binning, tile_layout, window_axis,
+                              window_plan)
+from torch_port_helpers import (STRIDES, make_inputs, make_rroi_inputs,
+                                to_np)
 
 j_roi_align = importlib.import_module("aidet_tpu.ops.roi_align")
+j_rroi_align = importlib.import_module("aidet_tpu.ops.rroi_align")
 
 # K1's edge cases: a whole-image roi (level 3 by its size), 1:40 rois
 # across and down, rois partly and fully outside the map, a tiny roi
@@ -292,6 +304,134 @@ def test_k2_binned_backward_matches_jax_transpose():
     got = binned_backward(torch.from_numpy(g.reshape(-1, 7, 7, c)), flat,
                           bidx, lvls, [tuple(f.shape) for f in feats],
                           STRIDES)
+    for a, b in zip(got, ref):
+        b = np.asarray(b)
+        np.testing.assert_allclose(to_np(a), b,
+                                   atol=1e-5 * np.abs(b).max())
+
+
+def rotated_routed(seed, b=2, r=24, c=8):
+    feats, rr = make_rroi_inputs(seed, b=b, r=r, c=c)
+    tf = [torch.from_numpy(f) for f in feats]
+    flat = torch.from_numpy(rr.reshape(-1, 5))
+    lvls = rroi_align.route_rrois(flat, [f.shape[1:3] for f in tf], STRIDES)
+    bidx = torch.arange(b).repeat_interleave(r)
+    return tf, torch.from_numpy(rr), flat, lvls, bidx
+
+
+def brute_force_rotated_tiles(flat, lvls, bidx, level_shapes, out_size,
+                              ratio):
+    """{(bin id, tile id)} by walking every corner of every sample."""
+    first, across, per_image = tile_layout(level_shapes)
+    ys, xs = rroi_align.sample_coords(flat, lvls, STRIDES, out_size, ratio)
+    n = out_size * ratio
+    pairs = set()
+    for k in range(flat.shape[0]):
+        l = int(lvls[k])
+        _, h, w, _ = level_shapes[l]
+        yin, y0, y1, _ = (t.tolist() for t in corners(ys[k], h))
+        xin, x0, x1, _ = (t.tolist() for t in corners(xs[k], w))
+        base = first[l] + int(bidx[k]) * per_image[l]
+        for i in range(n):
+            for j in range(n):
+                if not (yin[i][j] and xin[i][j]):
+                    continue
+                e = (k * out_size + i // ratio) * out_size + j // ratio
+                for yy in (y0[i][j], y1[i][j]):
+                    for xx in (x0[i][j], x1[i][j]):
+                        pairs.add((e, base + yy // BWD_TILE * across[l]
+                                   + xx // BWD_TILE))
+    return pairs
+
+
+@pytest.mark.parametrize("ratio", [1, 2, 3])
+def test_k4_rotated_binning_lists_every_corner_tile_once(ratio):
+    """One entry per (bin, tile) that a corner of the rotated bin's
+    samples falls in, whatever theta; the edge rois include a turned
+    whole-image roi, rois across the map's last row and column, partly
+    outside it, and smaller than a cell."""
+    feats, _, flat, lvls, bidx = rotated_routed(50, r=12)
+    shapes = [tuple(f.shape) for f in feats]
+    lists = rotated_tile_binning(flat, bidx, lvls, shapes, STRIDES, 7, ratio)
+    got = set(zip(lists["entries"].tolist(), lists["tiles"].tolist()))
+    assert got == brute_force_rotated_tiles(flat, lvls, bidx, shapes, 7,
+                                            ratio)
+    assert len(got) == lists["entries"].numel()      # no duplicates
+    counts = lists["counts"]
+    assert counts.shape[0] == roi_align.backward_tile_count(shapes)
+    assert int(counts.sum()) <= lists["bound"] \
+        == 4 * flat.shape[0] * (7 * ratio) ** 2
+    assert roi_align.backward_scratch_ints(shapes, flat.shape[0], 7, ratio) \
+        == 3 * counts.shape[0] + 1 + lists["bound"]
+    assert torch.equal(lists["offsets"][1:] - lists["offsets"][:-1], counts)
+
+
+def rotated_plain_gradient(feats, rrois, grad_out, out_size=7, ratio=2,
+                           aligned=True):
+    leaves = [f.detach().clone().requires_grad_() for f in feats]
+    out = rroi_align.batched_rroi_align(leaves, rrois, out_size, STRIDES,
+                                        ratio, aligned=aligned)
+    return torch.autograd.grad(out, leaves, grad_out.reshape(out.shape))
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned", [
+    (7, 2, True), (7, 3, True), (5, 2, False)])
+def test_k4_binned_backward_matches_autograd(out_size, ratio, aligned):
+    feats, rr, flat, lvls, bidx = rotated_routed(51)
+    g = torch.from_numpy(np.random.RandomState(51).randn(
+        flat.shape[0], out_size, out_size, feats[0].shape[-1])
+        .astype(np.float32))
+    shapes = [tuple(f.shape) for f in feats]
+    got = rotated_binned_backward(g, flat, bidx, lvls, shapes, STRIDES,
+                                  ratio, aligned)
+    ref = rotated_plain_gradient(feats, rr, g, out_size, ratio, aligned)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=1e-5 * scale, rtol=0)
+
+
+def test_k4_binned_backward_float64_hot_tile():
+    """150 rotated rois stacked on one spot of one image (a cluster on
+    one gt), in float64: one tile's list dominates and the sums stay
+    exact to rounding."""
+    rng = np.random.RandomState(52)
+    feats = [torch.from_numpy(rng.randn(1, 256 // s, 256 // s, 4))
+             for s in STRIDES]
+    rr = np.concatenate([rng.uniform(100.5, 101.5, (150, 2)),
+                         rng.uniform(2, 6, (150, 2)),
+                         rng.uniform(-np.pi, np.pi, (150, 1))], -1)
+    rr_b = torch.from_numpy(rr[None])
+    flat = rr_b.reshape(-1, 5)
+    shapes = [tuple(f.shape) for f in feats]
+    lvls = rroi_align.route_rrois(flat, [q[1:3] for q in shapes], STRIDES)
+    bidx = torch.zeros(150, dtype=torch.long)
+    lists = rotated_tile_binning(flat, bidx, lvls, shapes, STRIDES, 7)
+    counts = lists["counts"]
+    assert int(counts.max()) >= 0.5 * int(counts.sum())
+    g = torch.from_numpy(rng.randn(150, 7, 7, 4))
+    got = rotated_binned_backward(g, flat, bidx, lvls, shapes, STRIDES)
+    ref = rotated_plain_gradient(feats, rr_b, g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-13 * float(b.abs().max()),
+                                   rtol=0)
+
+
+def test_k4_binned_backward_matches_jax_transpose():
+    """Against jax.vjp of the reference's XLA rotated RoIAlign: its
+    linear transpose, which the TPU kernel's _vjp_bwd returns."""
+    feats, rr, flat, lvls, bidx = rotated_routed(53)
+    c = feats[0].shape[-1]
+    g = np.random.RandomState(53).randn(
+        rr.shape[0], rr.shape[1], 7, 7, c).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda fs: j_rroi_align.batched_rroi_align(
+            fs, jnp.asarray(to_np(rr)), 7, STRIDES),
+        [jnp.asarray(to_np(f)) for f in feats])
+    ref = vjp(jnp.asarray(g))[0]
+    got = rotated_binned_backward(torch.from_numpy(g.reshape(-1, 7, 7, c)),
+                                  flat, bidx, lvls,
+                                  [tuple(f.shape) for f in feats], STRIDES)
     for a, b in zip(got, ref):
         b = np.asarray(b)
         np.testing.assert_allclose(to_np(a), b,

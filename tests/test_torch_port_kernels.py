@@ -21,6 +21,14 @@ K3 (`csrc/roi_align_bandx.cu`) and K4 (`csrc/rroi_align.cu`) are held
 to their plain versions at K1's tolerances, and the small
 RBBoxRCNNRRoI's predict launches K4 and K1 (K3 under AIDET_ROI_BAND=x)
 once per call.
+
+K4's backward (`csrc/rroi_align_backward.cu`) is held to the autograd
+gradient of the plain `batched_rroi_align` at K2's backward's
+tolerances, its entries per tile to the torch twin's
+(tests/roi_kernel_twins.py: its sample points are the plain version's,
+bit for bit); K4 as a whole (`RRoIAlignFunction`) launches one forward
+and one backward, and one full-width train step of the RBBoxRCNNRRoI
+launches K2's and K4's forward and backward once each.
 """
 
 import numpy as np
@@ -28,8 +36,9 @@ import pytest
 import torch
 
 from aidet_tpu_torch.flagship import build_flagship
-from aidet_tpu_torch.ops import roi_align
-from torch_port_helpers import STRIDES, make_inputs, to_np
+from aidet_tpu_torch.ops import roi_align, rroi_align
+from torch_port_helpers import (STRIDES, make_inputs, make_rroi_inputs,
+                                to_np)
 
 
 @pytest.fixture()
@@ -241,13 +250,13 @@ def test_k4_matches_plain(cuda, dtype, atol, bump):
 
 @pytest.mark.gpu
 def test_k3_k4_raise_on_what_they_cannot_take(cuda):
-    from aidet_tpu_torch.ops import rroi_align
+    """K3 and K4 raise on what they cannot take; K4 takes features that
+    need a gradient (through `RRoIAlignFunction`), K3 does not."""
     feats, rr = rroi_inputs(cuda, torch.float32, b=1, r=4)
     with pytest.raises(ValueError, match=r"\[B, R, 5\]"):
         rroi_align.rroi_align_forward(feats, rr[..., :4].contiguous())
     leaves = [f.requires_grad_() for f in feats]
-    with pytest.raises(ValueError, match="forward only"):
-        rroi_align.rroi_align_forward(leaves, rr)
+    assert rroi_align.rroi_align_forward(leaves, rr).requires_grad
     boxes = torch.tensor([[[10., 10., 50., 60.]]], device=cuda)
     with pytest.raises(ValueError, match="no backward"):
         roi_align.roi_align_bandx_forward(leaves, boxes)
@@ -453,3 +462,153 @@ def test_k2_backward_sampling_ratio_and_v1(cuda, dtype, ratio, aligned):
     out = roi_align.batched_multilevel_roi_align(
         leaves, rois, 7, STRIDES, ratio, aligned=aligned)
     assert_k2_close(got, torch.autograd.grad(out, leaves, grad_out), dtype)
+
+
+def k4_backward_case(cuda, dtype, feats, rr, out_size=7, ratio=2,
+                     aligned=True, seed=47):
+    """K4's backward on levels ``feats`` (numpy) and rotated rois
+    [B, R, 5]; returns (its gradients, the plain ones, the flat inputs)."""
+    tf = [torch.from_numpy(f).to(cuda, dtype) for f in feats]
+    tr = torch.from_numpy(np.asarray(rr, np.float32)).to(cuda)
+    b, r = tr.shape[:2]
+    flat = tr.reshape(-1, 5).contiguous()
+    lvls = rroi_align.route_rrois(flat, [f.shape[1:3] for f in tf], STRIDES)
+    bidx = torch.arange(b, dtype=torch.int32,
+                        device=cuda).repeat_interleave(r)
+    g = torch.randn((b * r, out_size, out_size, tf[0].shape[-1]),
+                    generator=torch.Generator().manual_seed(seed))
+    g = g.to(cuda, dtype)
+    shapes = [tuple(f.shape) for f in tf]
+    got = rroi_align.rroi_align_backward_kernel(g, flat, bidx, lvls, shapes,
+                                                STRIDES, ratio, aligned)
+    torch.cuda.synchronize()
+    leaves = [f.detach().requires_grad_() for f in tf]
+    out = rroi_align.batched_rroi_align(leaves, tr, out_size, STRIDES, ratio,
+                                        aligned=aligned)
+    ref = torch.autograd.grad(out, leaves, g.reshape(out.shape))
+    return got, ref, (g, flat, bidx, lvls, shapes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ratio,aligned", [(2, True), (3, True),
+                                           (2, False)])
+def test_k4_backward_matches_plain_gradient(cuda, dtype, ratio, aligned):
+    """Random rotated rois of any theta, and the edge rois of
+    `EDGE_RROIS`: turned past pi/2, partly outside the map, across its
+    last row and column, smaller than a cell, long and thin."""
+    feats, rr = make_rroi_inputs(48, c=64)
+    got, ref, _ = k4_backward_case(cuda, dtype, feats, rr, ratio=ratio,
+                                   aligned=aligned)
+    assert_k2_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_twice_and_its_lists(cuda, dtype):
+    """Two launches agree within the tolerance (the lists' order follows
+    the fill's atomics), and the kernel's entries per tile equal the
+    torch twin's."""
+    from roi_kernel_twins import rotated_tile_binning
+    feats, rr = make_rroi_inputs(49, c=64)
+    got, ref, args = k4_backward_case(cuda, dtype, feats, rr)
+    kernel = rroi_align.rroi_align_backward_kernel
+    counts = kernel.scratch[:kernel.tiles].cpu().long()
+    g, flat, bidx, lvls, shapes = args
+    twin = rotated_tile_binning(flat.cpu(), bidx.cpu(), lvls.cpu(), shapes,
+                                STRIDES, 7)
+    assert torch.equal(counts, twin["counts"])
+    again = kernel(g, flat, bidx, lvls, shapes, STRIDES, 2, True)
+    torch.cuda.synchronize()
+    assert_k2_close(again, got, dtype)
+    assert_k2_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_hot_tile_and_no_rois(cuda, dtype):
+    """150 rotated rois stacked on one spot: one list holds most
+    entries; and no rois at all: a zero gradient."""
+    rng = np.random.RandomState(50)
+    feats = [rng.randn(1, 256 // s, 256 // s, 32).astype(np.float32)
+             for s in STRIDES]
+    rr = np.concatenate([rng.uniform(100.5, 101.5, (150, 2)),
+                         rng.uniform(2, 6, (150, 2)),
+                         rng.uniform(-np.pi, np.pi, (150, 1))], -1)[None]
+    got, ref, _ = k4_backward_case(cuda, dtype, feats, rr)
+    assert_k2_close(got, ref, dtype)
+    kernel = rroi_align.rroi_align_backward_kernel
+    counts = kernel.scratch[:kernel.tiles]
+    assert int(counts.max()) >= 0.5 * int(counts.sum()) > 0
+    shapes = [tuple(f.shape) for f in feats]
+    empty = kernel(torch.zeros(0, 7, 7, 32, dtype=dtype, device=cuda),
+                   torch.zeros(0, 5, device=cuda),
+                   torch.zeros(0, dtype=torch.int32, device=cuda),
+                   torch.zeros(0, dtype=torch.int32, device=cuda), shapes,
+                   STRIDES, 2, True)
+    torch.cuda.synchronize()
+    for e, shape in zip(empty, shapes):
+        assert e.dtype == dtype and tuple(e.shape) == shape
+        assert not bool(e.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,roi_dim", [("roi_align", 4),
+                                          ("rroi_align", 5)])
+def test_backward_kernels_raise_on_rois_they_cannot_take(cuda, name,
+                                                         roi_dim):
+    """K2's backward reads 4 floats per roi, K4's 5: rois of another
+    width, dtype or layout, and routing of another length, raise before
+    a launch."""
+    kernel = getattr(roi_align if roi_dim == 4 else rroi_align,
+                     f"{name}_backward_kernel")
+    shapes = [(1, 64 // s, 64 // s, 32) for s in STRIDES]
+    k = 3
+    g = torch.zeros(k, 7, 7, 32, device=cuda)
+    ints = torch.zeros(k, dtype=torch.int32, device=cuda)
+    good = torch.full((k, roi_dim), 8.0, device=cuda)
+    bad = [torch.zeros(k, 9 - roi_dim, device=cuda),
+           good.double(),
+           torch.full((roi_dim, k), 8.0, device=cuda).t()]
+    before = kernel.launches
+    for rois in bad:
+        with pytest.raises(ValueError, match=f"rois must be .*{roi_dim}"):
+            kernel(g, rois, ints, ints, shapes, STRIDES, 2, True)
+    with pytest.raises(ValueError, match="bidx and lvls"):
+        kernel(g, good, ints[:2], ints, shapes, STRIDES, 2, True)
+    assert kernel.launches == before
+    kernel(g, good, ints, ints, shapes, STRIDES, 2, True)
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_function_launches_forward_and_backward_once(cuda, dtype):
+    feats, rr = rroi_inputs(cuda, dtype, seed=51)
+    leaves = [f.detach().requires_grad_() for f in feats]
+    handles = (rroi_align.rroi_align_kernel,
+               rroi_align.rroi_align_backward_kernel)
+    before = [h.launches for h in handles]
+    out = rroi_align.rroi_align_forward(leaves, rr)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(51))
+    got = torch.autograd.grad(out, leaves, g.to(cuda, dtype))
+    torch.cuda.synchronize()
+    assert [h.launches - n for h, n in zip(handles, before)] == [1, 1]
+    ref_leaves = [f.detach().requires_grad_() for f in feats]
+    ref_out = rroi_align.batched_rroi_align(ref_leaves, rr)
+    np.testing.assert_allclose(to_np(out.float()), to_np(ref_out.float()),
+                               atol=1e-4 if dtype == torch.float32 else 0.05)
+    ref = torch.autograd.grad(ref_out, ref_leaves, g.to(cuda, dtype))
+    assert_k2_close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_full_width_rroi_train_step_launches_k2_and_k4_once_each(cuda):
+    import chip_smoke
+    out = chip_smoke.run_rroi_train(device="cuda", steps=1)
+    want = dict.fromkeys(chip_smoke.HANDLES, 0)
+    want.update(roi_align_train_forward=1, roi_align_backward=1,
+                rroi_align=1, rroi_align_backward=1)
+    assert out["launches"] == want
+    assert out["param_dtype"] == "torch.float32"
+    assert out["compute_dtype"] == "torch.bfloat16"

@@ -175,12 +175,6 @@ def test_refined_rboxes_zero_where_invalid(outputs):
     assert (got["rboxes"][~got["valid"]] == 0).all()
 
 
-def test_loss_raises_with_a_refine_head():
-    tm = build_rroi(IMG, small=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="refinement"):
-        tm.loss(*(None,) * 6, generator=None)
-
-
 @pytest.mark.parametrize("encode,top", [("pointobb", "_rbbox_head"),
                                         ("rtheta", "_rbbox_refine_head")])
 def test_rbbox_heads_and_decodes(encode, top):

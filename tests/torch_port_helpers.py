@@ -62,3 +62,30 @@ def make_inputs(seed, b=2, r=24, c=32, img=256, extreme=True):
         rois[:, :3] = [[10., 100., 250., 108.], [30., 5., 38., 240.],
                        [0., 0., img - 1., img - 1.]]
     return feats, rois.astype(np.float32)
+
+
+# rotated rois (cx, cy, w, h, theta) on a 256^2 image where the designs
+# of the rotated RoIAlign can break: the whole image turned, across the
+# last row and column, partly outside at theta past pi/2, w and h below
+# one cell, long thin rois that the TPU kernel bumps to coarser levels
+# (their span exceeds its window), and a sub-cell roi at theta ~ pi
+EDGE_RROIS = [[128., 128., 256., 256., 0.3], [254., 254., 30., 20., -0.6],
+              [-10., 50., 40., 30., 2.5], [100., 100., 2., 1.5, -2.0],
+              [128., 60., 200., 6., 0.1], [60., 128., 8., 220., -1.4],
+              [128., 128., 0.5, 0.5, 3.1]]
+
+
+def make_rroi_inputs(seed, b=2, r=24, c=32, img=256, edge=True):
+    """Four NHWC levels (strides 4..32) of a ``img``^2 input and rotated
+    rois [b, r, 5]: centres in [-20, img + 20], sides 1..200 px, thetas
+    in [-2 pi, 2 pi]; the first of image 0 are `EDGE_RROIS` (for a 256^2
+    image) if ``edge``."""
+    rng = np.random.RandomState(seed)
+    feats = [rng.randn(b, img // s, img // s, c).astype(np.float32)
+             for s in STRIDES]
+    rr = np.concatenate([rng.uniform(-20, img + 20, (b, r, 2)),
+                         rng.uniform(1, 200, (b, r, 2)),
+                         rng.uniform(-2 * np.pi, 2 * np.pi, (b, r, 1))], -1)
+    if edge:
+        rr[0, :len(EDGE_RROIS)] = EDGE_RROIS
+    return feats, rr.astype(np.float32)

@@ -6,16 +6,19 @@ in turns, on one CUDA card.
 
 DIR is the root of another tree of this repository (an unpacked
 ``git archive`` of an earlier commit).  Both trees' K1 (the RoIAlign
-forward, `aidet_tpu_torch/csrc/roi_align.cu`, also K2's forward) and
-K2's backward (`csrc/roi_align_backward.cu`) are built with nvcc, four
-nvcc processes at once, each into its tree's build directory, and
-called through each tree's own wrapper on the same seeded inputs as
+forward, `aidet_tpu_torch/csrc/roi_align.cu`, also K2's forward), K2's
+backward (`csrc/roi_align_backward.cu`) and K4's forward (the rotated
+RoIAlign, `csrc/rroi_align.cu`) are built with nvcc, six nvcc
+processes at once, each into its tree's build directory, and called
+through each tree's own wrapper on the same seeded inputs as
 `chip_smoke.py`'s kernels phase:
 
 - K1 at the flagship predict's 2 x 1000 rois, 7x7 and 14x14, and at
   the RRoI predict's 2 x 2000 rois, 7x7 (bfloat16);
 - K2's forward at the train step's 2 x 512 rois, 7x7 (bfloat16);
-- K2's backward there, in bfloat16 and float32.
+- K2's backward there, in bfloat16 and float32;
+- K4's forward at the RRoI predict's 2 x 100 rotated rois and the RRoI
+  train step's 2 x 128, 7x7 (bfloat16 and float32).
 
 Each case checks both kernels against the plain version (the limits of
 `chip_smoke.py`), then times them with CUDA events in the order parent,
@@ -45,23 +48,26 @@ import chip_smoke as cs  # noqa: E402
 
 
 def load_tree(root: Path, name: str):
-    """The `ops.roi_align` module of the port in the tree ``root``,
-    imported as package ``name`` (its kernels build under ``root``)."""
+    """The `ops.roi_align` and `ops.rroi_align` modules of the port in
+    the tree ``root``, imported as package ``name`` (its kernels build
+    under ``root``)."""
     init = root / "aidet_tpu_torch" / "__init__.py"
     spec = importlib.util.spec_from_file_location(
         name, init, submodule_search_locations=[str(init.parent)])
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{name}.ops.roi_align")
+    return (importlib.import_module(f"{name}.ops.roi_align"),
+            importlib.import_module(f"{name}.ops.rroi_align"))
 
 
-def build(modules):
-    """Build every tree's forward and backward library at once (each
-    handle with its own tree's builder); returns (source, nvcc seconds)
-    per library."""
+def build(modules, rotated):
+    """Build every tree's K1, K2 backward and K4 forward library at
+    once (each handle with its own tree's builder); returns (source,
+    nvcc seconds) per library."""
     handles = [h for m in modules for h in (m.roi_align_kernel,
                                             m.roi_align_backward_kernel)]
+    handles += [m.rroi_align_kernel for m in rotated]
     with ThreadPoolExecutor(max_workers=len(handles)) as pool:
         builds = list(pool.map(lambda h: h.load(), handles))
     return [(str(h.source), b.seconds) for h, b in zip(handles, builds)]
@@ -141,6 +147,52 @@ def backward_case(mods, dtype, rounds):
                 bound_by=bound_by, **timed(fns, rounds, 20, 3, bound_ms))
 
 
+def rroi_forward_case(mods, dtype, train, rounds):
+    """K4's forward of both trees at the RRoI train step's rotated
+    crops (``train``) or the RRoI predict's, routed as the path routes
+    them (no window bump)."""
+    import torch
+    strides = cs.MAIN["strides"]
+    gen = torch.Generator().manual_seed(3)
+    if train:
+        feats, rrois_b, rrois, lvls, bidx = cs.rroi_train_inputs(
+            gen, dtype, "cuda")
+    else:
+        feats, rrois_b = cs.rroi_path_inputs(gen, dtype, "cuda")
+        b, r = rrois_b.shape[:2]
+        rrois = rrois_b.reshape(b * r, 5).contiguous()
+        lvls = mods[1].route_rrois(rrois, [f.shape[1:3] for f in feats],
+                                   strides)
+        bidx = torch.arange(b, dtype=torch.int32,
+                            device="cuda").repeat_interleave(r)
+    ref = mods[1].batched_rroi_align(feats, rrois_b, 7, strides)
+    atol = cs.ATOL_BF16 if dtype == torch.bfloat16 else cs.ATOL_F32
+    outs, fns, errs = [], [], []
+    for m in mods:
+        out = torch.empty((rrois.shape[0], 7, 7, feats[0].shape[-1]),
+                          dtype=dtype, device="cuda")
+
+        def launch(m=m, out=out):
+            m.rroi_align_kernel(feats, rrois, bidx, lvls, out, strides, 2,
+                                True)
+        launch()
+        torch.cuda.synchronize()
+        errs.append(float((out.reshape(ref.shape).float() - ref.float())
+                          .abs().max()))
+        outs.append(out)
+        fns.append(launch)
+    name = str(dtype).split(".")[-1]
+    if not all(math.isfinite(e) and e <= atol for e in errs):
+        raise AssertionError(f"rroi_align {name}: errors {errs}")
+    coords = mods[1].sample_coords(rrois, lvls, strides, 7)
+    bound_ms, bound_by = cs.gather_bound(feats, coords, rrois, lvls, bidx,
+                                         outs[1])
+    return dict(kernel="rroi_align", path="rroi_train" if train
+                else "rroi_predict", rrois=rrois.shape[0], out_size=7,
+                dtype=name, max_abs_err=errs, bound_ms=bound_ms,
+                bound_by=bound_by, **timed(fns, rounds, 50, 5, bound_ms))
+
+
 def timed(fns, rounds, iters, warmup, bound_ms):
     parent, tree = in_turns(fns, rounds, iters, warmup)
     mean = [sum(t) / len(t) for t in (parent, tree)]
@@ -159,9 +211,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     print(cs.nvidia_smi_line(), flush=True)
-    mods = [load_tree(args.parent.resolve(), "aidet_tpu_torch_parent"),
-            importlib.import_module("aidet_tpu_torch.ops.roi_align")]
-    print(json.dumps(dict(build=build(mods))), flush=True)
+    trees = [load_tree(args.parent.resolve(), "aidet_tpu_torch_parent"),
+             tuple(importlib.import_module(f"aidet_tpu_torch.ops.{m}")
+                   for m in ("roi_align", "rroi_align"))]
+    mods, rotated = zip(*trees)
+    print(json.dumps(dict(build=build(mods, rotated))), flush=True)
     cases = [lambda: forward_case(mods, cs.MAIN, 7, args.rounds),
              lambda: forward_case(mods, cs.MAIN, 14, args.rounds),
              lambda: forward_case(mods, cs.RROI, 7, args.rounds),
@@ -169,6 +223,10 @@ def main():
                           kernel="roi_align_train_forward"),
              lambda: backward_case(mods, torch.bfloat16, args.rounds),
              lambda: backward_case(mods, torch.float32, args.rounds)]
+    cases += [lambda dtype=dtype, train=train: rroi_forward_case(
+                  rotated, dtype, train, args.rounds)
+              for train in (False, True)
+              for dtype in (torch.bfloat16, torch.float32)]
     for case in cases:
         print(json.dumps(case()), flush=True)
 
