@@ -25,10 +25,12 @@ features want a gradient) K4's backward kernel.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .roi_align import (ALIGN, CSRC, WIN_X, WIN_Y, RoIAlignBackwardKernel,
-                        _I, _KernelLibrary, _P)
+                        _I, _KernelLibrary, _P, backward_tile_count)
 
 
 def map_rroi_levels(rrois: torch.Tensor, num_levels: int,
@@ -181,40 +183,82 @@ def batched_rroi_align(feats, rrois_b, out_size=7,
 
 class RRoIAlignKernel(_KernelLibrary):
     """K4 (`csrc/rroi_align.cu`): the rotated RoIAlign forward, one
-    block per (roi, bin row), samples gathered directly."""
+    block per roi, its samples planned once in shared memory and
+    gathered directly."""
+
+    MAX_RATIO_SQ = 512      # sampling_ratio^2 (kPlanSamples)
 
     def __init__(self):
         super().__init__(CSRC / "rroi_align.cu", "aidet_rroi_align_forward",
                          [_I, _I] + [_P] * 4 + [_I] * 8 + [_I] * 4
                          + [_I, _I] + [_P] * 3 + [_I] * 4 + [_P, _P])
+        self._levels = {}   # _level_args by (level shapes, strides)
 
     def __call__(self, feats, rrois, bidx, lvls, out, featmap_strides,
                  sampling_ratio, aligned):
         """Launch on the current stream; rrois [K, 5] f32, bidx/lvls [K]
-        int32, out [K, s, s, C] (all contiguous, on the card)."""
+        int32, out [K, s, s, C] (all contiguous, on the card).  It runs
+        once per predict call and train step, so its host work is kept
+        short: the level arguments are kept per shape, and the stream is
+        read as its raw handle."""
+        if sampling_ratio ** 2 > self.MAX_RATIO_SQ:
+            raise ValueError(f"sampling_ratio {sampling_ratio} squared "
+                             f"exceeds the kernel's {self.MAX_RATIO_SQ} "
+                             "planned samples")
+        shapes = tuple(f.shape for f in feats)
+        key = (shapes, tuple(featmap_strides))
+        levels = self._levels.get(key)
+        if levels is None:
+            levels = self._levels[key] = self._level_args(shapes,
+                                                          featmap_strides)
         ptrs = [f.data_ptr() for f in feats] + [None] * (4 - len(feats))
-        stream = torch.cuda.current_stream(rrois.device).cuda_stream
+        dev = rrois.device.index
         self._launch(
-            "rroi_align forward", rrois.device.index,
-            self._DTYPE_CODE[feats[0].dtype], *ptrs,
-            *self._level_args([f.shape for f in feats], featmap_strides),
-            len(feats), feats[0].shape[-1], rrois.data_ptr(),
+            "rroi_align forward", dev, self._DTYPE_CODE[feats[0].dtype],
+            *ptrs, *levels, len(feats), shapes[0][-1], rrois.data_ptr(),
             bidx.data_ptr(), lvls.data_ptr(), rrois.shape[0], out.shape[1],
-            sampling_ratio, int(aligned), out.data_ptr(), stream)
+            sampling_ratio, int(aligned), out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
         return out
 
 
 class RRoIAlignBackwardKernel(RoIAlignBackwardKernel):
     """K4's backward (`csrc/rroi_align_backward.cu`): the features'
-    gradient of rotated rois [K, 5] from grad_out, binned into 4x4-cell
-    tiles and summed tile by tile in shared memory, written once in
-    grad_out's dtype; K2's backward's interface and bookkeeping
-    (`scratch`, `tiles`, `backward_scratch_ints`)."""
+    gradient of rotated rois [K, 5] from grad_out, from a per-sample
+    plan, binned into 4x4-cell tiles and summed tile by tile in
+    registers, written once in grad_out's dtype; K2's backward's
+    interface and bookkeeping (`scratch`, `tiles`,
+    `backward_scratch_ints`), and a work buffer of its own, ``work``
+    (sized by `work_ints`), whose first 4 K n^2 int32 values are the
+    plan: one (y0, x0, ly, lx) per sample of every roi."""
 
     def __init__(self):
         super().__init__(CSRC / "rroi_align_backward.cu",
                          "aidet_rroi_align_backward", "rroi_align backward",
                          roi_dim=5)
+        self.argtypes = self.argtypes + [_P, ctypes.c_longlong]
+        self.work: torch.Tensor | None = None
+
+    @staticmethod
+    def work_ints(level_shapes, num_rois, out_size, sampling_ratio) -> int:
+        """int32 values of the work buffer: the plan (4 a sample), 16
+        float weights a possible entry (4 K n^2 of them), a (tile,
+        count, offset, 0) per tile, and 4 for the walk's length."""
+        n = out_size * sampling_ratio
+        return (68 * num_rois * n * n + 4 * backward_tile_count(level_shapes)
+                + 4)
+
+    def __call__(self, grad_out, rois, bidx, lvls, level_shapes,
+                 featmap_strides, sampling_ratio, aligned):
+        self.work = torch.empty(
+            self.work_ints(level_shapes, rois.shape[0], grad_out.shape[1],
+                           sampling_ratio),
+            dtype=torch.int32, device=grad_out.device)
+        return super().__call__(grad_out, rois, bidx, lvls, level_shapes,
+                                featmap_strides, sampling_ratio, aligned)
+
+    def _launch(self, name, *args):
+        super()._launch(name, *args, self.work.data_ptr(), self.work.numel())
 
 
 # K4's forward (predict, and inside RRoIAlignFunction) and its backward

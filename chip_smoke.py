@@ -18,14 +18,20 @@ Phases, each printing one JSON line with its ``elapsed_s``:
 3. kernels: each kernel against its plain PyTorch version on seeded
    inputs at its path's shapes, its time from CUDA events and the
    plain version's, its bound and its share of the bound (bound_ms /
-   ms): K1 at the RRoI predict's 2000 rois per image (7x7) and at
+   ms).  ``ms`` is the time per launch of eager launches between CUDA
+   events: the device's time, or the host's time to enqueue a launch
+   where that is longer; beside it ``device_ms``, the device time alone
+   (CUDA events around replays of a CUDA graph of the launches), and
+   ``host_ms``, the enqueue time alone.  K1 at the RRoI predict's 2000
+   rois per image (7x7) and at
    predict's (2 images of 1024^2, 1000 rois per image, the four
    pyramid levels at C=256, bfloat16, 7x7 and 14x14), K2's forward and
    backward at the train step's (512 rois per image, 7x7; the backward
    in bfloat16 and float32, against the autograd gradient of the plain
    version, launched twice and the two held to the same limits, with
    its tile lists: entries, the longest list and the spread of the
-   lengths, and its scratch bytes), K3 at
+   lengths, the tiles and the share without entries, and its scratch
+   bytes), K3 at
    the RRoI predict's horizontal crops (2000 rois per image, 7x7) and
    K4 at its rotated crops (100 rotated rois per image, 7x7, without
    and with the TPU kernel's window bump), both in bfloat16 and
@@ -194,6 +200,9 @@ def launch_counts(reset=False):
 
 
 def cuda_ms(fn, iters, warmup):
+    """ms per call of ``fn`` launched eagerly, between CUDA events: the
+    device time, or the host's time to enqueue a call where that is
+    longer."""
     import torch
     for _ in range(warmup):
         fn()
@@ -205,6 +214,61 @@ def cuda_ms(fn, iters, warmup):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def capture(fn, iters, warmup):
+    """A CUDA graph of ``iters`` calls of ``fn`` (after ``warmup`` eager
+    ones)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, iters, reps=3):
+    """ms per call of a graph of ``iters`` calls, replayed ``reps``
+    times between CUDA events: the device's time alone, without the
+    host's cost of enqueueing each launch."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def host_ms(fn, iters):
+    """ms of host time per call to enqueue ``fn`` (no synchronisation
+    inside the window; the launch queue holds them all)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def kernel_times(fn, iters, warmup):
+    """A kernel's times per launch: ms, launched eagerly (`cuda_ms`);
+    device_ms, the device's alone (`replay_ms` of a `capture`); host_ms,
+    the host's to enqueue one (`host_ms`)."""
+    ms = cuda_ms(fn, iters, warmup)
+    graph = capture(fn, iters, warmup)
+    device_ms = replay_ms(graph, iters)
+    del graph
+    return dict(ms=ms, device_ms=device_ms, host_ms=host_ms(fn, iters))
 
 
 def cells_and_samples(feats, ys, xs, lvls, bidx):
@@ -286,9 +350,9 @@ def roi_align_backward_bound(feats, rois, lvls, bidx, grad_out, strides,
 
 def backward_lists(kernel):
     """A backward's (K2's or K4's) tile lists from its last launch's
-    scratch:
-    entries, the longest list and the spread of the lengths of the
-    non-empty ones, and the scratch's bytes."""
+    scratch: entries, the longest list and the spread of the lengths of
+    the non-empty ones, the tiles, the non-empty ones and the share of
+    empty ones, and the scratch's bytes."""
     import torch
     counts = kernel.scratch[:kernel.tiles].long()
     used = counts[counts > 0].float()
@@ -297,6 +361,7 @@ def backward_lists(kernel):
          if used.numel() else [0.0] * 3)
     return dict(entries=int(counts.sum()), longest_list=int(counts.max()),
                 tiles=int(counts.numel()), tiles_used=int(used.numel()),
+                empty_share=1.0 - used.numel() / counts.numel(),
                 list_p50=q[0], list_p90=q[1], list_p99=q[2],
                 scratch_bytes=kernel.scratch.numel() * 4)
 
@@ -349,7 +414,7 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
                                  f"{ATOL_BF16} against the plain version")
         bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
                                              strides)
-        fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
+        fields = dict(max_abs_err=err, **kernel_times(launch, 50, 5),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
@@ -425,7 +490,7 @@ def run_backward_kernel(device="cuda", rotated=False):
         bound_ms, bound_by = roi_align_backward_bound(
             feats, rois, lvls, bidx, grad_out, strides,
             coords_fn=rroi_align.sample_coords if rotated else None)
-        fields = dict(max_abs_err=max(errs), ms=cuda_ms(launch, 20, 3),
+        fields = dict(max_abs_err=max(errs), **kernel_times(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
@@ -491,7 +556,7 @@ def run_bandx_kernel(device="cuda"):
             * RROI["channels"] * out.element_size()
         bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
                                              strides)
-        fields = dict(max_abs_err=err, ms=cuda_ms(launch, 20, 3),
+        fields = dict(max_abs_err=err, **kernel_times(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 3, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
@@ -520,8 +585,9 @@ def rroi_path_inputs(gen, dtype, device):
     return feats, rrois_b
 
 
-def rroi_train_inputs(gen, dtype, device):
+def rroi_train_inputs(gen, dtype, device, batch=None):
     """Seeded levels as the RRoI train step's and 2 x 128 rotated rois
+    (``batch`` x 128 where given)
     drawn like its stage-1 boxes under random weights: centres inside
     the image, sides log-uniform over 2..1024 px (the clip the loss
     applies; a 1024-px side spans all 32 cells of level 3), any theta
@@ -530,6 +596,7 @@ def rroi_train_inputs(gen, dtype, device):
     from aidet_tpu_torch.ops.rroi_align import route_rrois
     b, n, img, c = (RTRAIN[k] for k in ("batch", "rrois", "img",
                                         "channels"))
+    b = batch or b
     feats = [torch.randn(b, img // s, img // s, c, generator=gen)
              .to(device=device, dtype=dtype) for s in MAIN["strides"]]
     u = torch.rand(b, n, 5, generator=gen)
@@ -592,7 +659,7 @@ def run_rroi_kernel(device="cuda"):
             coords = sample_coords(rrois, lvls, strides, s)
             bound_ms, bound_by = gather_bound(feats, coords, rrois, lvls,
                                               bidx, out)
-            fields = dict(max_abs_err=err, ms=cuda_ms(launch, 50, 5),
+            fields = dict(max_abs_err=err, **kernel_times(launch, 50, 5),
                           plain_ms=cuda_ms(plain, 5, 1), bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
             fields["bound_share"] = bound_ms / fields["ms"]

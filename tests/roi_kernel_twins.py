@@ -13,19 +13,26 @@ K2's backward, `aidet_tpu_torch/csrc/roi_align_backward.cu`: every
 its samples falls in (`tile_binning`), and each tile sums its entries'
 corners that lie in it (`binned_backward`).
 
-K4's backward, `aidet_tpu_torch/csrc/rroi_align_backward.cu`: the same
-lists and sums for rotated rois, whose bins' samples are no grid: a
-bin is listed in each distinct tile of its samples' corners, at the
-first sample that reaches it (`rotated_tile_binning`,
-`rotated_binned_backward`).  The sample points are the plain version's
-(`ops/rroi_align.py::sample_coords`), which the kernel reproduces bit
-for bit.
+K4, `aidet_tpu_torch/csrc/rroi_align.cu` and
+`csrc/rroi_align_backward.cu`: both plan every sample of a rotated roi
+once from the roi's geometry (`rotated_sample_twin`, the operations of
+`roi_common.cuh` in numpy float32, which equal the plain version's
+`ops/rroi_align.py::sample_coords` bit for bit).  The forward's plan
+gives each sample four corner cells and weights with 1 / ratio^2 folded
+in, or cell -1 outside the map (`rotated_forward_plan`), and sums them
+per bin (`planned_rroi_align`).  The backward's plan gives each sample
+(y0, x0, ly, lx), or y0 = -1 outside the map (`rotated_sample_plan`);
+its lists and sums are K2's for rotated rois, whose bins' samples are
+no grid: a bin is listed in each distinct tile of its samples' corners,
+at the first sample that reaches it (`rotated_tile_binning`,
+`rotated_binned_backward`).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from aidet_tpu_torch.ops import rroi_align
@@ -227,36 +234,144 @@ def binned_backward(grad_out, rois, bidx, lvls, level_shapes, strides,
                      ratio, tile)
 
 
+def rotated_sample_twin(rrois, lvls, strides, out_size, ratio=2,
+                        aligned=True):
+    """The sample points of rotated rois [K, 5] on their levels ``lvls``
+    as K4's kernels compute them (`roi_common.cuh`): the roi's geometry
+    once (`rotated_roi_at`: 1 / stride rounded, cos and sin rounded from
+    float64), then each sample (`rotated_sample`), in numpy float32 with
+    one rounding per operation (float64 for float64 rois, as the plain
+    version computes them).  Returns (ys, xs) [K, n, n] arrays of that
+    dtype, n = out_size * ratio."""
+    f = np.float64 if rrois.dtype == torch.float64 else np.float32
+    r = np.asarray(rrois, f).reshape(-1, 5)
+    inv = f(1) / np.asarray(strides, f)[np.asarray(lvls, np.int64)]
+    off = f(0.5) if aligned else f(0)
+    cx = (r[:, 0] * inv - off)[:, None, None]
+    cy = (r[:, 1] * inv - off)[:, None, None]
+    rw = np.maximum(r[:, 2] * inv, f(1e-3))[:, None, None]
+    rh = np.maximum(r[:, 3] * inv, f(1e-3))[:, None, None]
+    theta = r[:, 4].astype(np.float64)
+    cos_t = np.cos(theta).astype(f)[:, None, None]
+    sin_t = np.sin(theta).astype(f)[:, None, None]
+    n = out_size * ratio
+    g = (np.arange(n, dtype=f) + f(0.5)) / f(ratio)
+    frac = g * (f(1) / f(out_size)) - f(0.5)
+    yl = frac[None, :, None] * rh
+    xl = frac[None, None, :] * rw
+    xs = (cx + xl * cos_t) - yl * sin_t
+    ys = (cy + xl * sin_t) + yl * cos_t
+    return ys, xs
+
+
+def _plan_corners(rrois, lvls, level_hw, strides, out_size, ratio,
+                  aligned):
+    """(inside, y0, x0, y1, x1, ly, lx) [K, n, n] of the kernels'
+    `sample_corners` on `rotated_sample_twin`'s points (numpy)."""
+    ys, xs = rotated_sample_twin(rrois, lvls, strides, out_size, ratio,
+                                 aligned)
+    lv = np.asarray(lvls, np.int64)
+    h = np.array([hw[0] for hw in level_hw], ys.dtype)[lv][:, None, None]
+    w = np.array([hw[1] for hw in level_hw], ys.dtype)[lv][:, None, None]
+    inside = (ys >= -1) & (ys <= h) & (xs >= -1) & (xs <= w)
+    y = np.minimum(np.maximum(ys, 0), h - 1)
+    x = np.minimum(np.maximum(xs, 0), w - 1)
+    y0, x0 = np.floor(y), np.floor(x)
+    y1, x1 = np.minimum(y0 + 1, h - 1), np.minimum(x0 + 1, w - 1)
+    return inside, y0, x0, y1, x1, y - y0, x - x0
+
+
+def rotated_forward_plan(rrois, lvls, level_hw, strides, out_size, ratio=2,
+                         aligned=True):
+    """K4's forward's plan: for every sample [K, n, n] its four corner
+    cells (y * W + x on the roi's level), in the order (y0, x0),
+    (y0, x1), (y1, x0), (y1, x1), and their weights times 1 / ratio^2;
+    cells -1 and weights 0 for a sample outside the map.  Returns
+    (cells [K, n, n, 4] int64, weights [K, n, n, 4] float32) tensors."""
+    inside, y0, x0, y1, x1, ly, lx = _plan_corners(
+        rrois, lvls, level_hw, strides, out_size, ratio, aligned)
+    w = np.array([hw[1] for hw in level_hw], np.int64)[
+        np.asarray(lvls, np.int64)][:, None, None]
+    y0, x0, y1, x1 = (a.astype(np.int64) for a in (y0, x0, y1, x1))
+    hy, hx = np.float32(1) - ly, np.float32(1) - lx
+    inv_count = np.float32(1) / np.float32(ratio * ratio)
+    cells = np.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1],
+                     -1)
+    wts = np.stack([hy * hx * inv_count, hy * lx * inv_count,
+                    ly * hx * inv_count, ly * lx * inv_count], -1)
+    cells = np.where(inside[..., None], cells, -1)
+    wts = np.where(inside[..., None], wts, np.float32(0))
+    return torch.from_numpy(cells), torch.from_numpy(wts)
+
+
+def planned_rroi_align(feats, rrois, bidx, lvls, out_size, strides, ratio=2,
+                       aligned=True):
+    """K4's forward from its plan: each bin sums its samples' planned
+    corners times their weights (float32; float64 for float64 levels).
+    Returns [K, out_size, out_size, C] in the levels' dtype."""
+    compute = torch.promote_types(feats[0].dtype, torch.float32)
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    cells, wts = rotated_forward_plan(rrois, lvls, level_hw, strides,
+                                      out_size, ratio, aligned)
+    k, c, s = cells.shape[0], feats[0].shape[-1], out_size
+    out = torch.zeros(k, s, s, c, dtype=compute)
+    for kk in range(k):
+        fmap = feats[int(lvls[kk])][int(bidx[kk])].reshape(-1, c)
+        got = fmap.to(compute)[cells[kk].clamp(min=0)] \
+            * wts[kk, ..., None].to(compute)
+        out[kk] = got.sum(2).reshape(s, ratio, s, ratio, c).sum((1, 3))
+    return out.to(feats[0].dtype)
+
+
+def rotated_sample_plan(rrois, lvls, level_hw, strides, out_size, ratio=2,
+                        aligned=True):
+    """K4's backward's plan, as its plan pass writes it to its work buffer:
+    one int32 quadruple (y0, x0, ly, lx) per sample [K, n, n, 4] of
+    float32 rois, the weights as their float32 bits, or (-1, 0, 0, 0)
+    outside the map."""
+    inside, y0, x0, _, _, ly, lx = _plan_corners(
+        rrois, lvls, level_hw, strides, out_size, ratio, aligned)
+    plan = np.stack([y0.astype(np.int32), x0.astype(np.int32),
+                     ly.astype(np.float32).view(np.int32),
+                     lx.astype(np.float32).view(np.int32)], -1)
+    plan = np.where(inside[..., None], plan,
+                    np.array([-1, 0, 0, 0], np.int32))
+    return torch.from_numpy(plan)
+
+
 def rotated_tile_binning(rrois, bidx, lvls, level_shapes, strides,
                          out_size, ratio=2, aligned=True, tile=BWD_TILE):
     """K4's backward's lists: every (roi, bin) of rotated rois [K, 5]
     once in each tile that a corner of one of its samples inside the map
     falls in, counted at the first sample (row-major in the bin) whose
-    corners reach it, as the kernel's binning walks them.  Returns what
-    `tile_binning` returns (bound: the same 4 K n^2)."""
+    corners reach it, as the kernel's binning walks its plan (the
+    corners of `rotated_sample_plan`).  Returns what `tile_binning` returns
+    (bound: the same 4 K n^2)."""
     k, s = rrois.shape[0], out_size
     first, across, per_image = tile_layout(level_shapes, tile)
-    ys, xs = rroi_align.sample_coords(rrois, lvls, strides, s, ratio,
-                                      aligned)
+    inside, y0s, x0s = _plan_corners(rrois, lvls,
+                                     [q[1:3] for q in level_shapes], strides,
+                                     s, ratio, aligned)[:3]
+    y0s = np.where(inside, y0s, -1).astype(np.int64).tolist()
+    x0s = x0s.astype(np.int64).tolist()
     pairs = []
     for kk in range(k):
         l = int(lvls[kk])
         _, h, w, _ = level_shapes[l]
         base = first[l] + int(bidx[kk]) * per_image[l]
-        yin, y0, y1, _ = (t.tolist() for t in corners(ys[kk], h))
-        xin, x0, x1, _ = (t.tolist() for t in corners(xs[kk], w))
         for py in range(s):
             for px in range(s):
                 e = (kk * s + py) * s + px
                 seen = []
                 for i in range(py * ratio, (py + 1) * ratio):
                     for j in range(px * ratio, (px + 1) * ratio):
-                        if not (yin[i][j] and xin[i][j]):
+                        y0, x0 = y0s[kk][i][j], x0s[kk][i][j]
+                        if y0 < 0:
                             continue
-                        for ty in sorted({y0[i][j] // tile,
-                                          y1[i][j] // tile}):
-                            for tx in sorted({x0[i][j] // tile,
-                                              x1[i][j] // tile}):
+                        for ty in sorted({y0 // tile,
+                                          min(y0 + 1, h - 1) // tile}):
+                            for tx in sorted({x0 // tile,
+                                              min(x0 + 1, w - 1) // tile}):
                                 t = base + ty * across[l] + tx
                                 if t not in seen:
                                     seen.append(t)

@@ -18,16 +18,26 @@ through torch twins (tests/roi_kernel_twins.py):
   `batched_multilevel_roi_align` (1e-5 of the largest, float32; 1e-13
   float64) and the JAX reference's linear transpose (1e-5 of the
   largest).
-- K4's backward (`csrc/rroi_align_backward.cu`): each rotated bin is
-  listed once in each distinct tile of its samples' corners (held to a
-  brute-force listing of every corner), within the same bound, and the
-  per-tile sums over the binned entries equal the autograd gradient of
-  the plain `batched_rroi_align` (1e-5 of the largest, float32; 1e-13
-  float64) and the JAX reference's linear transpose (1e-5 of the
-  largest).
+- K4 (`csrc/rroi_align.cu`, `csrc/rroi_align_backward.cu`): the
+  kernels' sample points, the roi's geometry once then each sample
+  (`rotated_sample_twin`), equal the plain `sample_coords` bit for bit;
+  the forward's plan (four corner cells and weights per sample, 1 /
+  ratio^2 folded in, -1 outside the map) has the plain version's
+  corners, and its per-bin sums equal `rroi_align_plain` and the JAX
+  reference's `batched_rroi_align` (atol 1e-5, float32).  The
+  backward's per-sample plan holds the same corners and weights' bits;
+  each rotated bin is listed once in each distinct tile of its samples'
+  corners (held to a brute-force listing of every corner), within the
+  same bound, and the per-tile sums over the binned entries equal the
+  autograd gradient of the plain `batched_rroi_align` (1e-5 of the
+  largest, float32; 1e-13 float64) and the JAX reference's linear
+  transpose (1e-5 of the largest).  Edge cases for both plans: theta a
+  multiple of pi/2 with samples on cell and tile edges and on the map's
+  edges, a roi wholly off the map, every roi on one tile, no rois.
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -37,11 +47,12 @@ import torch
 
 from aidet_tpu_torch.ops import roi_align, rroi_align
 from roi_kernel_twins import (BWD_TILE, axis_samples, bin_rows_span,
-                              binned_backward, corners,
-                              rotated_binned_backward, rotated_tile_binning,
-                              scan_axis, separable_roi_align, stripe_plan,
-                              tile_binning, tile_layout, window_axis,
-                              window_plan)
+                              binned_backward, corners, planned_rroi_align,
+                              rotated_binned_backward, rotated_forward_plan,
+                              rotated_sample_plan, rotated_sample_twin,
+                              rotated_tile_binning, scan_axis,
+                              separable_roi_align, stripe_plan, tile_binning,
+                              tile_layout, window_axis, window_plan)
 from torch_port_helpers import (STRIDES, make_inputs, make_rroi_inputs,
                                 to_np)
 
@@ -436,3 +447,212 @@ def test_k4_binned_backward_matches_jax_transpose():
         b = np.asarray(b)
         np.testing.assert_allclose(to_np(a), b,
                                    atol=1e-5 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned,dtype", [
+    (7, 2, True, torch.float32), (7, 3, True, torch.float32),
+    (5, 2, False, torch.float32), (14, 2, True, torch.float32),
+    (7, 2, True, torch.float64)])
+def test_k4_twin_points_equal_sample_coords(out_size, ratio, aligned, dtype):
+    """The kernels' order of operations (geometry once per roi, then
+    each sample) gives the plain version's sample points bit for bit,
+    for any theta, routed with and without the window bump."""
+    feats, _, flat, _, _ = rotated_routed(54)
+    flat = flat.to(dtype)
+    for bump in (False, True):
+        lvls = rroi_align.route_rrois(flat, [f.shape[1:3] for f in feats],
+                                      STRIDES, bump_to_window=bump)
+        ys, xs = rroi_align.sample_coords(flat, lvls, STRIDES, out_size,
+                                          ratio, aligned)
+        ty, tx = rotated_sample_twin(flat, lvls, STRIDES, out_size, ratio,
+                                     aligned)
+        assert ty.dtype == tx.dtype == to_np(ys).dtype
+        assert np.array_equal(ty, to_np(ys)) and np.array_equal(tx, to_np(xs))
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned", [
+    (7, 2, True), (7, 3, True), (5, 2, False)])
+def test_k4_forward_plan_holds_the_plain_corners(out_size, ratio, aligned):
+    """Cell -1 exactly for the samples outside the map; else the plain
+    version's clamped corners, and weights that sum to 1 / ratio^2."""
+    feats, _, flat, lvls, _ = rotated_routed(55)
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    cells, wts = rotated_forward_plan(flat, lvls, level_hw, STRIDES,
+                                      out_size, ratio, aligned)
+    ys, xs = rroi_align.sample_coords(flat, lvls, STRIDES, out_size, ratio,
+                                      aligned)
+    for k in range(flat.shape[0]):
+        h, w = level_hw[int(lvls[k])]
+        yin, y0, y1, _ = corners(ys[k], h)
+        xin, x0, x1, _ = corners(xs[k], w)
+        inside = yin & xin
+        assert torch.equal(cells[k, ..., 0] >= 0, inside)
+        want = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0,
+                            y1 * w + x1], -1)
+        assert torch.equal(cells[k][inside], want[inside])
+        assert bool((cells[k][~inside] == -1).all())
+        assert not bool(wts[k][~inside].any())
+        torch.testing.assert_close(
+            wts[k][inside].sum(-1),
+            torch.full((int(inside.sum()),), 1.0 / ratio ** 2), atol=1e-6,
+            rtol=0)
+
+
+@pytest.mark.parametrize("out_size,ratio,aligned,bump", [
+    (7, 2, True, False), (7, 2, True, True), (7, 3, True, False),
+    (5, 2, False, False), (14, 2, True, False)])
+def test_k4_forward_plan_matches_plain(out_size, ratio, aligned, bump):
+    """The per-bin sums over the forward's plan equal the plain gather
+    (float32, atol 1e-5: the two sum in other orders)."""
+    feats, _, flat, _, bidx = rotated_routed(56)
+    lvls = rroi_align.route_rrois(flat, [f.shape[1:3] for f in feats],
+                                  STRIDES, bump_to_window=bump)
+    got = planned_rroi_align(feats, flat, bidx, lvls, out_size, STRIDES,
+                             ratio, aligned)
+    ref = rroi_align.rroi_align_plain(feats, flat, bidx, lvls, out_size,
+                                      STRIDES, ratio, aligned)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k4_forward_plan_matches_jax_reference(aligned):
+    feats, rr, flat, lvls, bidx = rotated_routed(57)
+    got = planned_rroi_align(feats, flat, bidx, lvls, 7, STRIDES,
+                             aligned=aligned)
+    ref = j_rroi_align.batched_rroi_align(
+        [jnp.asarray(to_np(f)) for f in feats], jnp.asarray(to_np(rr)), 7,
+        STRIDES, aligned=aligned)
+    np.testing.assert_allclose(to_np(got).reshape(ref.shape),
+                               np.asarray(ref), atol=1e-5)
+
+
+def test_k4_backward_plan_holds_the_plain_corners():
+    """The backward's plan entry of a sample: the plain version's (y0,
+    x0) and the bits of its float32 (ly, lx), or y0 = -1 outside."""
+    feats, _, flat, lvls, _ = rotated_routed(58)
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    plan = rotated_sample_plan(flat, lvls, level_hw, STRIDES, 7)
+    ys, xs = rroi_align.sample_coords(flat, lvls, STRIDES, 7)
+    for k in range(flat.shape[0]):
+        h, w = level_hw[int(lvls[k])]
+        yin, y0, _, ly = corners(ys[k], h)
+        xin, x0, _, lx = corners(xs[k], w)
+        inside = yin & xin
+        want = torch.stack([y0.int(), x0.int(), ly.view(torch.int32),
+                            lx.view(torch.int32)], -1)
+        assert torch.equal(plan[k][inside], want[inside])
+        assert bool((plan[k][~inside] == torch.tensor([-1, 0, 0, 0],
+                                                      dtype=torch.int32))
+                    .all())
+
+
+def test_k4_backward_work_buffer_size():
+    """K4's backward keeps K2's scratch as it is, and sizes its own work
+    buffer: one int4 per sample, 16 floats per possible entry, one int4
+    per tile and 4 ints (the C interface's check)."""
+    feats, _, flat, _, _ = rotated_routed(59, r=8)
+    shapes = [tuple(f.shape) for f in feats]
+    k, t = flat.shape[0], roi_align.backward_tile_count(shapes)
+    kernel = rroi_align.rroi_align_backward_kernel
+    for s, ratio in ((7, 2), (5, 3), (1, 1)):
+        n = s * ratio
+        assert roi_align.backward_scratch_ints(shapes, k, s, ratio) \
+            == 3 * t + 1 + 4 * k * n * n
+        work = kernel.work_ints(shapes, k, s, ratio)
+        assert work == 4 * k * n * n + 16 * 4 * k * n * n + 4 * t + 4
+        assert work % 4 == 0
+
+
+# rotated rois of K4's edge cases on a 256^2 image (levels 64^2..8^2):
+# at out_size 8, ratio 2, a roi of 64 px (level 0, 16 cells) or 128 px
+# (level 1) puts its samples one cell apart at j - 7.5 cells from its
+# centre, exactly; a centre at cell m + 0.5 then puts them on whole
+# cells, every fourth on a tile edge: exactly at theta 0, and within an
+# ulp on either side at the other multiples of pi/2 (a float32 theta
+# is pi/2 to within 4.4e-8, so its cos is not 0)
+HALF_PI = math.pi / 2
+AXIS_EDGE_RROIS = (
+    [[64., 64., 64., 64., q * HALF_PI] for q in (0, 1, 2, -1, 3, -2)]
+    + [[128., 96., 128., 128., q * HALF_PI] for q in (0, 1, -3)]
+    # across the map's last row (ys up to 64 = H) and its first (-1)
+    + [[100., 228., 64., 64., 0.], [228., 100., 64., 64., HALF_PI],
+       [100., 28., 64., 64., 0.], [28., 100., 64., 64., -HALF_PI]])
+
+
+def edge_case_rrois(case):
+    """Rotated rois [1, R, 5] of one of K4's edge cases, with the
+    levels of a 256^2 image (C=4)."""
+    rng = np.random.RandomState(60)
+    feats = [torch.from_numpy(rng.randn(1, 256 // s, 256 // s, 4)
+                              .astype(np.float32)) for s in STRIDES]
+    if case == "axis_edges":
+        rr = np.array(AXIS_EDGE_RROIS)
+    elif case == "off_map":   # wholly off the map, and one on it
+        rr = np.array([[-400., 120., 60., 40., 0.3],
+                       [120., 900., 300., 200., -2.0],
+                       [120., 120., 60., 40., 0.3]])
+    elif case == "one_tile":  # level 0's tile (6, 6): cells 24..27
+        rr = np.concatenate([rng.uniform(102, 106, (12, 2)),
+                             rng.uniform(0.5, 2, (12, 2)),
+                             rng.uniform(-np.pi, np.pi, (12, 1))], -1)
+    else:                     # no rois
+        rr = np.zeros((0, 5))
+    return feats, torch.from_numpy(rr[None].astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["axis_edges", "off_map", "one_tile",
+                                  "no_rois"])
+def test_k4_plans_edge_cases(case):
+    """Both plans on K4's edge cases: the forward's sums equal the plain
+    version (atol 1e-5), the backward's lists equal the brute-force
+    listing and its sums the autograd gradient (1e-5 of the largest)."""
+    feats, rr = edge_case_rrois(case)
+    flat = rr.reshape(-1, 5)
+    k = flat.shape[0]
+    shapes = [tuple(f.shape) for f in feats]
+    level_hw = [q[1:3] for q in shapes]
+    lvls = rroi_align.route_rrois(flat, level_hw, STRIDES)
+    bidx = torch.zeros(k, dtype=torch.long)
+    for s in (8, 7):
+        got = planned_rroi_align(feats, flat, bidx, lvls, s, STRIDES)
+        ref = rroi_align.rroi_align_plain(feats, flat, bidx, lvls, s,
+                                          STRIDES)
+        assert got.shape == ref.shape == (k, s, s, 4)
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+        lists = rotated_tile_binning(flat, bidx, lvls, shapes, STRIDES, s)
+        pairs = set(zip(lists["entries"].tolist(), lists["tiles"].tolist()))
+        assert pairs == brute_force_rotated_tiles(flat, lvls, bidx, shapes,
+                                                  s, 2)
+        assert len(pairs) == lists["entries"].numel()
+        g = torch.from_numpy(np.random.RandomState(61).randn(k, s, s, 4)
+                             .astype(np.float32))
+        grads = rotated_binned_backward(g, flat, bidx, lvls, shapes, STRIDES)
+        leaves = [f.clone().requires_grad_() for f in feats]
+        ref_g = torch.autograd.grad(
+            rroi_align.batched_rroi_align(leaves, rr, s, STRIDES), leaves,
+            g[None], allow_unused=True)
+        for a, b in zip(grads, ref_g):
+            b = torch.zeros_like(a) if b is None else b
+            torch.testing.assert_close(
+                a, b, atol=1e-5 * max(float(b.abs().max()), 1e-30), rtol=0)
+    ys, xs = rotated_sample_twin(flat, lvls, STRIDES, 8)
+    cells = rotated_forward_plan(flat, lvls, level_hw, STRIDES, 8)[0]
+    counts = rotated_tile_binning(flat, bidx, lvls, shapes, STRIDES,
+                                  8)["counts"]
+    if case == "axis_edges":
+        off = np.maximum(np.abs(ys - np.round(ys)), np.abs(xs - np.round(xs)))
+        assert off[:9].max() <= 4e-6 and not off[[0, 6]].any()
+        assert ((ys % BWD_TILE == 0) & (xs % BWD_TILE == 0)).any()
+        below = (ys < np.round(ys)) & (off < 4e-6)   # floor one cell lower
+        assert below.any() and (ys[~below] == np.round(ys[~below])).any()
+        assert (ys == 64.0).any() and (ys == -1.0).any()
+    elif case == "off_map":
+        assert bool((cells[:2] == -1).all()) and bool((cells[2] >= 0).any())
+        assert not bool(got[:2].any())
+        assert int(counts.sum()) > 0
+    elif case == "one_tile":
+        assert int((counts > 0).sum()) == 1
+        assert int(counts.max()) == k * 8 * 8
+    else:
+        assert int(counts.sum()) == 0 and lists["bound"] == 0

@@ -24,11 +24,15 @@ once per call.
 
 K4's backward (`csrc/rroi_align_backward.cu`) is held to the autograd
 gradient of the plain `batched_rroi_align` at K2's backward's
-tolerances, its entries per tile to the torch twin's
-(tests/roi_kernel_twins.py: its sample points are the plain version's,
-bit for bit); K4 as a whole (`RRoIAlignFunction`) launches one forward
-and one backward, and one full-width train step of the RBBoxRCNNRRoI
-launches K2's and K4's forward and backward once each.
+tolerances, its per-sample plan and its entries per tile to the torch
+twins' (tests/roi_kernel_twins.py: its sample points are the plain
+version's, bit for bit); K4 as a whole (`RRoIAlignFunction`) launches
+one forward and one backward, and one full-width train step of the
+RBBoxRCNNRRoI launches K2's and K4's forward and backward once each.
+K4's launch shapes: a block per roi at roi counts on either side of
+the card's 132 SMs and bins whose plan takes several chunks; and a
+backward whose zero blocks (32 tiles each) meet empty tiles beside hot
+ones, with a channel slice of 128 that C does not fill.
 """
 
 import numpy as np
@@ -612,3 +616,98 @@ def test_full_width_rroi_train_step_launches_k2_and_k4_once_each(cuda):
     assert out["launches"] == want
     assert out["param_dtype"] == "torch.float32"
     assert out["compute_dtype"] == "torch.bfloat16"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("k,out_size,ratio", [
+    (1, 7, 2), (3, 7, 2), (133, 7, 2), (265, 7, 2), (5, 14, 3),
+    (4, 32, 2)])
+def test_k4_forward_launch_shapes(cuda, dtype, atol, k, out_size, ratio):
+    """One block per roi for any K (one SM's worth, more than the
+    card's SMs, two waves' worth), and bins planned in several chunks
+    of the kernel's 512 samples (14x14 at ratio 3, 32x32 at ratio 2);
+    C=160 leaves the last warp's channel vectors part-filled."""
+    feats, rr = rroi_inputs(cuda, dtype, seed=13, b=1, r=k, c=160)
+    got = rroi_align.rroi_align_forward(feats, rr, out_size,
+                                        sampling_ratio=ratio)
+    torch.cuda.synchronize()
+    ref = rroi_align.batched_rroi_align(feats, rr, out_size,
+                                        sampling_ratio=ratio)
+    assert got.dtype == dtype and got.shape == ref.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(ref.float()),
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_k4_backward_plan_equals_twin(cuda):
+    """The plan pass's per-sample entries in the work buffer equal the torch
+    twin's bit for bit: the same corners and the same float32
+    weights."""
+    from roi_kernel_twins import rotated_sample_plan
+    feats, rr = make_rroi_inputs(52, c=64)
+    _, _, (g, flat, bidx, lvls, shapes) = k4_backward_case(
+        cuda, torch.float32, feats, rr)
+    kernel = rroi_align.rroi_align_backward_kernel
+    k, n = flat.shape[0], 7 * 2
+    got = kernel.work[:4 * k * n * n].cpu()
+    twin = rotated_sample_plan(flat.cpu(), lvls.cpu(),
+                               [q[1:3] for q in shapes], STRIDES, 7)
+    assert torch.equal(got.view(k, n, n, 4), twin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_empty_tiles_beside_hot_ones(cuda, dtype):
+    """A 512^2 pyramid (2720 tiles, C=160: two 128-channel slices, the
+    second part-filled): 85 zero blocks of 32 tiles; 60 rotated rois
+    stacked on one spot and 6 scattered leave most tiles empty beside a
+    few hot ones, in the same zero blocks.
+    Against the plain gradient, and the entries per tile against the
+    twin's."""
+    from roi_kernel_twins import rotated_tile_binning
+    rng = np.random.RandomState(53)
+    feats = [rng.randn(2, 512 // s, 512 // s, 160).astype(np.float32)
+             for s in STRIDES]
+    hot = np.concatenate([rng.uniform(300.5, 301.5, (60, 2)),
+                          rng.uniform(2, 8, (60, 2)),
+                          rng.uniform(-np.pi, np.pi, (60, 1))], -1)
+    spread = np.concatenate([rng.uniform(0, 512, (6, 2)),
+                             rng.uniform(8, 400, (6, 2)),
+                             rng.uniform(-np.pi, np.pi, (6, 1))], -1)
+    rr = np.stack([np.concatenate([hot, spread[:3]]),
+                   np.concatenate([spread[3:], hot])[:63]])
+    got, ref, (g, flat, bidx, lvls, shapes) = k4_backward_case(
+        cuda, dtype, feats, rr)
+    assert_k2_close(got, ref, dtype)
+    kernel = rroi_align.rroi_align_backward_kernel
+    counts = kernel.scratch[:kernel.tiles].cpu().long()
+    twin = rotated_tile_binning(flat.cpu(), bidx.cpu(), lvls.cpu(), shapes,
+                                STRIDES, 7)
+    assert torch.equal(counts, twin["counts"])
+    used = int((counts > 0).sum())
+    assert kernel.tiles == 2720 and used < 0.2 * kernel.tiles
+    assert int(counts.max()) >= 60
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_backward_partial_tiles(cuda, dtype):
+    """Levels whose sides are no multiple of the 4-cell tile (a 228^2
+    image: 57, 28, 14 and 7 cells): the last tiles of a row or column
+    hold fewer cells, whether they get entries or zeros; against the
+    plain gradient, and the entries per tile against the twin's."""
+    from roi_kernel_twins import rotated_tile_binning
+    feats, rr = make_rroi_inputs(54, c=64, img=228, edge=False)
+    rr[0, :3] = [[226., 226., 30., 20., 0.4], [114., 226., 200., 8., 0.],
+                 [226., 114., 8., 200., 1.2]]
+    got, ref, (g, flat, bidx, lvls, shapes) = k4_backward_case(
+        cuda, dtype, feats, rr)
+    assert [s[1] for s in shapes] == [57, 28, 14, 7]
+    assert_k2_close(got, ref, dtype)
+    kernel = rroi_align.rroi_align_backward_kernel
+    twin = rotated_tile_binning(flat.cpu(), bidx.cpu(), lvls.cpu(), shapes,
+                                STRIDES, 7)
+    assert torch.equal(kernel.scratch[:kernel.tiles].cpu().long(),
+                       twin["counts"])
