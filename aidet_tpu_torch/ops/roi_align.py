@@ -14,7 +14,8 @@ Ports `aidet_tpu/ops/roi_align.py` (`map_roi_levels`,
 - K3, `aidet_tpu/ops/roi_align_bandx.py::roi_align_bandx` (predict
   under AIDET_ROI_BAND=x), by `csrc/roi_align_bandx.cu` behind
   `roi_align_bandx_forward`: K1's function, computed chunk by chunk of
-  rois that share an (image, level, band) key (`bandx_chunks`).
+  rois that share an (image, level, band) key, planned on the card
+  (`bandx_chunks` is the plan's plain twin).
 
 Feature maps are NHWC `[B, H_l, W_l, C]`, rois `[B, R, 4]` (x1, y1,
 x2, y2) in image pixels, crops `[B, R, s, s, C]`.
@@ -24,7 +25,7 @@ runs the plain version (differentiable through autograd: its gradient
 is the plain backward), on CUDA tensors it launches the kernels (and
 raises on anything they do not take): K1 when no gradient is wanted,
 else `RoIAlignFunction`.  `roi_align_bandx_forward` is K3's, forward
-only.  Level routing and K3's chunking are plain torch in all cases.
+only.  Level routing is plain torch in all cases.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -209,13 +210,23 @@ class BandChunks(NamedTuple):
     ``start[i] .. start[i] + count[i] - 1`` (count 0: unused, the
     chunk count is a static bound) whose band starts at row
     ``row0[i]``; ``pos`` [K]: each sorted roi's slot ``chunk * size +
-    slot`` in a chunk-major layout of ``size`` rois per chunk."""
+    slot`` in a chunk-major layout of ``size`` rois per chunk;
+    ``box`` [chunks, 4]: the staged box of each chunk (first row, rows,
+    first column, columns; rows or columns 0: nothing staged), or None
+    where the caller asked for no boxes."""
     perm: torch.Tensor
     start: torch.Tensor
     count: torch.Tensor
     row0: torch.Tensor
     pos: torch.Tensor
     size: int
+    box: Optional[torch.Tensor]
+
+    def table(self) -> torch.Tensor:
+        """The chunk table as K3's plan kernel packs it, [chunks, 7]
+        (long): start, count, row0, then the box."""
+        return torch.cat([torch.stack([self.start, self.count, self.row0],
+                                      1), self.box], 1)
 
 
 def bandx_chunk_size(out_size: int) -> int:
@@ -224,17 +235,70 @@ def bandx_chunk_size(out_size: int) -> int:
     return max(1, 128 // out_size)
 
 
+def bandx_chunk_bound(num_rois, level_hw, num_images, out_size) -> int:
+    """The static chunk count of K rois: ceil(K / size) + B *
+    sum(ceil(H_l / 16)) (every (image, level, band) key may end in a
+    partial chunk)."""
+    size = bandx_chunk_size(out_size)
+    return -(-num_rois // size) + num_images * sum(-(-h // BAND_S)
+                                                   for h, _ in level_hw)
+
+
+def bandx_roi_extents(rois, lvls, level_hw, featmap_strides, out_size=7,
+                      sampling_ratio=2, aligned=True):
+    """Each roi's first sample row and column, floored and clamped to
+    its map, and the box of the cells its samples read: (first row,
+    last row, first column, last column) [K] each (long), the corners
+    of its samples inside the map (`roi_align_plain`'s test); last <
+    first where no sample lies inside."""
+    dev = rois.device
+    lv = lvls.long()
+    hs = torch.tensor([h for h, _ in level_hw], device=dev)[lv]
+    ws = torch.tensor([w for _, w in level_hw], device=dev)[lv]
+    ys, xs = sample_coords(rois.float(), lvls, featmap_strides, out_size,
+                           sampling_ratio, aligned)
+
+    def axis(p, size):
+        size = size[:, None]
+        fsize = size.float()
+        inside = (p >= -1.0) & (p <= fsize)
+        c0 = torch.floor(torch.minimum(p.clamp(min=0.0), fsize - 1)).long()
+        c1 = torch.minimum(c0 + 1, size - 1)
+        lo = torch.where(inside, c0, size).amin(1)
+        hi = torch.where(inside, c1, -1).amax(1)
+        return c0[:, 0], lo, hi
+
+    first_y, y_lo, y_hi = axis(ys[:, :, 0], hs)
+    first_x, x_lo, x_hi = axis(xs[:, 0, :], ws)
+    none = (y_hi < y_lo) | (x_hi < x_lo)
+    y_lo = torch.where(none, hs, y_lo)
+    x_lo = torch.where(none, ws, x_lo)
+    return (first_y, first_x,
+            (y_lo, torch.where(none, -1, y_hi), x_lo,
+             torch.where(none, -1, x_hi)))
+
+
 def bandx_chunks(rois, bidx, lvls, level_hw, featmap_strides, num_images,
-                 out_size=7, sampling_ratio=2, aligned=True) -> BandChunks:
-    """Sort rois [K, 4], K >= 1 (routed by the caller: ``bidx`` <
+                 out_size=7, sampling_ratio=2, aligned=True,
+                 stage_cells=None, boxes=True) -> BandChunks:
+    """Sort rois [K, 4], K >= 0 (routed by the caller: ``bidx`` <
     ``num_images``, ``lvls`` [K])
-    by their (image, level, band) key with a stable argsort and cut each
-    key's run into chunks of `bandx_chunk_size` rois, as
-    `roi_align_bandx` does.  The band of a roi is that of its window's
+    by their (image, level, band) key, and within a key by their first
+    sample column, with a stable argsort, and cut each key's run into
+    chunks of `bandx_chunk_size` rois, as `roi_align_bandx` does (the
+    reference sorts by the key alone; the column order makes a chunk's
+    rois neighbours in x).  The band of a roi is that of its window's
     first row (`roi_align_pallas._prepare`): the floor of its first
     sample row, clamped so that a min(32, H)-row window stays on the
-    map.  No host synchronisation: the chunk count is the static bound
-    ceil(K / size) + B * sum(ceil(H_l / 16))."""
+    map.  Each chunk's staged box holds the cells that its rois'
+    samples read inside its band (rows ``row0 .. min(row0 + 48, H) -
+    1``); where that box exceeds ``stage_cells`` cells (the kernel's
+    budget; None: no cap) it keeps its rows and its first columns;
+    ``boxes`` False skips the boxes (``box`` None), which the plain
+    version does not read.
+    No host synchronisation: the chunk count is `bandx_chunk_bound`.
+    The plain twin of K3's plan kernel (`RoIAlignBandxKernel.plan`),
+    which computes the same table on the card."""
     k = rois.shape[0]
     dev = rois.device
     num_levels = len(level_hw)
@@ -244,43 +308,61 @@ def bandx_chunks(rois, bidx, lvls, level_hw, featmap_strides, num_images,
     hps = [-(-h // BAND_S) * BAND_S for h in hs]
     rows = [min(BAND_H, hp) for hp in hps]
 
-    def per_level(values, dtype=torch.float32):
+    def per_level(values, dtype=torch.long):
         return torch.tensor(values, dtype=dtype, device=dev)[lv]
 
-    inv = 1.0 / per_level(featmap_strides)
-    offset = 0.5 if aligned else 0.0
-    y1 = rois[:, 1].float() * inv - offset
-    roi_h = rois[:, 3].float() * inv - offset - y1
-    if not aligned:
-        roi_h = roi_h.clamp(min=1.0)
-    ys0 = y1 + (0.5 / sampling_ratio) * (roi_h / out_size)
-    win_y = per_level([min(32, h) for h in hs])
+    first_y, first_x, (y_lo, y_hi, x_lo, x_hi) = bandx_roi_extents(
+        rois, lvls, level_hw, featmap_strides, out_size, sampling_ratio,
+        aligned)
     h_l = per_level(hs)
-    wy = torch.minimum(torch.floor(ys0).clamp(min=0.0),
-                       (h_l - win_y).clamp(min=0.0)).long()
+    wy = torch.minimum(first_y, (h_l - per_level([min(32, h) for h in hs]))
+                       .clamp(min=0))
     band = wy // BAND_S
-    hp_l = per_level(hps, torch.long)
     row0 = torch.minimum(band * BAND_S,
-                         (hp_l - per_level(rows, torch.long)).clamp(min=0))
+                         (per_level(hps) - per_level(rows)).clamp(min=0))
     max_bands = max(hps) // BAND_S + 1
-    key = (bidx.long() * num_levels + lv) * max_bands + band
-    perm = torch.argsort(key, stable=True)
+    max_cols = max(w for _, w in level_hw)
+    group = (bidx.long() * num_levels + lv) * max_bands + band
+    perm = torch.argsort(group * max_cols + first_x, stable=True)
 
-    key_s = key[perm]
+    key_s = group[perm]
     ar = torch.arange(k, device=dev)
     is_start = torch.ones(k, dtype=torch.bool, device=dev)
     is_start[1:] = key_s[1:] != key_s[:-1]
     group_start = torch.cummax(torch.where(is_start, ar, 0), 0).values
     slot = (ar - group_start) % size
     chunk = torch.cumsum((is_start | (slot == 0)).long(), 0) - 1
-    n_chunks = -(-k // size) + num_images * sum(-(-h // BAND_S) for h in hps)
+    n_chunks = bandx_chunk_bound(k, level_hw, num_images, out_size)
     start = torch.full((n_chunks,), k, dtype=torch.long, device=dev)
     start.scatter_reduce_(0, chunk, ar, "amin")
     count = torch.zeros(n_chunks, dtype=torch.long, device=dev)
     count.scatter_add_(0, chunk, torch.ones_like(chunk))
-    first = perm[start.clamp(max=k - 1)]
-    return BandChunks(perm, start, count, row0[first], chunk * size + slot,
-                      size)
+
+    # per chunk: its band's origin, and the union of its members' boxes
+    # clipped to the band
+    def reduce(values, how, empty=0):
+        out = torch.full((n_chunks,), empty, dtype=torch.long, device=dev)
+        return out.scatter_reduce_(0, chunk, values[perm], how,
+                                   include_self=how == "sum")
+    chunk_row0 = reduce(row0, "amax")
+    if not boxes:
+        return BandChunks(perm, start, count, chunk_row0,
+                          chunk * size + slot, size, None)
+    used = count > 0
+    by0 = torch.maximum(reduce(y_lo, "amin"), chunk_row0)
+    by1 = torch.minimum(reduce(y_hi, "amax", -1),
+                        reduce(torch.minimum(row0 + BAND_H, h_l), "amax") - 1)
+    bx0 = reduce(x_lo, "amin")
+    bx1 = reduce(x_hi, "amax", -1)
+    staged = used & (by1 >= by0) & (bx1 >= bx0)
+    nrows = torch.where(staged, by1 - by0 + 1, 0)
+    ncols = torch.where(staged, bx1 - bx0 + 1, 0)
+    if stage_cells is not None:
+        ncols = torch.minimum(ncols, stage_cells // nrows.clamp(min=1))
+    box = torch.stack([torch.where(staged, by0, 0), nrows,
+                       torch.where(staged, bx0, 0), ncols], 1)
+    return BandChunks(perm, start, count, chunk_row0, chunk * size + slot,
+                      size, box)
 
 
 class _KernelLibrary:
@@ -507,35 +589,135 @@ class RoIAlignBackwardKernel(_KernelLibrary):
                 zip(grads.split(sizes), level_shapes)]
 
 
-class RoIAlignBandxKernel(_KernelLibrary):
-    """K3 (`csrc/roi_align_bandx.cu`): K1's function, one block per
-    chunk of `bandx_chunks`, reduced out of the chunk's band staged in
-    shared memory."""
+class BandPlan(NamedTuple):
+    """K3's plan as the card computes it (`RoIAlignBandxKernel.plan`):
+    ``perm`` [K] int32, as `BandChunks.perm`; ``chunks`` [chunks, 8]
+    int32, one row per chunk: start, count, row0, the staged box (first
+    row, rows, first column, columns) and one unused int.  Equal to
+    `bandx_chunks` with the kernel's budget."""
+    perm: torch.Tensor
+    chunks: torch.Tensor
 
-    THREADS = 256           # the kernel's block size (kThreads)
-    STAGE_BYTES = 200 * 1024
+
+class RoIAlignBandxKernel(_KernelLibrary):
+    """K3 (`csrc/roi_align_bandx.cu`): K1's function, planned and reduced
+    by two kernels of one library.  `plan` sorts the rois and writes the
+    chunk table on the card (`bandx_chunks` is its plain twin); the call
+    launches the reduction, a block per (chunk, two 32-byte channel
+    slices), each reducing its chunk's rois out of the chunk's staged
+    box.  ``launches`` counts the reductions, ``plan_launches`` the
+    plans."""
+
+    PLAN_SMEM = 200 * 1024  # shared memory the plan's counts may take
+    SLICE_BYTES = 32        # bytes of each cell staged at a time (kSlice)
+    # a stage of the reduction's two-stage ring: boxes of at most 1664
+    # cells (52 KB measured fastest on an H100 among 16 to 104 KB:
+    # PERF.md)
+    STAGE_BYTES = 52 * 1024
 
     def __init__(self):
         super().__init__(CSRC / "roi_align_bandx.cu",
                          "aidet_roi_align_bandx_forward",
                          [_I, _I] + [_P] * 4 + [_I] * 8 + [_I] * 4
-                         + [_I, _I] + [_P] * 3 + [_I] + [_P] * 4
-                         + [_I] * 3 + [_I] * 3 + [_P, _P])
+                         + [_I, _I] + [_P] * 3 + [_I] + [_P] * 2
+                         + [_I] * 6 + [_P, _P])
+        self.plan_launches = 0
+        self._plan_fn = self._occupancy_fn = None
 
-    def __call__(self, feats, rois, bidx, lvls, chunks: BandChunks, out,
+    def load(self, build: BuildResult | None = None) -> BuildResult:
+        build = super().load(build)
+        if self._plan_fn is None:
+            self._plan_fn = self._lib.aidet_roi_align_bandx_plan
+            self._plan_fn.argtypes = [_I] * 14 + [_P] * 3 + [_I] * 9 \
+                + [_P] * 3 + [_I, _P]
+            self._occupancy_fn = self._lib.aidet_roi_align_bandx_occupancy
+            self._occupancy_fn.argtypes = [_I] * 6 + [_P]
+            for fn in (self._plan_fn, self._occupancy_fn):
+                fn.restype = ctypes.c_int
+        return build
+
+    def blocks_per_sm(self, dtype, out_size=7, sampling_ratio=2) -> int:
+        """Blocks of the reduction that fit on one SM at once in
+        ``dtype`` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), on the
+        current device."""
+        self.load()
+        blocks = ctypes.c_int(0)
+        err = self._occupancy_fn(
+            torch.cuda.current_device(), self._DTYPE_CODE[dtype],
+            bandx_chunk_size(out_size), self.STAGE_BYTES, out_size,
+            sampling_ratio, ctypes.addressof(blocks))
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+        return blocks.value
+
+    @staticmethod
+    def _check_rois(rois, bidx, lvls):
+        k, dev = rois.shape[0], rois.device
+        if dev.type != "cuda" or rois.dtype != torch.float32 \
+                or tuple(rois.shape) != (k, 4) or not rois.is_contiguous():
+            raise ValueError(f"rois must be contiguous float32 [K, 4] on the "
+                             f"card, got {rois.dtype} {tuple(rois.shape)} on "
+                             f"{dev}")
+        for t in (bidx, lvls):
+            if t.dtype != torch.int32 or tuple(t.shape) != (k,) \
+                    or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"bidx and lvls must be contiguous int32 "
+                                 f"[{k}] on the rois' device")
+
+    @property
+    def stage_cells(self) -> int:
+        """Cells a staged box may hold."""
+        return self.STAGE_BYTES // self.SLICE_BYTES
+
+    def plan(self, rois, bidx, lvls, level_hw, featmap_strides, num_images,
+             out_size=7, sampling_ratio=2, aligned=True) -> BandPlan:
+        """Launch the plan on the current stream: rois [K, 4] f32,
+        bidx/lvls [K] int32 (contiguous, on the card), routed by the
+        caller to ``num_images`` images and the levels ``level_hw``."""
+        self._check_rois(rois, bidx, lvls)
+        k = rois.shape[0]
+        dev = rois.device
+        size = bandx_chunk_size(out_size)
+        n_chunks = bandx_chunk_bound(k, level_hw, num_images, out_size)
+        groups = num_images * len(level_hw) * (
+            max(-(-h // BAND_S) for h, _ in level_hw) + 1)
+        bins = max(groups, max(w for _, w in level_hw))
+        extra = 2 * (groups + 1) + 32
+        segs = min(32, (self.PLAN_SMEM // 4 - extra) // bins)
+        if segs < 1:
+            raise ValueError(f"K3's plan cannot count {groups} band keys "
+                             f"of {num_images} images in shared memory")
+        perm = torch.empty(k, dtype=torch.int32, device=dev)
+        chunks = torch.empty((n_chunks, 8), dtype=torch.int32, device=dev)
+        work = torch.empty(7 * k, dtype=torch.int32, device=dev)
+        self.load()
+        err = self._plan_fn(
+            dev.index, *self._level_args([(0, h, w) for h, w in level_hw],
+                                         featmap_strides),
+            len(level_hw), rois.data_ptr(), bidx.data_ptr(), lvls.data_ptr(),
+            k, num_images, out_size, sampling_ratio, int(aligned), size,
+            self.stage_cells, segs, 4 * (bins * segs + extra),
+            work.data_ptr(), perm.data_ptr(), chunks.data_ptr(), n_chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"roi_align_bandx plan launch failed: CUDA "
+                               f"error {err}")
+        self.plan_launches += 1
+        return BandPlan(perm, chunks)
+
+    def __call__(self, feats, rois, bidx, lvls, plan: BandPlan, out,
                  featmap_strides, sampling_ratio, aligned):
-        """Launch on the current stream; rois [K, 4] f32, bidx/lvls [K]
-        int32, chunks from `bandx_chunks` on the same rois, out [K, s,
-        s, C] (all contiguous, on the card)."""
+        """Launch the reduction on the current stream; rois [K, 4] f32,
+        bidx/lvls [K] int32, ``plan`` from `plan` on the same rois, out
+        [K, s, s, C] (all contiguous, on the card)."""
+        self._check_rois(rois, bidx, lvls)
         s = out.shape[1]
-        if chunks.size * 2 * s > self.THREADS:
-            raise ValueError(f"chunks of {chunks.size} rois at out_size "
-                             f"{s} exceed the kernel's {self.THREADS} "
-                             "threads")
-        stage_w = min(max(f.shape[2] for f in feats),
-                      self.STAGE_BYTES // (BAND_H * 16))
-        ints = [t.to(torch.int32).contiguous() for t in
-                (chunks.perm, chunks.start, chunks.count, chunks.row0)]
+        size = bandx_chunk_size(s)
+        smem = 2 * self.STAGE_BYTES + 4 * size * (1 + 6 * s * sampling_ratio)
+        if smem > 227 * 1024:
+            raise ValueError(f"out_size {s} x sampling_ratio "
+                             f"{sampling_ratio}: the plans of a chunk do not "
+                             "fit in shared memory beside the stages")
         ptrs = [f.data_ptr() for f in feats] + [None] * (4 - len(feats))
         stream = torch.cuda.current_stream(rois.device).cuda_stream
         self._launch(
@@ -544,9 +726,9 @@ class RoIAlignBandxKernel(_KernelLibrary):
             *self._level_args([f.shape for f in feats], featmap_strides),
             len(feats), feats[0].shape[-1], rois.data_ptr(),
             bidx.data_ptr(), lvls.data_ptr(), rois.shape[0],
-            *(t.data_ptr() for t in ints), chunks.start.shape[0], stage_w,
-            BAND_H * stage_w * 16, s, sampling_ratio, int(aligned),
-            out.data_ptr(), stream)
+            plan.perm.data_ptr(), plan.chunks.data_ptr(),
+            plan.chunks.shape[0], size, self.STAGE_BYTES, s,
+            sampling_ratio, int(aligned), out.data_ptr(), stream)
         return out
 
 
@@ -646,7 +828,7 @@ def roi_align_bandx_plain(feats, rois_b, out_size=7,
                       bump_to_window)
     bidx = torch.arange(b, device=rois.device).repeat_interleave(r)
     ch = bandx_chunks(rois, bidx, lvls, level_hw, featmap_strides, b,
-                      out_size, sampling_ratio, aligned)
+                      out_size, sampling_ratio, aligned, boxes=False)
     p = ch.perm
     sorted_out = roi_align_plain(feats, rois[p], bidx[p], lvls[p], out_size,
                                  featmap_strides, sampling_ratio, aligned)
@@ -666,8 +848,9 @@ def roi_align_bandx_forward(feats, rois_b, out_size=7,
     `roi_align_forward` without a gradient.  On CPU tensors: the plain
     version (`roi_align_bandx_plain`).  On CUDA tensors, in the
     features' dtype (bfloat16 or float32), or an exception: the rois
-    are routed and chunked by plain torch and `roi_align_bandx_kernel`
-    launches once."""
+    are routed by elementwise torch ops, then `roi_align_bandx_kernel`
+    launches its plan and its reduction, with no sort, scan or scatter
+    of torch between them."""
     feats = list(feats)
     devices = {f.device for f in feats} | {rois_b.device}
     if devices == {torch.device("cpu")}:
@@ -688,10 +871,11 @@ def roi_align_bandx_forward(feats, rois_b, out_size=7,
         level_hw = [tuple(f.shape[1:3]) for f in feats]
         lvls = route_rois(rois, level_hw, featmap_strides, finest_scale,
                           bump_to_window).contiguous()
-        bidx = torch.arange(b, dtype=torch.int32,
-                            device=rois.device).repeat_interleave(r)
-        chunks = bandx_chunks(rois, bidx, lvls, level_hw, featmap_strides,
-                              b, out_size, sampling_ratio, aligned)
-        roi_align_bandx_kernel(feats, rois, bidx, lvls, chunks, out,
+        bidx = torch.arange(b * r, dtype=torch.int32,
+                            device=rois.device) // r
+        plan = roi_align_bandx_kernel.plan(rois, bidx, lvls, level_hw,
+                                           featmap_strides, b, out_size,
+                                           sampling_ratio, aligned)
+        roi_align_bandx_kernel(feats, rois, bidx, lvls, plan, out,
                                featmap_strides, sampling_ratio, aligned)
     return out.reshape(b, r, out_size, out_size, c)

@@ -31,7 +31,9 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    version, launched twice and the two held to the same limits, with
    its tile lists: entries, the longest list and the spread of the
    lengths, the tiles and the share without entries, and its scratch
-   bytes), K3 at
+   bytes), K3 (its plan and its reduction; the plan's chunk table held
+   to its twin `bandx_chunks`, with the bytes its boxes stage and the
+   reduction's blocks per SM) at
    the RRoI predict's horizontal crops (2000 rois per image, 7x7) and
    K4 at its rotated crops (100 rotated rois per image, 7x7, without
    and with the TPU kernel's window bump), both in bfloat16 and
@@ -58,8 +60,9 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    and rtheta heads, bfloat16, 1024^2, 2000 proposals, 100 detections)
    on 3 requests of 2 seeded random uint8 images, with K1's and K4's
    launch counts (1 each per call).
-10. rroi_predict_bandx: one more call under AIDET_ROI_BAND=x: K3 once,
-   K1 never, K4 once, its detections paired with the last K1 call's.
+10. rroi_predict_bandx: one more call under AIDET_ROI_BAND=x: K3 once
+   (its plan and its reduction), K1 never, K4 once, its detections
+   paired with the last K1 call's.
 11. rroi_reference_train: one train step of the small RBBoxRCNNRRoI
    (float32) on the card against the CPU, as reference_train: its 8
    losses, grad_norm and the parameters' updates.
@@ -195,6 +198,8 @@ def launch_counts(reset=False):
         h = handle(name)
         if reset:
             h.launches = 0
+            if hasattr(h, "plan_launches"):   # K3's plan, counted apart
+                h.plan_launches = 0
         counts[name] = h.launches
     return counts
 
@@ -505,12 +510,18 @@ def run_backward_kernel(device="cuda", rotated=False):
 
 def run_bandx_kernel(device="cuda"):
     """K3 against its plain version at the RRoI predict's horizontal
-    crops (2 x 2000 rois, 7x7), bfloat16 then float32; returns the
-    bfloat16 fields of its entry in the kernels line."""
+    crops (2 x 2000 rois, 7x7), bfloat16 then float32, and its plan
+    against the plan's twin (`bandx_chunks` with the kernel's budget:
+    the same order and chunk table, or an error); returns the bfloat16
+    fields of its entry in the kernels line.  Its times are those of
+    the plan and the reduction together (the path's launches), and of
+    each alone; beside them the bytes that the card's boxes stage (and
+    that the twin's would stage without the budget) and the
+    reduction's blocks per SM."""
     import torch
-    from aidet_tpu_torch.ops.roi_align import (BAND_H, bandx_chunks,
-                                               roi_align_bandx_kernel,
-                                               roi_align_bandx_plain)
+    from aidet_tpu_torch.ops.roi_align import bandx_chunks
+    from aidet_tpu_torch.ops.roi_align import roi_align_bandx_kernel as k3
+    from aidet_tpu_torch.ops.roi_align import roi_align_bandx_plain
     strides = MAIN["strides"]
     s = 7
     result = None
@@ -523,15 +534,17 @@ def run_bandx_kernel(device="cuda"):
         out = torch.empty((rois.shape[0], s, s, RROI["channels"]),
                           dtype=dtype, device=device)
 
-        def chunk():
-            return bandx_chunks(rois, bidx, lvls, level_hw, strides,
-                                RROI["batch"], s)
+        def plan():
+            return k3.plan(rois, bidx, lvls, level_hw, strides,
+                           RROI["batch"], s)
 
-        chunks = chunk()
+        planned = plan()
+
+        def reduce():
+            k3(feats, rois, bidx, lvls, planned, out, strides, 2, True)
 
         def launch():
-            roi_align_bandx_kernel(feats, rois, bidx, lvls, chunks, out,
-                                   strides, 2, True)
+            k3(feats, rois, bidx, lvls, plan(), out, strides, 2, True)
 
         def plain():
             return roi_align_bandx_plain(feats, rois_b, s, strides)
@@ -544,28 +557,38 @@ def run_bandx_kernel(device="cuda"):
         if not math.isfinite(err) or err > atol:
             raise AssertionError(f"roi_align_bandx {name}: max abs err "
                                  f"{err} > {atol} against the plain version")
-        used = chunks.count > 0
-        first = chunks.perm[chunks.start[used]]
-        lv = lvls[first].long()
-        hs = torch.tensor([h for h, _ in level_hw], device=device)[lv]
-        ws = torch.tensor([w for _, w in level_hw], device=device)[lv]
-        stage_w = min(max(w for _, w in level_hw),
-                      roi_align_bandx_kernel.STAGE_BYTES // (BAND_H * 16))
-        staged = float(((hs - chunks.row0[used]).clamp(max=BAND_H)
-                        * ws.clamp(max=stage_w)).sum()) \
-            * RROI["channels"] * out.element_size()
+        twin = bandx_chunks(rois, bidx, lvls, level_hw, strides,
+                            RROI["batch"], s, stage_cells=k3.stage_cells)
+        if not (torch.equal(planned.perm.long(), twin.perm)
+                and torch.equal(planned.chunks[:, :7].long(), twin.table())):
+            raise AssertionError(f"roi_align_bandx {name}: the card's plan "
+                                 "differs from its twin's")
+        used = planned.chunks[:, 1] > 0
+        cell_bytes = RROI["channels"] * out.element_size()
+        staged = float((planned.chunks[used, 4].long()
+                        * planned.chunks[used, 6].long()).sum()) * cell_bytes
+        uncapped = bandx_chunks(rois, bidx, lvls, level_hw, strides,
+                                RROI["batch"], s).box
+        staged_uncapped = float((uncapped[:, 1] * uncapped[:, 3]).sum()) \
+            * cell_bytes
         bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
                                              strides)
         fields = dict(max_abs_err=err, **kernel_times(launch, 20, 3),
                       plain_ms=cuda_ms(plain, 3, 1), bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
+        fields["device_bound_share"] = bound_ms / fields["device_ms"]
+        alone = {part: kernel_times(fn, 20, 3)
+                 for part, fn in (("plan", plan), ("reduce", reduce))}
         phase("kernels", kernel="roi_align_bandx", out_size=s,
               rois=rois.shape[0], dtype=name, atol=atol,
-              chunks=int(used.sum()), chunk_bound=chunks.start.shape[0],
-              staged_bytes=staged,
-              staged_ms=staged / HBM_BYTES_PER_S * 1e3,
-              chunking_ms=cuda_ms(chunk, 5, 1), **fields)
+              chunks=int(used.sum()), chunk_bound=planned.chunks.shape[0],
+              plan_equals_twin=True, slice_bytes=k3.SLICE_BYTES,
+              stage_bytes=k3.STAGE_BYTES, blocks_per_sm=k3.blocks_per_sm(
+                  dtype), staged_bytes=staged,
+              staged_bytes_uncapped=staged_uncapped,
+              **{f"{part}_{key}": v for part, times in alone.items()
+                 for key, v in times.items()}, **fields)
         result = result or fields
     return result
 
@@ -956,16 +979,18 @@ def run_rroi_predict(device="cuda", small=False, calls=3, batch=2, seed=0,
         bandx = band == "x" and model.dtype == torch.bfloat16
         want["roi_align_bandx" if bandx else "roi_align"] = calls
         want["rroi_align"] = calls
-    if launches != want:
-        raise AssertionError(f"rroi_predict: launches {launches} in "
-                             f"{calls} calls, expected {want}")
+    plans = handle("roi_align_bandx").plan_launches
+    if launches != want or plans != want["roi_align_bandx"]:
+        raise AssertionError(f"rroi_predict: launches {launches} and "
+                             f"{plans} of K3's plan in {calls} calls, "
+                             f"expected {want} and K3's count")
     steady = times[1:] or times
     ms = sum(steady) / len(steady)
     fields = dict(img=img, batch=batch, calls=calls, roi_band=band,
                   dtype=str(next(model.parameters()).dtype),
                   first_call_ms=times[0], call_ms=times, ms_per_call=ms,
                   images_per_s=batch * 1e3 / ms, launches=launches,
-                  n_valid=int(out["valid"].sum()))
+                  bandx_plan_launches=plans, n_valid=int(out["valid"].sum()))
     return fields, model, imgs, shapes, out
 
 

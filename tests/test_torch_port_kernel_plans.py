@@ -656,3 +656,168 @@ def test_k4_plans_edge_cases(case):
         assert int(counts.max()) == k * 8 * 8
     else:
         assert int(counts.sum()) == 0 and lists["bound"] == 0
+
+
+# K3 (`csrc/roi_align_bandx.cu`): its plan kernel sorts the rois by
+# (image, level, band) key and first sample column and writes each
+# chunk's staged box; `roi_align.bandx_chunks` is its twin, which the
+# card's plan equals (tests/test_torch_port_kernels.py)
+def k3_rois(case, seed=70):
+    """Rois [2, R, 4] on a 256^2 image, routed without the window bump:
+    "mixed" (make_inputs, with EDGE_ROIS), "hot" (one image's 500 rois
+    of 8..40 px whose first sample rows all fall in level 0's band 1,
+    rows 16..31), "tall" (rois that reach beyond their band), or
+    "none"."""
+    rng = np.random.RandomState(seed)
+    if case == "mixed":
+        return routed(seed, r=40)[1]
+    if case == "none":
+        return torch.zeros((2, 0, 4))
+    if case == "hot":
+        n = 500
+        y = rng.uniform(66, 126, n)
+        x = rng.uniform(0, 210, n)
+        s = rng.uniform(8, 40, (n, 2))
+        rois = np.stack([x, y, x + s[:, 0], y + s[:, 1]], -1)
+        other = np.array(make_inputs(seed, b=1, r=n)[1][0])
+        return torch.from_numpy(np.stack([rois, other]).astype(np.float32))
+    x = rng.uniform(0, 200, (2, 30))
+    y = rng.uniform(0, 60, (2, 30))
+    rois = np.stack([x, y, x + rng.uniform(4, 12, (2, 30)),
+                     y + rng.uniform(150, 250, (2, 30))], -1)
+    return torch.from_numpy(rois.astype(np.float32))
+
+
+def k3_plan(rois_b, stage_cells=None, out_size=7, ratio=2, aligned=True):
+    level_hw = [(256 // s, 256 // s) for s in STRIDES]
+    b, r = rois_b.shape[:2]
+    flat = rois_b.reshape(b * r, 4)
+    lvls = roi_align.route_rois(flat, level_hw, STRIDES)
+    bidx = torch.arange(b).repeat_interleave(r)
+    ch = roi_align.bandx_chunks(flat, bidx, lvls, level_hw, STRIDES, b,
+                                out_size, ratio, aligned, stage_cells)
+    return ch, flat, lvls, bidx, level_hw
+
+
+def k3_corners(flat, lvls, level_hw, out_size, ratio, aligned):
+    """Per roi the (row, column) cells [K, 4 n^2, 2] that its samples
+    inside the map read (the plain version's corners), and which of
+    them are read [K, 4 n^2] (bool)."""
+    ys, xs = roi_align.sample_coords(flat, lvls, STRIDES, out_size, ratio,
+                                     aligned)
+    hs = torch.tensor([h for h, _ in level_hw])[lvls.long()][:, None, None]
+    ws = torch.tensor([w for _, w in level_hw])[lvls.long()][:, None, None]
+    inside = (ys >= -1) & (ys <= hs) & (xs >= -1) & (xs <= ws)
+    y0 = torch.floor(torch.minimum(ys.clamp(min=0), hs - 1.0)).long()
+    x0 = torch.floor(torch.minimum(xs.clamp(min=0), ws - 1.0)).long()
+    y1, x1 = torch.minimum(y0 + 1, hs - 1), torch.minimum(x0 + 1, ws - 1)
+    k = flat.shape[0]
+    cells = torch.stack([torch.stack([yy, xx], -1).reshape(k, -1, 2)
+                         for yy in (y0, y1) for xx in (x0, x1)], 1)
+    return cells.reshape(k, -1, 2), inside.reshape(k, 1, -1).expand(
+        k, 4, -1).reshape(k, -1)
+
+
+@pytest.mark.parametrize("case,stage_cells,out_size,ratio,aligned", [
+    ("mixed", None, 7, 2, True), ("mixed", 64, 7, 2, True),
+    ("mixed", 150, 7, 3, False), ("hot", None, 7, 2, True),
+    ("hot", 96, 14, 2, True), ("tall", 2048, 7, 2, True)])
+def test_k3_boxes_hold_their_chunks_samples(case, stage_cells, out_size,
+                                             ratio, aligned):
+    """Every cell that a chunk's rois read inside its band lies in the
+    chunk's staged box, and the uncapped box is the hull of the cells
+    they read, its rows clipped to the band;
+    where the budget caps a box (rows x columns <= stage_cells), the
+    cells it loses are the box's last columns, counted here, and they
+    are all that the kernel reads from global memory within the band."""
+    rois_b = k3_rois(case)
+    ch, flat, lvls, bidx, level_hw = k3_plan(rois_b, stage_cells, out_size,
+                                             ratio, aligned)
+    full = k3_plan(rois_b, None, out_size, ratio, aligned)[0]
+    cells, read = k3_corners(flat, lvls, level_hw, out_size, ratio, aligned)
+    hs = torch.tensor([h for h, _ in level_hw])
+    lost = beyond_band = 0
+    for c in torch.nonzero(ch.count).flatten().tolist():
+        members = ch.perm[ch.start[c]:ch.start[c] + ch.count[c]]
+        y0, rows, x0, cols = ch.box[c].tolist()
+        fy0, frows, fx0, fcols = full.box[c].tolist()
+        assert (fy0, frows, fx0) == (y0, rows, x0) and cols <= fcols
+        assert stage_cells is None or rows * cols <= stage_cells
+        band_end = min(int(ch.row0[c]) + roi_align.BAND_H,
+                       int(hs[lvls[members[0]]]))
+        got = cells[members][read[members]]
+        in_band = (got[:, 0] >= ch.row0[c]) & (got[:, 0] < band_end)
+        beyond_band += int((~in_band).sum())
+        if not bool(in_band.any()):
+            assert rows * cols == 0
+            continue
+        # the hull of the cells read, its rows clipped to the band
+        assert (fy0, fy0 + frows - 1, fx0, fx0 + fcols - 1) == (
+            max(int(got[:, 0].min()), int(ch.row0[c])),
+            min(int(got[:, 0].max()), band_end - 1),
+            int(got[:, 1].min()), int(got[:, 1].max()))
+        got = got[in_band]
+        out = got[:, 1] >= x0 + cols
+        assert bool((got[:, 0] >= y0).all() and (got[:, 0] < y0 + rows).all()
+                    and (got[:, 1] >= x0).all())
+        lost += int(out.sum())
+    if stage_cells is None:
+        assert lost == 0
+    elif case != "tall":
+        assert lost > 0            # the budget bites in these cases
+    if case == "tall":
+        assert beyond_band > 0 and lost == 0
+
+
+@pytest.mark.parametrize("case", ["mixed", "hot", "tall", "none"])
+def test_k3_chunks_stay_within_the_static_bound(case):
+    """The chunks in use never exceed `bandx_chunk_bound`, the grid the
+    wrapper launches without a host synchronisation; each holds at most
+    `bandx_chunk_size` rois of one key, in order, and every roi once."""
+    rois_b = k3_rois(case)
+    ch, flat, lvls, bidx, level_hw = k3_plan(rois_b)
+    k = flat.shape[0]
+    bound = roi_align.bandx_chunk_bound(k, level_hw, 2, 7)
+    assert ch.start.shape[0] == bound == -(-k // 18) + 2 * (4 + 2 + 1 + 1)
+    used = ch.count > 0
+    assert int(used.sum()) <= bound
+    n_used = int(used.sum())
+    assert bool(used[:n_used].all()) and not bool(used[n_used:].any())
+    assert bool((ch.count <= 18).all()) and int(ch.count.sum()) == k
+    assert bool((ch.start[~used] == k).all())
+    assert sorted(ch.perm.tolist()) == list(range(k))
+    if case == "hot":
+        # one image's 500 rois in one key: 28 chunks, full but the last
+        hot = (ch.count > 0) & (bidx[ch.perm[ch.start.clamp(max=k - 1)]]
+                                == 0)
+        counts = ch.count[hot].tolist()
+        assert counts == [18] * 27 + [500 - 27 * 18]
+    if case == "none":
+        assert k == 0 and n_used == 0 and bool((ch.box == 0).all())
+
+
+@pytest.mark.parametrize("case", ["mixed", "hot"])
+def test_k3_chunks_follow_x_within_a_key(case):
+    """Within an (image, level, band) key the rois are sorted by their
+    first sample column, ties in the caller's order: a chunk's rois are
+    neighbours in x."""
+    rois_b = k3_rois(case)
+    ch, flat, lvls, bidx, level_hw = k3_plan(rois_b)
+    first_y, first_x, _ = roi_align.bandx_roi_extents(flat, lvls, level_hw,
+                                                      STRIDES)
+    ys, xs = roi_align.sample_coords(flat, lvls, STRIDES, 7, 2, True)
+    ws = torch.tensor([w for _, w in level_hw])[lvls.long()]
+    assert torch.equal(first_x, torch.floor(torch.minimum(
+        xs[:, 0, 0].clamp(min=0), ws - 1.0)).long())
+    hs = torch.tensor([h for h, _ in level_hw])[lvls.long()]
+    band = torch.minimum(first_y, (hs - hs.clamp(max=32)).clamp(min=0)) \
+        // roi_align.BAND_S
+    p = ch.perm
+    key = torch.stack([bidx[p], lvls[p].long(), band[p]], 1)
+    same = (key[1:] == key[:-1]).all(1)
+    step = first_x[p][1:] - first_x[p][:-1]
+    assert bool((step[same] >= 0).all())
+    tie = same & (step == 0)
+    assert bool((p[1:][tie] > p[:-1][tie]).all())
+    if case == "hot":
+        assert int(same.sum()) >= 499 - 1 and bool((step[same] > 0).any())

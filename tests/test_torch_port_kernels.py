@@ -18,7 +18,11 @@ of each level's largest gradient.  K2 as a whole
 full-width train step of the flagship launches each once.
 
 K3 (`csrc/roi_align_bandx.cu`) and K4 (`csrc/rroi_align.cu`) are held
-to their plain versions at K1's tolerances, and the small
+to their plain versions at K1's tolerances (K3 also where its plan is
+strained: a hot band, boxes beyond the budget, rois beyond their
+band), K3's plan kernel to its twin `bandx_chunks` bit for bit, and
+`roi_align_bandx_forward` launches the plan and the reduction with no
+torch sort, scan or scatter between them; the small
 RBBoxRCNNRRoI's predict launches K4 and K1 (K3 under AIDET_ROI_BAND=x)
 once per call.
 
@@ -222,6 +226,116 @@ def test_k3_reads_beyond_its_band(cuda):
     got = roi_align.roi_align_bandx_forward(feats, rois, 7)
     ref = roi_align.batched_multilevel_roi_align(feats, rois, 7)
     np.testing.assert_allclose(to_np(got), to_np(ref), atol=1e-4)
+
+
+
+# K3's plan on the card against its twin, and K3 where its plan is
+# strained: hundreds of rois in one band, boxes beyond the stage's
+# budget, rois that reach beyond their band, one image
+def k3_strained(cuda, case, dtype=torch.float32, c=32):
+    """Levels [B, H, W, c] and rois [B, R, 4] of one of K3's strained
+    cases on the card."""
+    rng = np.random.RandomState(13)
+    img, b = (1536, 1) if case == "tall" else (512, 2)
+    feats = [torch.from_numpy(rng.randn(b, img // s, img // s, c)
+                              .astype(np.float32)).to(cuda, dtype)
+             for s in STRIDES]
+    if case == "hot":       # 400 rois of 8..60 px, first rows in one band
+        n = 400
+        y = rng.uniform(66, 126, (b, n))
+        x = rng.uniform(0, 440, (b, n))
+        wh = rng.uniform(8, 60, (b, n, 2))
+    elif case == "wide":    # 18 rois a key whose box exceeds the budget
+        n = 36
+        y = np.tile(rng.uniform(130, 140, n), (b, 1))
+        x = rng.uniform(0, 400, (b, n))
+        wh = np.stack([rng.uniform(80, 110, (b, n)),
+                       rng.uniform(100, 150, (b, n))], -1)
+    else:                   # tall and wide rois on a 1536^2 pyramid
+        n = 24
+        y = rng.uniform(0, 1100, (b, n))
+        x = rng.uniform(0, 1400, (b, n))
+        wh = np.stack([rng.uniform(4, 120, (b, n)),
+                       rng.uniform(200, 420, (b, n))], -1)
+    rois = np.stack([x, y, x + wh[..., 0], y + wh[..., 1]], -1)
+    return feats, torch.from_numpy(rois.astype(np.float32)).to(cuda)
+
+
+def k3_routed(feats, rois_b):
+    b, r = rois_b.shape[:2]
+    rois = rois_b.reshape(b * r, 4).contiguous()
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    lvls = roi_align.route_rois(rois, level_hw, STRIDES).contiguous()
+    bidx = (torch.arange(b * r, dtype=torch.int32, device=rois.device)
+            // r)
+    return rois, lvls, bidx, level_hw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hot", "wide", "tall"])
+def test_k3_plan_equals_twin(cuda, case):
+    """The card's plan (one kernel) gives the twin's order and chunk
+    table, bit for bit: start, count, row0 and the staged box, capped
+    by the kernel's budget."""
+    feats, rois_b = k3_strained(cuda, case)
+    rois, lvls, bidx, level_hw = k3_routed(feats, rois_b)
+    k3 = roi_align.roi_align_bandx_kernel
+    before = (k3.plan_launches, k3.launches)
+    plan = k3.plan(rois, bidx, lvls, level_hw, STRIDES, rois_b.shape[0])
+    torch.cuda.synchronize()
+    assert (k3.plan_launches, k3.launches) == (before[0] + 1, before[1])
+    twin = roi_align.bandx_chunks(rois, bidx, lvls, level_hw, STRIDES,
+                                  rois_b.shape[0],
+                                  stage_cells=k3.stage_cells)
+    assert torch.equal(plan.perm.long(), twin.perm)
+    assert torch.equal(plan.chunks[:, :7].long(), twin.table())
+    full = twin.box[:, 1] * roi_align.bandx_chunks(
+        rois, bidx, lvls, level_hw, STRIDES, rois_b.shape[0]).box[:, 3]
+    capped = full > twin.box[:, 1] * twin.box[:, 3]
+    if case == "wide":
+        assert bool(capped.any())   # the budget bites
+    if case == "hot":
+        assert int(twin.count.max()) == 18
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("case", ["hot", "wide", "tall"])
+def test_k3_matches_plain_where_its_plan_is_strained(cuda, dtype, atol,
+                                                     case):
+    """K3 against K1's plain version (K1's tolerances) with hundreds of
+    rois in one band, boxes beyond the budget (their rois read global
+    memory) and rois beyond their band, on one image of 1536^2."""
+    feats, rois_b = k3_strained(cuda, case, dtype)
+    got = roi_align.roi_align_bandx_forward(feats, rois_b, 7)
+    ref = roi_align.batched_multilevel_roi_align(feats, rois_b, 7)
+    assert got.dtype == dtype and got.shape == ref.shape
+    np.testing.assert_allclose(to_np(got.float()), to_np(ref.float()),
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_k3_launches_its_plan_and_reduction_and_no_torch_sort(cuda):
+    """On CUDA tensors `roi_align_bandx_forward` launches the plan and
+    the reduction once each, and between the rois and the launches runs
+    no torch sort, scan or scatter (the profiler's aten ops)."""
+    from torch.profiler import ProfilerActivity, profile
+    feats, rois_b = k3_strained(cuda, "hot", torch.bfloat16)
+    k3 = roi_align.roi_align_bandx_kernel
+    roi_align.roi_align_bandx_forward(feats, rois_b, 7)     # built
+    torch.cuda.synchronize()
+    before = (k3.plan_launches, k3.launches)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        roi_align.roi_align_bandx_forward(feats, rois_b, 7)
+        torch.cuda.synchronize()
+    assert (k3.plan_launches, k3.launches) == (before[0] + 1,
+                                               before[1] + 1)
+    ops = {e.key for e in prof.key_averages()}
+    banned = ("sort", "argsort", "cumsum", "cummax", "scatter",
+              "scatter_add_", "scatter_reduce", "index_put_", "nonzero")
+    assert not [o for o in ops if o.startswith("aten::")
+                and o[6:].rstrip("_") in {b.rstrip("_") for b in banned}]
 
 
 def rroi_inputs(cuda, dtype, seed=12, b=2, r=24, c=64, img=256):

@@ -2,7 +2,8 @@
 """Time the port's RoIAlign kernels against those of another checkout,
 in turns, on one CUDA card.
 
-    python tools/torch_kernel_ab.py --parent DIR [--rounds 2] [--only rroi]
+    python tools/torch_kernel_ab.py --parent DIR [--rounds 2]
+        [--only rroi|bandx]
 
 DIR is the root of another tree of this repository (an unpacked
 ``git archive`` of an earlier commit).  Both trees' K1 (the RoIAlign
@@ -22,7 +23,11 @@ through each tree's own wrapper on the same seeded inputs as
   train step's 2 x 128, 7x7 (bfloat16 and float32);
 - K4's backward at the RRoI train step's 2 x 128 rotated rois, 7x7,
   and at the training batch of `bench.py`, 8 x 128 (bfloat16 and
-  float32).
+  float32);
+- K3 (`csrc/roi_align_bandx.cu`) at the RRoI predict's 2 x 2000 rois,
+  7x7 (bfloat16 and float32): what the path launches, the rois'
+  chunking and the reduction together (this tree's plan kernel, or an
+  earlier tree's torch chunking `bandx_chunks`), and each part alone.
 
 Each case checks both kernels against the plain version (the limits of
 `chip_smoke.py`), then times them in the order parent, this tree, this
@@ -32,7 +37,11 @@ the device's time, or the host's time to enqueue a launch where that
 is longer; ``host_ms``, each tree's, measured once); and
 ``device_ms``, the device time alone, from CUDA events around replays
 of a CUDA graph of the launches (`chip_smoke.capture`, `replay_ms`).
-It prints one JSON line per case: the times of each tree (ms per
+K3's device times are the sums of the device's kernel and copy times
+per call under `torch.profiler` (``device_by``: "profiler"): an
+earlier tree's chunking copies host lists to the card and cannot be
+captured in a CUDA graph.  It prints one JSON line per case (K3: per
+part): the times of each tree (ms per
 launch, in order), their means and ratio (``speedup``, parent over
 this tree), the bound and each tree's share of it (bound / mean time),
 the same of the device times, and the errors.  The first line is
@@ -73,11 +82,12 @@ def load_tree(root: Path, name: str):
 
 
 def build(modules, rotated):
-    """Build every tree's K1, K2 backward, K4 forward and K4 backward
+    """Build every tree's K1, K2 backward, K3, K4 forward and K4 backward
     library at once (each handle with its own tree's builder); returns
     (source, nvcc seconds) per library."""
     handles = [h for m in modules for h in (m.roi_align_kernel,
-                                            m.roi_align_backward_kernel)]
+                                            m.roi_align_backward_kernel,
+                                            m.roi_align_bandx_kernel)]
     handles += [h for m in rotated for h in (m.rroi_align_kernel,
                                              m.rroi_align_backward_kernel)]
     with ThreadPoolExecutor(max_workers=len(handles)) as pool:
@@ -269,12 +279,99 @@ def rroi_backward_case(mods, dtype, rounds, batch):
                 **timed(fns, rounds, 20, 3, bound_ms))
 
 
+def profiled_ms(fn, iters, warmup):
+    """ms per call of ``fn`` on the device: the summed time of the
+    device's kernels and copies under `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch_profile_predict import _dev_time
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_dev_time(a, True) for a in prof.key_averages()
+               if str(getattr(a, "device_type", "")).endswith("CUDA")) \
+        / 1e3 / iters
+
+
+def bandx_case(mods, dtype, rounds):
+    """K3 of both trees at the RRoI predict's 2 x 2000 rois (chip_smoke's
+    inputs), against the plain K1 version: the parent's torch chunking
+    and kernel, or this tree's plan and reduction; together (what the
+    path launches) and each part alone.  One JSON line per part."""
+    import torch
+    strides = cs.MAIN["strides"]
+    b = cs.RROI["batch"]
+    feats, rois_b, rois, lvls, bidx = cs.main_path_inputs(
+        torch.Generator().manual_seed(2), cs.RROI, dtype, "cuda")
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    ref = mods[1].batched_multilevel_roi_align(feats, rois_b, 7, strides)
+    atol = cs.ATOL_BF16 if dtype == torch.bfloat16 else cs.ATOL_F32
+    parts = {"plan+reduce": [], "plan": [], "reduce": []}
+    outs, errs = [], []
+    for i, m in enumerate(mods):
+        k3 = m.roi_align_bandx_kernel
+        out = torch.empty((rois.shape[0], 7, 7, feats[0].shape[-1]),
+                          dtype=dtype, device="cuda")
+        if i == 0:   # the parent: torch chunking, then the kernel
+            def plan(m=m):
+                return m.bandx_chunks(rois, bidx, lvls, level_hw, strides,
+                                      b, 7)
+        else:
+            def plan(k3=k3):
+                return k3.plan(rois, bidx, lvls, level_hw, strides, b, 7)
+        planned = plan()
+
+        def reduce(k3=k3, planned=planned, out=out):
+            k3(feats, rois, bidx, lvls, planned, out, strides, 2, True)
+
+        def both(k3=k3, plan=plan, out=out):
+            k3(feats, rois, bidx, lvls, plan(), out, strides, 2, True)
+        both()
+        torch.cuda.synchronize()
+        errs.append(float((out.reshape(ref.shape).float() - ref.float())
+                          .abs().max()))
+        outs.append(out)
+        for part, fn in zip(parts, (both, plan, reduce)):
+            parts[part].append(fn)
+    name = str(dtype).split(".")[-1]
+    if not all(math.isfinite(e) and e <= atol for e in errs):
+        raise AssertionError(f"roi_align_bandx {name}: errors {errs}")
+    bound_ms, bound_by = cs.roi_align_bound(feats, rois, lvls, bidx,
+                                            outs[1], strides)
+    lines = []
+    for part, fns in parts.items():
+        eager = in_turns([lambda fn=fn: cs.cuda_ms(fn, 20, 3)
+                          for fn in fns], rounds)
+        device = in_turns([lambda fn=fn: profiled_ms(fn, 20, 3)
+                           for fn in fns], rounds)
+        mean = [sum(t) / len(t) for t in eager]
+        d_mean = [sum(t) / len(t) for t in device]
+        lines.append(dict(
+            kernel="roi_align_bandx", part=part, rois=rois.shape[0],
+            out_size=7, dtype=name, max_abs_err=errs, bound_ms=bound_ms,
+            bound_by=bound_by, parent_ms=eager[0], ms=eager[1],
+            parent_mean_ms=mean[0], mean_ms=mean[1],
+            speedup=mean[0] / mean[1], parent_bound_share=bound_ms / mean[0],
+            bound_share=bound_ms / mean[1], device_by="profiler",
+            parent_device_ms=device[0], device_ms=device[1],
+            parent_device_mean_ms=d_mean[0], device_mean_ms=d_mean[1],
+            device_speedup=d_mean[0] / d_mean[1],
+            parent_device_bound_share=bound_ms / d_mean[0],
+            device_bound_share=bound_ms / d_mean[1],
+            host_ms=[cs.host_ms(fn, 20) for fn in fns]))
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", choices=("rroi",),
-                    help="time only K4's forward and backward")
+    ap.add_argument("--only", choices=("rroi", "bandx"),
+                    help="time only K4's forward and backward, or K3")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -294,16 +391,22 @@ def main():
              lambda: backward_case(mods, torch.float32, args.rounds)]
     if args.only:
         cases = []
-    cases += [lambda dtype=dtype, train=train: rroi_forward_case(
-                  rotated, dtype, train, args.rounds)
-              for train in (False, True)
-              for dtype in (torch.bfloat16, torch.float32)]
-    cases += [lambda dtype=dtype, batch=batch: rroi_backward_case(
-                  rotated, dtype, args.rounds, batch)
-              for batch in (2, 8)
-              for dtype in (torch.bfloat16, torch.float32)]
+    if args.only != "bandx":
+        cases += [lambda dtype=dtype, train=train: rroi_forward_case(
+                      rotated, dtype, train, args.rounds)
+                  for train in (False, True)
+                  for dtype in (torch.bfloat16, torch.float32)]
+        cases += [lambda dtype=dtype, batch=batch: rroi_backward_case(
+                      rotated, dtype, args.rounds, batch)
+                  for batch in (2, 8)
+                  for dtype in (torch.bfloat16, torch.float32)]
+    if args.only != "rroi":
+        cases += [lambda dtype=dtype: bandx_case(mods, dtype, args.rounds)
+                  for dtype in (torch.bfloat16, torch.float32)]
     for case in cases:
-        print(json.dumps(case()), flush=True)
+        lines = case()
+        for line in lines if isinstance(lines, list) else [lines]:
+            print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

@@ -23,9 +23,12 @@ batch size:
   spans), host ms per call and the span's extent on the device
   timeline per call;
 - top_kernels: the 12 device kernels with the most time per call;
-- port_kernels: the port's hand-written RoIAlign kernels (K1, K3, K4:
-  device kernels named *roi_align*), their ms and launches per call, on
-  the path (their inputs as the predict leaves them, not warm in L2).
+- port_kernels: the port's hand-written RoIAlign kernels (K1, K3's
+  plan and reduction, K4: device kernels named *roi_align*), their ms
+  and launches per call, on the path (their inputs as the predict
+  leaves them, not warm in L2);
+- roi_align_ops: the aten ops that run inside the ``roi_align`` span
+  (the RoIAlign's routing and wrapper), and their count per call.
 
 ``AIDET_ROI_BAND=x`` in the environment takes K3 in place of K1.
 
@@ -125,8 +128,18 @@ def summarize(prof, span_names, calls, prof_wall_ms):
                                         count=a.count / calls)
     device_ms = sum(_dev_time(a, True) for a in kernels) / 1e3 / calls
     top = sorted(kernels, key=lambda a: -_dev_time(a, True))[:12]
+    inside = {}
+    for e in prof.events():
+        if not e.name.startswith("aten::"):
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != "roi_align":
+            p = p.cpu_parent
+        if p is not None:
+            inside[e.name] = inside.get(e.name, 0) + 1
     return dict(
         profiled_ms_per_call=prof_wall_ms, device_ms_per_call=device_ms,
+        roi_align_ops={k: v / calls for k, v in sorted(inside.items())},
         device_busy_share=device_ms / prof_wall_ms, spans=spans,
         top_kernels=[dict(name=a.key[:90], ms=_dev_time(a, True) / 1e3
                           / calls, count=a.count // calls) for a in top],
