@@ -19,6 +19,11 @@ The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
 does.  Leaves are copied with `numpy.array`, so jax arrays work
 without this module importing jax.
+
+Given the target ``model``, a 7x7 stem kernel (a config's plain
+``ResNet``) is relaid for a model whose stem is space-to-depth
+(`stem_s2d_weights`), so that a config's weights load into the serving
+build, `aidet_tpu_torch.rroi.build_rroi`.
 """
 
 from __future__ import annotations
@@ -44,8 +49,41 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def flax_to_state_dict(variables):
-    """Returns (state_dict of float32 tensors, unmapped leaf paths)."""
+def stem_s2d_weights(w7):
+    """Relayout a [F, C, 7, 7] OIHW stem kernel (7x7, stride 2, padding
+    3) into the [F, 4C, 4, 4] kernel of the space-to-depth stem
+    (`ResNet(stem_space_to_depth=True)`: channels in (row phase p,
+    column phase q, c) order, taps u, v in [-2, 1]).
+
+    out[i] = sum_a w[a] x[2i + a - 3]; writing the input index as
+    2(i + u) + p gives a = 2u + p + 3, so the 4-tap kernel's entries are
+    the original taps permuted, and the (u=-2, p=0) slots, a = -1, stay
+    zero.  The same relayout as the reference's
+    `models/backbones/resnet.py::stem_s2d_weights` (HWIO), for OIHW."""
+    w7 = np.asarray(w7)
+    f, c = w7.shape[:2]
+    w4 = np.zeros((f, 4 * c, 4, 4), w7.dtype)
+    for u in range(-2, 2):
+        for p in range(2):
+            a = 2 * u + p + 3
+            if not 0 <= a <= 6:
+                continue
+            for v in range(-2, 2):
+                for q in range(2):
+                    b = 2 * v + q + 3
+                    if 0 <= b <= 6:
+                        ch = p * 2 * c + q * c
+                        w4[:, ch:ch + c, u + 2, v + 2] = w7[:, :, a, b]
+    return w4
+
+
+STEM = "backbone.stem_conv.weight"
+
+
+def flax_to_state_dict(variables, model=None):
+    """Returns (state_dict of float32 tensors, unmapped leaf paths).
+    With ``model``, a 7x7 stem kernel is relaid when ``model``'s stem
+    is space-to-depth."""
     sd, unmapped = {}, []
     for path, value in _leaves(variables):
         collection, top, *mid, leaf = path
@@ -69,4 +107,7 @@ def flax_to_state_dict(variables):
             continue
         key = ".".join([TOP_LEVEL[top], *mid, name])
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    if model is not None and STEM in sd and sd[STEM].shape[-1] == 7 \
+            and getattr(model.backbone, "stem_space_to_depth", False):
+        sd[STEM] = torch.from_numpy(stem_s2d_weights(sd[STEM].numpy()))
     return sd, unmapped

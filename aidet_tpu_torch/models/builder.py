@@ -1,0 +1,248 @@
+"""Builders (parity: mmdet/models/builder.py:18-43): torch modules from
+the configs' ``dict(type=..., ...)`` entries.
+
+Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
+modules under the reference's type names, each behind a factory that
+reads the reference's keyword names: the backbone `ResNet`, the neck
+`FPN`, the heads `RPNHead`, `SharedFCBBoxHead` and `RBBoxHead`, and the
+detectors `RBBoxRCNN` and `RBBoxRCNNRRoI`.  An option the port does
+not implement raises `NotImplementedError` unless it holds the
+reference's default; a type that is not registered raises `KeyError`.
+
+`build_detector` returns the predict model with seeded random weights
+(`aidet_tpu_torch.flagship.init_weights`) on ``device``, every
+parameter in the config's dtype: the detector's ``dtype``, else its
+sub-modules' (they must agree), else float32 (the reference's
+default).  Its weights may then be replaced by a state_dict
+(`aidet_tpu_torch.convert.flax_to_state_dict` of the reference's
+variables, or a saved port model).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..flagship import finish
+from ..utils.registry import build_from_cfg
+from .backbones.resnet import ARCH_SETTINGS, ResNet
+from .detectors.two_stage import TwoStageDetector
+from .heads.bbox_head import RBBoxHead, SharedFCBBoxHead
+from .heads.rpn_head import RPNHead
+from .necks.fpn import FPN
+from .registry import BACKBONES, DETECTORS, HEADS, NECKS
+
+NOT_PORTED = "not yet ported to aidet_tpu_torch"
+NO_STAGES = (False, False, False, False)
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return a == b
+
+
+def _only_defaults(type_name: str, options: dict, defaults: dict):
+    """Raise unless every option in ``options`` is one of ``defaults``
+    at its value there (the reference's default, which the port
+    implements)."""
+    for k, v in options.items():
+        if k not in defaults:
+            raise NotImplementedError(f"{type_name} option {k!r} is "
+                                      f"{NOT_PORTED}")
+        if not _same(v, defaults[k]):
+            raise NotImplementedError(
+                f"{type_name} {k}={v!r} is {NOT_PORTED}; it builds "
+                f"{k}={defaults[k]!r}")
+
+
+def torch_dtype(value):
+    """A config's dtype as a torch dtype: a torch dtype, its name, or a
+    scalar type with that ``__name__`` (the reference configs'
+    ``jnp.bfloat16``); None stays None."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    name = value if isinstance(value, str) else getattr(value, "__name__",
+                                                        str(value))
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"dtype {value!r} is not a torch dtype")
+    return dtype
+
+
+@BACKBONES.register(name="ResNet")
+def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
+            frozen_stages=1, dtype=None, **options):
+    # stem_s2d_phase is the same function over the same weight, relaid
+    # for the TPU's matrix unit; the port has one s2d stem
+    if depth not in ARCH_SETTINGS:
+        raise NotImplementedError(f"ResNet depth {depth} is {NOT_PORTED}; "
+                                  f"{sorted(ARCH_SETTINGS)} are")
+    _only_defaults("ResNet", options, dict(
+        num_stages=4, strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+        out_indices=(0, 1, 2, 3), base_channels=64, gen_attention=None,
+        gen_attention_stages=NO_STAGES, dcn=None, stage_with_dcn=NO_STAGES,
+        gcb=None, stage_with_gcb=NO_STAGES, norm_cfg=None, conv_cfg=None,
+        norm_eval=True, style="pytorch", pretrained=None))
+    return ResNet(depth=depth, stem_space_to_depth=stem_space_to_depth,
+                  frozen_stages=frozen_stages)
+
+
+@NECKS.register(name="FPN")
+def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
+         dtype=None, **options):
+    _only_defaults("FPN", options, dict(
+        start_level=0, end_level=-1, add_extra_convs=False,
+        extra_convs_on_inputs=True, relu_before_extra_convs=False,
+        norm_cfg=None))
+    return FPN(in_channels=tuple(in_channels), out_channels=out_channels,
+               num_outs=num_outs)
+
+
+@HEADS.register(name="RPNHead")
+def _rpn_head(in_channels=256, feat_channels=256, num_anchors=3,
+              dtype=None, **options):
+    _only_defaults("RPNHead", options, dict(use_sigmoid_cls=True))
+    return RPNHead(in_channels=in_channels, feat_channels=feat_channels,
+                   num_anchors=num_anchors)
+
+
+@HEADS.register(name="SharedFCBBoxHead")
+def _shared_fc_bbox_head(num_classes=81, in_channels=256,
+                         fc_out_channels=1024, num_fcs=2, roi_feat_size=7,
+                         dtype=None, conv_out_channels=256, **options):
+    _only_defaults("SharedFCBBoxHead", options, dict(
+        num_shared_convs=0, norm_cfg=None, reg_class_agnostic=False))
+    return SharedFCBBoxHead(num_classes=num_classes, in_channels=in_channels,
+                            fc_out_channels=fc_out_channels, num_fcs=num_fcs,
+                            roi_feat_size=roi_feat_size)
+
+
+@HEADS.register(name="RBBoxHead")
+def _rbbox_head(num_classes=16, in_channels=256, fc_out_channels=1024,
+                num_shared_fcs=2, roi_feat_size=7, encode="thetaobb",
+                dtype=None, conv_out_channels=256, **options):
+    _only_defaults("RBBoxHead", options, dict(num_shared_convs=0,
+                                              reg_class_agnostic=False))
+    return RBBoxHead(num_classes=num_classes, in_channels=in_channels,
+                     fc_out_channels=fc_out_channels,
+                     num_shared_fcs=num_shared_fcs,
+                     roi_feat_size=roi_feat_size, encode=encode)
+
+
+# the reference TwoStageDetector's fields that the port's detector
+# implements only at their defaults (roi_align_impl picks among
+# implementations of one function: the port has its own)
+DETECTOR_DEFAULTS = dict(
+    shared_head=None, mask_head=None, mask_iou_head=None, grid_head=None,
+    grid_roi_size=14, semantic_head=None, semantic_fusion="add",
+    semantic_level=0, strides=TwoStageDetector.strides, anchor_scales=(8,),
+    anchor_ratios=(0.5, 1.0, 2.0), hobb_robust_loss=False,
+    ga_target_stds=(0.07, 0.07, 0.14, 0.14), ga_loc_filter_thr=0.01,
+    mask_loss_type="bce", img_norm=None)
+
+
+def _sub_dtypes(cfgs):
+    return {torch_dtype(c["dtype"]) for c in cfgs
+            if c and c.get("dtype") is not None}
+
+
+def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
+               bbox_head=None, rbbox_head=None, rbbox_refine_head=None,
+               train_cfg=None, test_cfg=None, img_size=1024,
+               rbbox_encode="thetaobb", roi_align_impl="auto", dtype=None,
+               **options):
+    """A `TwoStageDetector` from the reference's detector keywords, with
+    its defaults for the sub-modules a config leaves out
+    (two_stage.py:126-177); its ``compute_dtype`` is the config's
+    dtype."""
+    _only_defaults(type_name, options, DETECTOR_DEFAULTS)
+    if roi_align_impl not in ("auto", "xla", "pallas"):
+        raise ValueError(f"roi_align_impl {roi_align_impl!r}")
+    if not rbbox_head:
+        raise NotImplementedError(f"{type_name} without an rbbox_head is "
+                                  f"{NOT_PORTED}")
+    cfgs = dict(
+        backbone=backbone or dict(type="ResNet", depth=50),
+        neck=neck or dict(type="FPN", num_outs=5),
+        rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3),
+        bbox_head=bbox_head or dict(type="SharedFCBBoxHead",
+                                    num_classes=16),
+        rbbox_head=rbbox_head)
+    if rbbox_refine_head:
+        cfgs["rbbox_refine_head"] = dict(rbbox_refine_head)
+        cfgs["rbbox_refine_head"].setdefault("type", "RBBoxHead")
+        cfgs["rbbox_refine_head"].setdefault("encode", "rtheta")
+    dtype = torch_dtype(dtype)
+    if dtype is None:
+        subs = _sub_dtypes(cfgs.values())
+        if len(subs) > 1:
+            raise NotImplementedError(f"{type_name}: sub-modules in "
+                                      f"several dtypes {subs} are "
+                                      f"{NOT_PORTED}")
+        dtype = subs.pop() if subs else torch.float32
+    mods = {k: build_backbone(c) if k == "backbone"
+            else build_neck(c) if k == "neck" else build_head(c)
+            for k, c in cfgs.items()}
+    if mods["rbbox_head"].encode != rbbox_encode:
+        raise NotImplementedError(
+            f"{type_name}: rbbox_encode {rbbox_encode!r} differs from the "
+            f"rbbox head's encode {mods['rbbox_head'].encode!r}, which is "
+            f"{NOT_PORTED}")
+    model = TwoStageDetector(
+        mods["backbone"], mods["neck"], mods["rpn_head"], mods["bbox_head"],
+        mods["rbbox_head"], img_size=img_size, train_cfg=train_cfg,
+        test_cfg=test_cfg, compute_dtype=dtype,
+        rbbox_refine_head=mods.get("rbbox_refine_head"))
+    return model
+
+
+@DETECTORS.register(name="RBBoxRCNN")
+def _rbbox_rcnn(rbbox_head=None, **kwargs):
+    return _two_stage("RBBoxRCNN", rbbox_head=rbbox_head
+                      or dict(type="RBBoxHead"), **kwargs)
+
+
+@DETECTORS.register(name="RBBoxRCNNRRoI")
+def _rbbox_rcnn_rroi(rbbox_head=None, rbbox_refine_head=None, **kwargs):
+    return _two_stage(
+        "RBBoxRCNNRRoI", rbbox_head=rbbox_head or dict(type="RBBoxHead"),
+        rbbox_refine_head=rbbox_refine_head
+        or dict(type="RBBoxHead", encode="rtheta"), **kwargs)
+
+
+def build(cfg, registry, default_args=None):
+    if isinstance(cfg, (list, tuple)):
+        return [build_from_cfg(c, registry, default_args) for c in cfg]
+    return build_from_cfg(cfg, registry, default_args)
+
+
+def build_backbone(cfg):
+    return build(cfg, BACKBONES)
+
+
+def build_neck(cfg):
+    return build(cfg, NECKS)
+
+
+def build_head(cfg):
+    return build(cfg, HEADS)
+
+
+def build_detector(cfg, train_cfg=None, test_cfg=None, device="cuda",
+                   seed: int = 0) -> TwoStageDetector:
+    """The detector of ``cfg`` on ``device`` in eval mode, with random
+    weights from ``torch.Generator().manual_seed(seed)``, every
+    parameter in the config's dtype (see the module docstring).
+    ``train_cfg`` and ``test_cfg`` apply where ``cfg`` has none."""
+    model = build(cfg, DETECTORS,
+                  dict(train_cfg=train_cfg, test_cfg=test_cfg))
+    return finish(model, False, device, model.compute_dtype, seed)
+
+
+def apply_fp16_cfg(cfg, model_cfg: dict) -> dict:
+    """A config's ``fp16 = dict(...)`` sets the detector's dtype to
+    bfloat16 where the model config names none (the reference's
+    `utils/precision.py::apply_fp16_cfg` :17: bf16, no loss scaling)."""
+    if cfg.get("fp16"):
+        model_cfg.setdefault("dtype", torch.bfloat16)
+    return model_cfg

@@ -161,12 +161,15 @@ class TwoStageDetector(nn.Module):
                                  self.strides[:4])
 
     @torch.no_grad()
-    def predict(self, imgs, img_shapes):
+    def predict(self, imgs, img_shapes, scale_factors=None):
         """imgs [B, H, W, 3] (uint8 BGR, or normalized floats),
-        img_shapes [B, 2] (h, w).  Returns fixed-size results: boxes
-        [B, K, 4], rboxes [B, K, D] (D = 5 thetaobbs, or 8 pointobb
-        corners without a refinement head), and scores, labels (0-based,
-        -1 if invalid) and valid [B, K].
+        img_shapes [B, 2] (h, w), scale_factors [B] (the test
+        pipeline's resize factor of each image, or None).  Returns
+        fixed-size results: boxes [B, K, 4], rboxes [B, K, D] (D = 5
+        thetaobbs, or 8 pointobb corners without a refinement head), and
+        scores, labels (0-based, -1 if invalid) and valid [B, K].
+        With ``scale_factors`` the boxes and rboxes are divided back to
+        the original image (`_rescale`).
         Heads run in the model's dtype, and so do the sigmoid and softmax
         scores, their ranking (stable, ties to the lower index) and the
         returned ``scores``, as in the reference; box decodes promote to
@@ -226,7 +229,25 @@ class TwoStageDetector(nn.Module):
         if self.rbbox_refine_head is not None:
             with record_function("rroi_refine"):
                 out["rboxes"] = self._refine(feats, out["rboxes"], dets)
+        if scale_factors is not None:
+            self._rescale(out, scale_factors)
         return out
+
+    def _rescale(self, out, scale_factors):
+        """Divide ``out``'s boxes and rboxes by each image's scale
+        factor, in place (reference two_stage.py:1122-1135): thetaobbs
+        (a thetaobb head's, or any refinement head's, which always
+        gives thetaobbs) have their centre, w and h scaled and theta
+        kept; pointobb corners are all divided."""
+        sf = scale_factors.to(out["boxes"]).reshape(-1, 1, 1)
+        out["boxes"] = out["boxes"] / sf
+        rb = out["rboxes"]
+        if rb.shape[-1] == 5 and (self.rbbox_head.encode == "thetaobb"
+                                  or self.rbbox_refine_head is not None):
+            out["rboxes"] = torch.cat([rb[..., :4] * (1.0 / sf),
+                                       rb[..., 4:]], -1)
+        else:
+            out["rboxes"] = rb / sf
 
     def _clip_rboxes(self, rb):
         """Thetaobbs [..., 5] with w and h clipped to [2, img_size]:

@@ -1,0 +1,9 @@
+"""Model registries (parity: mmdet/models/registry.py:3-9; of
+`aidet_tpu/models/registry.py`'s, those of the kinds the port has)."""
+
+from ..utils.registry import Registry
+
+BACKBONES = Registry("backbone")
+NECKS = Registry("neck")
+HEADS = Registry("head")
+DETECTORS = Registry("detector")

@@ -7,7 +7,8 @@ selected detections are re-cropped by rotated RoIAlign and refined by
 an rtheta RBBoxHead.  Two configurations:
 
 - full (``small=False``): ResNet-50 with the space-to-depth stem (as
-  `build_flagship` builds it), a 5-level FPN at 256 channels, RPN,
+  `build_flagship` builds it; the config names the plain 7x7 stem,
+  which computes the same function), a 5-level FPN at 256 channels, RPN,
   SharedFC, pointobb and rtheta RBBox heads at 1024 FC channels, 16
   classes, in bfloat16, with the config's test_cfg: nms_pre 2000 /
   nms_post 2000 / max_num 2000 proposals and 100 detections per image,
@@ -26,6 +27,14 @@ and `TwoStageDetector.loss` computing in the compute dtype under
 autocast, as `build_flagship` does.  Weights are random, drawn from a
 seeded `torch.Generator` (or loaded later from converted reference
 weights, see `aidet_tpu_torch.convert`).
+
+The space-to-depth stem and bfloat16 are the serving choices: the
+config itself computes in float32 with a 7x7 stem, and its weights
+load into this build because `convert.flax_to_state_dict(variables,
+model)` relays the 7x7 stem kernel for the s2d stem (exact:
+tests/test_torch_port_full_models.py).  To build the config as it is
+written, use `aidet_tpu_torch.models.builder.build_detector` or
+`aidet_tpu_torch.apis.inference.init_detector`.
 """
 
 from __future__ import annotations

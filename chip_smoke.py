@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's flagship predict and train paths and the
-RBBoxRCNNRRoI predict and train paths on one CUDA card.
+"""Run the PyTorch port's flagship predict and train paths, the
+RBBoxRCNNRRoI predict and train paths, and scene serving on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -71,6 +72,21 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    1024^2 with 64 pointobb gts, 1 warm-up and 3 timed steps, with the
    launch counts (K2's forward and backward and K4's forward and
    backward, once each per step) and the last backwards' tile lists.
+13. scene_reference: one seeded 1024^2 scene (numpy rotated
+   rectangles over the 15 DOTA classes) tiled on the card at patch 512
+   / overlap 100 (9 patches) through the small flagship (float32), on
+   the card against the CPU with the same weights: the card's patches
+   equal `tile_image`'s bytes, the merged scene detections pair up, the
+   DOTA mAPs agree, and the ground truth fed back as detections scores
+   mAP 1.0.
+14. scene: scene serving at full width, as bench.py's
+   measure_scene_e2e: 3072^2 seeded scenes in pinned host memory ->
+   card -> `device_tiler` (1024^2 patches, 200 px overlap: 16) -> one
+   batch-16 flagship predict (K1 once) -> lift (outputs to the host,
+   thetaobbs to quads) -> per-class rotated-NMS merge -> DOTA eval.
+   1 warm scene, 4 pipelined at depth 1 (patches/s), 2 serial with
+   each stage's ms; K1's launches (1 per scene), merged detections and
+   mAP per scene (near 0 with random weights: a plumbing check).
 
 Then one ``{"kernels": [...]}`` line, nvidia-smi's name and power limit
 line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
@@ -773,7 +789,8 @@ def match_detections(got, ref, limits, rbox_clear=None, max_unpaired=0,
     """Pair every valid detection of ``got`` with one of ``ref`` of the
     same image and label whose score, box, rbox centre and size (px)
     and theta are within ``limits`` (with "rboxes_rel", the rbox limit
-    grows by that share of the rbox's largest coordinate); raise if the
+    grows by that share of the rbox's largest coordinate; without
+    "rboxes", only scores and boxes, of any width, are held); raise if the
     valid counts differ or more than ``max_unpaired`` detections find no
     partner.  Detections whose scores differ by less than the two runs'
     rounding may come out in either order, so partners are searched
@@ -808,17 +825,21 @@ def match_detections(got, ref, limits, rbox_clear=None, max_unpaired=0,
                     scores=abs(float(got["scores"][b, i]
                                      - ref["scores"][b, j])),
                     boxes=float((got["boxes"][b, i]
-                                 - ref["boxes"][b, j]).abs().max()),
-                    rboxes=float((got["rboxes"][b, i, :4]
-                                  - ref["rboxes"][b, j, :4]).abs().max()),
-                    theta=abs(float(got["rboxes"][b, i, 4]
-                                    - ref["rboxes"][b, j, 4])))
-                lim = dict(limits, rboxes=limits["rboxes"] + rel * float(
-                    ref["rboxes"][b, j, :4].abs().max()))
-                if rbox_clear is not None and not bool(rbox_clear[b, j]):
-                    d.update(rboxes=0.0, theta=0.0)
+                                 - ref["boxes"][b, j]).abs().max()))
+                lim = dict(limits)
+                if "rboxes" in limits:
+                    d.update(
+                        rboxes=float((got["rboxes"][b, i, :4]
+                                      - ref["rboxes"][b, j, :4]).abs().max()),
+                        theta=abs(float(got["rboxes"][b, i, 4]
+                                        - ref["rboxes"][b, j, 4])))
+                    lim["rboxes"] += rel * float(
+                        ref["rboxes"][b, j, :4].abs().max())
+                    if rbox_clear is not None \
+                            and not bool(rbox_clear[b, j]):
+                        d.update(rboxes=0.0, theta=0.0)
                 if near is None or d["boxes"] < near["boxes"]:
-                    near = dict(d, rbox_limit=lim["rboxes"])
+                    near = dict(d, rbox_limit=lim.get("rboxes"))
                 if all(d[k] <= lim[k] for k in keys) and (
                         best is None or d["scores"] < best[1]["scores"]):
                     best = (j, d)
@@ -1253,6 +1274,295 @@ def run_rroi_train(device="cuda", small=False, steps=3, batch=2, seed=0):
     return run_train(device, small, steps, batch, seed, model="rroi")
 
 
+# Scene serving: a 3072^2 scene cut into 1024^2 patches at 200 px
+# overlap is 16 patches, one batch-16 predict (bench.py's
+# measure_scene_e2e); the card-against-CPU check cuts a 1024^2 scene
+# into 512^2 patches at 100 px (9 patches) for the small flagship
+SCENE = dict(size=3072, patch=1024, overlap=200, objects=200)
+SCENE_SMALL = dict(size=512, patch=256, overlap=56, objects=12)
+SCENE_REF = dict(size=1024, patch=512, overlap=100, objects=40)
+# merged detections of the small float32 flagship, card against CPU:
+# the reference phase's limits, on all 8 quad coordinates
+SCENE_REF_LIMITS = dict(boxes=1.0, scores=1e-2)
+SCENE_MAP_TOL = 1e-6
+SCENE_NOTE = ("random weights: the mAP is a plumbing check of "
+              "lift, merge and eval, not a quality figure")
+
+
+def synth_scene(seed, size, n_objects):
+    """A seeded uint8 BGR scene [size, size, 3] and its ground truth:
+    a textured background with ``n_objects`` rotated rectangles, sides
+    10-160 px and aspect 1-4, theta in [-pi/2, 0), labels over the 15
+    DOTA classes (0-based), each filled by a half-plane test over its
+    bounding box (numpy alone: the card's machine has no OpenCV).
+    Returns (scene, dict(boxes [M, 8] quads, labels [M], difficult
+    [M]))."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    img = rs.randint(50, 90, (size, size, 3)).astype(np.uint8)
+    quads, labels = [], rs.randint(0, 15, n_objects)
+    for _ in range(n_objects):
+        h = rs.uniform(10, 160 / 2)
+        w = min(h * rs.uniform(1.0, 4.0), 160.0)
+        theta = rs.uniform(-np.pi / 2, 0)
+        half = np.hypot(w, h) / 2 + 2
+        cx, cy = rs.uniform(half, size - half, 2)
+        c, s = np.cos(theta), np.sin(theta)
+        dx = np.array([-w, w, w, -w]) / 2
+        dy = np.array([-h, -h, h, h]) / 2
+        q = np.stack([cx + c * dx - s * dy, cy + s * dx + c * dy], -1)
+        x0, y0 = np.floor(q.min(0)).astype(int)
+        x1, y1 = np.ceil(q.max(0)).astype(int) + 1
+        ys, xs = np.mgrid[y0:y1, x0:x1]
+        e = np.roll(q, -1, 0) - q                             # [4, 2]
+        cross = (e[:, None, None, 0] * (ys - q[:, None, None, 1])
+                 - e[:, None, None, 1] * (xs - q[:, None, None, 0]))
+        inside = (cross >= 0).all(0) | (cross <= 0).all(0)
+        img[y0:y1, x0:x1][inside] = rs.randint(120, 255, 3)
+        quads.append(q.reshape(8))
+    gt = dict(boxes=np.asarray(quads, np.float32), labels=labels,
+              difficult=np.zeros(n_objects, bool))
+    return img, gt
+
+
+def lift(out):
+    """Predict's outputs to the host, each patch's thetaobbs as quads:
+    the merge's input dicts."""
+    import torch
+    from aidet_tpu_torch.data.np_rboxes import thetaobb2pointobb
+    host = {k: (out[k].float() if out[k].dtype == torch.bfloat16
+                else out[k]).cpu().numpy()
+            for k in ("rboxes", "scores", "labels", "valid")}
+    quads = thetaobb2pointobb(host["rboxes"])
+    return [dict(boxes=quads[i], scores=host["scores"][i],
+                 labels=host["labels"][i], valid=host["valid"][i])
+            for i in range(len(quads))]
+
+
+def merge(dets, offsets, workers=None):
+    """One scene's patch detections merged by per-class rotated NMS
+    (``workers``: `merge_patch_detections`'s; None starts its process
+    pool once two classes have 64 candidates)."""
+    from aidet_tpu_torch.data.tiling import merge_patch_detections
+    return merge_patch_detections(dets, offsets, num_classes=15,
+                                  box_type="quad", workers=workers)
+
+
+def scene_map(merged, gt):
+    """DOTA (task 1, VOC-07) mAP of one scene's merged detections."""
+    from aidet_tpu_torch.core.eval.class_names import DOTA_CLASSES
+    from aidet_tpu_torch.core.eval.dota import dota_eval
+    return dota_eval({"scene": merged}, {"scene": gt}, DOTA_CLASSES,
+                     task="obb")[0]
+
+
+def as_batch(merged):
+    """A merged scene as a one-image batch of tensors for
+    `match_detections` (quads in place of boxes)."""
+    import torch
+    k = len(merged["scores"])
+    return dict(boxes=torch.from_numpy(merged["boxes"])[None],
+                scores=torch.from_numpy(merged["scores"])[None],
+                labels=torch.from_numpy(merged["labels"])[None],
+                valid=torch.ones(1, k, dtype=torch.bool))
+
+
+def run_scene_reference(device="cuda", size=SCENE_REF["size"],
+                        patch=SCENE_REF["patch"],
+                        overlap=SCENE_REF["overlap"], seed=0):
+    """One seeded scene through the small flagship (float32) on
+    ``device`` and on the CPU with the same weights: the device tiler's
+    patches equal `tile_image`'s bytes; the merged detections pair up
+    (`match_detections`: same labels, scores within 1e-2, quads within
+    1 px); the two DOTA mAPs agree within 1e-6; the ground truth fed
+    back as detections scores mAP 1.0 (within 1e-6: the VOC-07 AP sums
+    eleven float32 precisions).  Returns the phase's fields."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.data.tiling import device_tiler, tile_image
+    from aidet_tpu_torch.flagship import build_flagship
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scene, gt = synth_scene(seed, size, SCENE_REF["objects"])
+    tiler, offsets = device_tiler(size, size, patch, overlap, device=device)
+    tiles = tiler(torch.from_numpy(scene).to(device))
+    host_tiles, host_offsets = tile_image(scene, patch, overlap)
+    if not (np.array_equal(tiles.cpu().numpy(), host_tiles)
+            and np.array_equal(offsets, host_offsets)):
+        raise AssertionError("scene_reference: the device tiler's patches "
+                             "differ from tile_image's")
+    n = len(offsets)
+    runs = {}
+    for run, d, imgs in (("device", device, tiles),
+                         ("cpu", "cpu", torch.from_numpy(host_tiles))):
+        model = build_flagship(patch, small=True, device=d, seed=seed)
+        out = model.predict(imgs, torch.full((n, 2), float(patch),
+                                             device=d))
+        runs[run] = merge(lift(out), offsets)
+    got, ref = runs["device"], runs["cpu"]
+    errs = match_detections(as_batch(got), as_batch(ref), SCENE_REF_LIMITS)
+    maps = dict(device=scene_map(got, gt), cpu=scene_map(ref, gt))
+    if abs(maps["device"] - maps["cpu"]) > SCENE_MAP_TOL:
+        raise AssertionError(f"scene_reference: mAP {maps}")
+    gt_map = scene_map(dict(gt, scores=np.ones(len(gt["labels"]),
+                                               np.float32)), gt)
+    if abs(gt_map - 1.0) > SCENE_MAP_TOL:
+        raise AssertionError(f"scene_reference: ground truth as detections "
+                             f"scores mAP {gt_map}, not 1.0")
+    return dict(scene=size, patch=patch, overlap=overlap, patches=n,
+                objects=len(gt["labels"]), merged=len(got["scores"]),
+                merged_cpu=len(ref["scores"]), tiles_equal=True,
+                max_abs_err=errs, limits=SCENE_REF_LIMITS, map=maps,
+                map_tol=SCENE_MAP_TOL, gt_as_detections_map=gt_map,
+                note=SCENE_NOTE)
+
+
+def run_scene(device="cuda", small=False, scenes=4, serial=2, seed=0):
+    """Serve seeded scenes through the flagship as bench.py's
+    measure_scene_e2e does: scene (pinned host memory) -> card ->
+    `device_tiler` -> one predict of all patches (K1 inside) -> lift
+    (outputs to the host, thetaobbs to quads) -> per-class rotated-NMS
+    merge, and DOTA eval against the scene's ground truth.  One warm
+    scene, then ``scenes`` pipelined at depth 1 (scene i's lift and
+    merge on a host thread while scene i+1 is transferred, tiled and
+    predicted; the thread's copies wait on an event of scene i's
+    predict, on a stream of their own; each scene's lift + merge ms on
+    that thread is reported), then ``serial`` scenes with each
+    stage timed between synchronisations; their merge is then timed
+    again in this process (workers=0, not on the path), and must give
+    the same detections.  K1 launches once per scene
+    on the card (the plain version runs on the CPU).  Returns the
+    phase's fields."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.data.tiling import close_merge_pool, device_tiler
+    from aidet_tpu_torch.flagship import build_flagship
+    cfg = SCENE_SMALL if small else SCENE
+    size, patch = cfg["size"], cfg["patch"]
+    on_card = torch.device(device).type == "cuda"
+    model = build_flagship(patch, small=small, device=device, seed=seed)
+    tiler, offsets = device_tiler(size, size, patch, cfg["overlap"],
+                                  device=device)
+    n = len(offsets)
+    shapes = torch.full((n, 2), float(patch), device=device)
+    data = []
+    for i in range(1 + scenes + serial):
+        scene, gt = synth_scene(seed + i, size, cfg["objects"])
+        scene = torch.from_numpy(scene)
+        data.append((scene.pin_memory() if on_card else scene, gt))
+    copy_stream = torch.cuda.Stream() if on_card else None
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def dispatch(scene):
+        out = model.predict(tiler(scene.to(device, non_blocking=True)),
+                            shapes)
+        done = None
+        if on_card:
+            done = torch.cuda.Event()
+            done.record()
+        return out, done
+
+    drain_ms = []
+
+    def drain(out, done):
+        t0 = time.perf_counter()
+        if on_card:
+            with torch.cuda.stream(copy_stream):
+                copy_stream.wait_event(done)
+                merged = merge(lift(out), offsets)
+        else:
+            merged = merge(lift(out), offsets)
+        drain_ms.append((time.perf_counter() - t0) * 1e3)
+        return merged
+
+    def check(merged, what):
+        k = len(merged["scores"])
+        if merged["boxes"].shape != (k, 8) \
+                or not np.isfinite(merged["boxes"]).all() \
+                or not np.isfinite(merged["scores"]).all():
+            raise AssertionError(f"scene: {what} merged detections "
+                                 f"{merged['boxes'].shape}, not finite or "
+                                 "not quads")
+        return k
+
+    try:
+        check(drain(*dispatch(data[0][0])), "warm")
+        launch_counts(reset=True)
+        sync()
+        t0 = time.perf_counter()
+        merged = []
+        with ThreadPoolExecutor(max_workers=1) as host:
+            pending = None
+            for scene, _ in data[1:1 + scenes]:
+                nxt = dispatch(scene)
+                if pending is not None:
+                    merged.append(pending.result())
+                pending = host.submit(drain, *nxt)
+            merged.append(pending.result())
+        pipelined_s = time.perf_counter() - t0
+        dets = [check(m, "pipelined") for m in merged]
+        pipelined_drain_ms = drain_ms[1:]
+
+        stages = dict.fromkeys(("transfer", "tile", "predict", "lift",
+                                "merge", "eval"), 0.0)
+        maps = []
+        in_process_ms = 0.0
+        for scene, gt in data[1 + scenes:]:
+            sync()
+            t = [time.perf_counter()]
+            dev = scene.to(device, non_blocking=True)
+            sync()
+            t.append(time.perf_counter())
+            tiles = tiler(dev)
+            sync()
+            t.append(time.perf_counter())
+            out = model.predict(tiles, shapes)
+            sync()
+            t.append(time.perf_counter())
+            patch_dets = lift(out)
+            t.append(time.perf_counter())
+            m = merge(patch_dets, offsets)
+            t.append(time.perf_counter())
+            maps.append(scene_map(m, gt))
+            t.append(time.perf_counter())
+            for k, a, b in zip(stages, t, t[1:]):
+                stages[k] += (b - a) * 1e3 / serial
+            dets.append(check(m, "serial"))
+            t0 = time.perf_counter()
+            m1 = merge(patch_dets, offsets, workers=0)
+            in_process_ms += (time.perf_counter() - t0) * 1e3 / serial
+            if any(not np.array_equal(m[k], m1[k]) for k in m):
+                raise AssertionError("scene: the pooled merge differs "
+                                     "from the in-process one")
+        launches = launch_counts()
+    finally:
+        close_merge_pool()
+    want = dict.fromkeys(HANDLES, 0)
+    want["roi_align"] = scenes + serial if on_card else 0
+    if launches != want:
+        raise AssertionError(f"scene: launches {launches} in "
+                             f"{scenes + serial} scenes, expected {want}")
+    if not all(0.0 <= m <= 1.0 for m in maps):
+        raise AssertionError(f"scene: mAP {maps}")
+    return dict(scene=size, patch=patch, overlap=cfg["overlap"],
+                patches_per_scene=n, batch=n, objects=cfg["objects"],
+                dtype=str(next(model.parameters()).dtype),
+                scenes_pipelined=scenes, pipelined_s=pipelined_s,
+                patches_per_s=scenes * n / pipelined_s,
+                pipelined_drain_ms=pipelined_drain_ms,
+                scenes_serial=serial, serial_stage_ms=stages,
+                serial_ms_per_scene=sum(stages.values()),
+                merge_in_process_ms=in_process_ms,
+                launches=launches, k1_launches_per_scene=launches[
+                    "roi_align"] / (scenes + serial),
+                merged_per_scene=dets, map=maps, note=SCENE_NOTE)
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -1315,6 +1625,10 @@ def main() -> int:
     runs["rroi_train"] = run_rroi_train()
     phase("rroi_train", model="RBBoxRCNNRRoI R50-FPN",
           card=info["nvidia_smi"], **runs["rroi_train"])
+    phase("scene_reference", model="small flagship float32",
+          **run_scene_reference())
+    phase("scene", model="flagship R50-FPN", card=info["nvidia_smi"],
+          **run_scene())
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name], **measured[name])

@@ -1,11 +1,15 @@
 """The PyTorch port and chip_smoke.py must run where JAX, flax, optax,
-torchvision and the reference package are absent, as on the machine
-with the card.  A subprocess makes every such import raise, imports
-every module of `aidet_tpu_torch` and `chip_smoke`, and rehearses
-chip_smoke's flagship predict and train phases and its RBBoxRCNNRRoI
-predict (also under AIDET_ROI_BAND=x) and train on the CPU (small
-models, plain versions, no kernel launch) to their ends.  The kernels' CUDA sources
-include no framework header."""
+torchvision, OpenCV, pandas, matplotlib and the reference package are
+absent, as on the machine with the card.  A subprocess makes every such
+import raise, imports every module of `aidet_tpu_torch` and
+`chip_smoke`, and rehearses chip_smoke's flagship predict and train
+phases, its RBBoxRCNNRRoI predict (also under AIDET_ROI_BAND=x) and
+train, and its scene_reference and scene phases on the CPU (small
+models, plain versions, no kernel launch) to their ends, and writes the
+DOTA eval's CSV export without pandas and matplotlib.  pandas and
+matplotlib may be imported only inside a function (the export's
+optional xlsx and PNG); nothing else of the list anywhere.  The
+kernels' CUDA sources include no framework header."""
 
 import ast
 import os
@@ -18,7 +22,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "torchvision", "aidet_tpu",
-           "__graft_entry__", "torch2jax")
+           "__graft_entry__", "torch2jax", "cv2", "pandas", "matplotlib")
+# optional exports may import these inside a function
+OPTIONAL = ("pandas", "matplotlib")
 
 RUN_BLOCKED = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -50,6 +56,18 @@ for band in ("1", "x"):
 rtrain = chip_smoke.run_rroi_train(device="cpu", small=True, steps=1)
 assert set(rtrain["launches"].values()) == {{0}}, rtrain
 assert rtrain["params_moved"] > 0, rtrain
+sref = chip_smoke.run_scene_reference(device="cpu", size=512, patch=256,
+                                      overlap=56)
+assert sref["tiles_equal"] and sref["max_abs_err"]["unpaired"] == 0, sref
+scene = chip_smoke.run_scene(device="cpu", small=True, scenes=1, serial=1)
+assert set(scene["launches"].values()) == {{0}}, scene
+assert min(scene["merged_per_scene"]) > 0, scene
+import os, tempfile
+from aidet_tpu_torch.core.eval.dota import export_dota_results
+with tempfile.TemporaryDirectory() as d:
+    csv = export_dota_results({{"plane": 0.5}}, 0.5, os.path.join(d, "r"),
+                              pr_curves={{"plane": ([0.0, 1.0], [1.0, 0.0])}})
+    assert sorted(os.listdir(d)) == ["r.csv"], os.listdir(d)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
@@ -73,11 +91,15 @@ def test_port_runs_with_reference_imports_blocked():
 
 
 def _imports(path):
-    for node in ast.walk(ast.parse(path.read_text())):
+    """(absolute module name, imported at module level) of every import
+    statement."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        top = node in tree.body
         if isinstance(node, ast.Import):
-            yield from (a.name for a in node.names)
+            yield from ((a.name, top) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+            yield node.module, top
 
 
 @pytest.mark.parametrize("root", ["aidet_tpu_torch", "chip_smoke.py"])
@@ -86,8 +108,10 @@ def test_no_reference_import_in_source(root):
              else sorted((REPO / root).rglob("*.py")))
     assert files
     for f in files:
-        for name in _imports(f):
+        for name, at_module_level in _imports(f):
             top = name.split(".")[0]
+            if top in OPTIONAL and not at_module_level:
+                continue
             assert top not in BLOCKED + ("tools", "bench"), (f, name)
         assert "cpp_extension" not in f.read_text(), f
 
