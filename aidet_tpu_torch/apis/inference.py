@@ -17,27 +17,31 @@ import torch
 
 from ..data.pipeline import TestPipeline
 from ..models.builder import apply_fp16_cfg, build_detector
+from ..utils.checkpoint import load_checkpoint
 from ..utils.config import Config
 
 
 def init_detector(config, checkpoint: str | None = None, device="cuda",
                   seed: int = 0):
     """The config's detector on ``device`` in eval mode, with random
-    weights from ``seed`` or those of ``checkpoint``: a state_dict of
-    the port's model saved by `torch.save`.  ``config`` is a path or a
-    `Config`.  Returns (model, config)."""
+    weights from ``seed`` or those of ``checkpoint``: a checkpoint
+    directory of the train loop (its latest ``model_N``, and the meta's
+    classes as ``model.CLASSES``, as mmdet's init_detector sets them),
+    or a state_dict of the port's model saved by `torch.save`.
+    ``config`` is a path or a `Config`.  Returns (model, config)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model_cfg = apply_fp16_cfg(config, dict(config.model))
     model = build_detector(model_cfg, train_cfg=config.get("train_cfg"),
                            test_cfg=config.get("test_cfg"), device=device,
                            seed=seed)
-    if checkpoint:
-        if os.path.isdir(checkpoint):
-            raise NotImplementedError(
-                f"{checkpoint} is a directory (an orbax checkpoint of the "
-                "JAX package): reading those is not yet ported; convert "
-                "its variables with aidet_tpu_torch.convert instead")
+    if checkpoint and os.path.isdir(checkpoint):
+        state, meta = load_checkpoint(checkpoint, prefix="model_",
+                                      map_location=model.anchors.device)
+        model.load_state_dict(state, strict=True)
+        if meta and meta.get("classes"):
+            model.CLASSES = tuple(meta["classes"])
+    elif checkpoint:
         state = torch.load(checkpoint, map_location=model.anchors.device,
                            weights_only=True)
         model.load_state_dict(state, strict=True)

@@ -1,3 +1,4 @@
-"""Host data side of the port: scene tiling and merge, the DOTA merge
-helpers and the test pipeline.  Importing this package imports no
-torch (the merge's spawned workers import `tiling` through it)."""
+"""Host data side of the port: PNG read and write, the datasets, the
+train and test pipelines, the loader, scene tiling and merge, and the
+DOTA merge helpers.  Importing this package imports no torch (the
+merge's spawned workers import `tiling` through it)."""

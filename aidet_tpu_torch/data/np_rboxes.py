@@ -3,21 +3,78 @@
 A copy of the parts of `aidet_tpu/data/np_rboxes.py` that the merge's
 per-class NMS and the eval's polygon IoU run: `thetaobb2pointobb`,
 `quad_overlaps_np_host`, `quad_iou_one_many_np`, `quad_nms_np`,
-`bbox_nms_np` and the helpers they use.  It imports numpy alone, so the
-merge's spawned worker processes start without torch or CUDA
-(`aidet_tpu_torch.data.tiling`).  tests/test_torch_port_scene.py holds
-each function equal to the reference's.
+`bbox_nms_np` and the helpers they use; and those that the train
+pipeline runs: `pointobb_best_point_sort` (:31), `pointobb2thetaobb`
+(:47), `thetaobb2hobb` (:91), `pointobb2hobb` (:99) and
+`pointobb_flip` (:103).  It imports numpy alone, so the merge's
+spawned worker processes start without torch or CUDA
+(`aidet_tpu_torch.data.tiling`).  tests/test_torch_port_scene.py and
+tests/test_torch_port_data.py hold each function equal to the
+reference's.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+
+HALF_PI = math.pi / 2.0
 
 
 def pointobb2bbox(pointobb: np.ndarray) -> np.ndarray:
     xs = pointobb[..., 0::2]
     ys = pointobb[..., 1::2]
     return np.stack([xs.min(-1), ys.min(-1), xs.max(-1), ys.max(-1)],
+                    axis=-1)
+
+
+def pointobb_best_point_sort(pointobb: np.ndarray) -> np.ndarray:
+    """Cyclic-shift corners nearest the axis-aligned (tl,tr,br,bl)
+    template (numpy twin of core/rboxes.pointobb_best_point_sort)."""
+    pointobb = np.asarray(pointobb, np.float32)
+    bbox = pointobb2bbox(pointobb)
+    xmin, ymin, xmax, ymax = (bbox[..., i] for i in range(4))
+    ref = np.stack([xmin, ymin, xmax, ymin, xmax, ymax, xmin, ymax],
+                   axis=-1)
+    rolls = np.stack([np.roll(pointobb, 2 * s, axis=-1) for s in range(4)],
+                     axis=-2)                               # [..., 4, 8]
+    dist = ((rolls - ref[..., None, :]) ** 2).sum(-1)
+    best = dist.argmin(-1)
+    return np.take_along_axis(rolls, best[..., None, None],
+                              axis=-2)[..., 0, :]
+
+
+def pointobb2thetaobb(pointobb: np.ndarray) -> np.ndarray:
+    """Min-area rotated rect of a quad -> (cx,cy,w,h,theta), theta in
+    [-pi/2, 0) (numpy twin of core/rboxes.pointobb2thetaobb)."""
+    pointobb = np.asarray(pointobb, np.float32)
+    pts = pointobb.reshape(pointobb.shape[:-1] + (4, 2))
+    nxt = np.roll(pts, -1, axis=-2)
+    edges = nxt - pts
+    ang = np.arctan2(edges[..., 1], edges[..., 0])
+    ang = np.mod(ang, HALF_PI) - HALF_PI
+
+    cos = np.cos(ang)[..., None]
+    sin = np.sin(ang)[..., None]
+    x = pts[..., None, :, 0]
+    y = pts[..., None, :, 1]
+    u = x * cos + y * sin
+    v = -x * sin + y * cos
+    umin, umax = u.min(-1), u.max(-1)
+    vmin, vmax = v.min(-1), v.max(-1)
+    w = umax - umin
+    h = vmax - vmin
+    k = (w * h).argmin(-1)
+
+    def take(a):
+        return np.take_along_axis(a, k[..., None], axis=-1)[..., 0]
+    theta = take(ang)
+    w, h = take(w), take(h)
+    uc = (take(umin) + take(umax)) * 0.5
+    vc = (take(vmin) + take(vmax)) * 0.5
+    ct, st = np.cos(theta), np.sin(theta)
+    return np.stack([uc * ct - vc * st, uc * st + vc * ct, w, h, theta],
                     axis=-1)
 
 
@@ -33,6 +90,42 @@ def thetaobb2pointobb(thetaobb: np.ndarray) -> np.ndarray:
     y1 = cy - b * h - a * w
     return np.stack([x0, y0, x1, y1, 2 * cx - x0, 2 * cy - y0,
                      2 * cx - x1, 2 * cy - y1], axis=-1)
+
+
+def rbox_quads(rboxes: np.ndarray, encode: str) -> np.ndarray:
+    """Rboxes of a head's ``encode`` as quads [..., 8] (the quad codec
+    of the reference's `RBBOX_CODECS`): thetaobbs through their corners,
+    pointobbs as they are."""
+    if encode == "thetaobb":
+        return thetaobb2pointobb(rboxes)
+    if encode == "pointobb":
+        return rboxes
+    raise NotImplementedError(f"rbox encode {encode!r} as quads is not yet "
+                              "ported to aidet_tpu_torch")
+
+
+def thetaobb2hobb(thetaobb: np.ndarray) -> np.ndarray:
+    p = pointobb_best_point_sort(thetaobb2pointobb(thetaobb))
+    h = np.sqrt((p[..., 6] - p[..., 0]) ** 2
+                + (p[..., 7] - p[..., 1]) ** 2)
+    return np.stack([p[..., 0], p[..., 1], p[..., 2], p[..., 3], h],
+                    axis=-1)
+
+
+def pointobb2hobb(pointobb: np.ndarray) -> np.ndarray:
+    return thetaobb2hobb(pointobb2thetaobb(pointobb))
+
+
+def pointobb_flip(pointobb: np.ndarray, img_shape) -> np.ndarray:
+    """Horizontal flip + best-point re-sort (numpy twin of
+    core/rboxes.pointobb_flip, default 'best' branch)."""
+    pointobb = np.asarray(pointobb, np.float32)
+    w_img = img_shape[1]
+    p = pointobb.reshape(pointobb.shape[:-1] + (4, 2))
+    x = w_img - p[..., 0] - 1
+    p = np.stack([x, p[..., 1]], axis=-1)
+    p = p[..., np.array([0, 3, 2, 1]), :].reshape(pointobb.shape)
+    return pointobb_best_point_sort(p)
 
 
 # ---------------------------------------------------------------------

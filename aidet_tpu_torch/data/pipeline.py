@@ -1,8 +1,9 @@
-"""The test side of the host data pipeline: resize, normalize, pad.
+"""The host data pipeline: resize, flip, normalize, pad, pack the gts.
 
 Port of `aidet_tpu/data/pipeline.py` (`IMAGENET_MEAN` / `IMAGENET_STD`
-:20, `normalize_image` :24, `resize_keep_ratio` :38, `TestPipeline`
-:303-339) without OpenCV:
+:20, `normalize_image` :24, `resize_keep_ratio` :38, `TrainPipeline`
+:49-300 on its box and rbox path, `TestPipeline` :303-339,
+`collate_batch` :357) without OpenCV:
 
 - `resize_keep_ratio` returns an image that already has the target
   size untouched (exact; the scene path's 1024^2 patches), and
@@ -15,7 +16,9 @@ Port of `aidet_tpu/data/pipeline.py` (`IMAGENET_MEAN` / `IMAGENET_STD`
   padding, the function the reference's native `normalize_pad`
   computes.
 
-The train side is not ported yet.
+`TrainPipeline`'s mask, mask-weight, semantic and heatmap targets and
+its albu and InstaBoost stages raise `NotImplementedError`: they wait
+for later slices (ROADMAP queue 1 items 8 and 11).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import np_rboxes as NR
+from . import transforms as T
 
 IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -53,6 +59,151 @@ def resize_keep_ratio(img, target: int):
     if img.dtype == np.uint8:
         out = out.round().clamp(0, 255)
     return out.numpy().astype(img.dtype), scale
+
+
+def _np_best_point_sort(pointobbs):
+    if len(pointobbs) == 0:
+        return pointobbs
+    return NR.pointobb_best_point_sort(np.asarray(pointobbs))
+
+
+class TrainPipeline:
+    """resize -> rotate90 -> flip -> normalize -> pad -> fixed-gt pack.
+
+    One ``np.random.RandomState(seed)`` draws, in the reference's order,
+    the scale target (``scale_range``), the rotation (``rotate90_ratio``,
+    then its multiple of 90°) and the flip, so a seed gives the
+    reference's samples.  The loader's decode threads share it, as the
+    reference's do: which sample takes which draw then follows the
+    threads' timing (ROADMAP §3).  The reference's options of later
+    slices (masks, CenterMap weights, semantic maps, albu, InstaBoost)
+    raise `NotImplementedError`; their shape parameters (mask_size,
+    mask_type, centermap_*, seg_scale, reverse_heatmap_weight) act only
+    with them."""
+
+    def __init__(self, img_size: int = 1024, max_gt: int = 256,
+                 flip_ratio: float = 0.5, rotate90_ratio: float = 0.0,
+                 with_rbox: bool = True,
+                 rbox_encode: str = "thetaobb",
+                 with_mask: bool = False, mask_size: int = 0,
+                 mask_type: str = "binary",
+                 with_mask_weight: bool = False,
+                 with_reverse_mask_weight: bool = False,
+                 with_semantic: bool = False,
+                 with_heatmap_weight: bool = False,
+                 reverse_heatmap_weight: bool = False,
+                 centermap_rate: float = 0.5,
+                 centermap_factor: float = 4.0,
+                 centermap_template: int = 512,
+                 seg_scale: int = 4,
+                 scale_range=None, albu=None, instaboost=None,
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                 to_rgb: bool = True, device_normalize: bool = False,
+                 seed: int = 0):
+        later = dict(with_mask=with_mask, with_mask_weight=with_mask_weight,
+                     with_reverse_mask_weight=with_reverse_mask_weight,
+                     with_semantic=with_semantic,
+                     with_heatmap_weight=with_heatmap_weight, albu=albu,
+                     instaboost=instaboost)
+        for name, value in later.items():
+            if value:
+                raise NotImplementedError(
+                    f"TrainPipeline {name} is not yet ported to "
+                    "aidet_tpu_torch: it comes with " + (
+                        "masks and CenterMap (ROADMAP queue 1 item 8)"
+                        if name.startswith("with_") else
+                        "data and tools (ROADMAP queue 1 item 11)"))
+        if rbox_encode not in ("thetaobb", "pointobb", "hobb"):
+            raise ValueError(f"rbox_encode {rbox_encode!r}")
+        self.scale_range = scale_range
+        self.img_size = img_size
+        self.max_gt = max_gt
+        self.flip_ratio = flip_ratio
+        self.rotate90_ratio = rotate90_ratio
+        self.with_rbox = with_rbox
+        self.rbox_encode = rbox_encode
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+        self.device_normalize = device_normalize
+        self.rng = np.random.RandomState(seed)
+
+    def __call__(self, img, anns):
+        """img: HWC uint8 BGR; anns: a dataset's `parse_anns` dict."""
+        size = self.img_size
+        if self.scale_range is not None:
+            lo, hi = self.scale_range
+            target = int(self.rng.uniform(lo, min(hi, size)))
+        else:
+            target = size
+        img, scale = resize_keep_ratio(img, target)
+        boxes = anns["bboxes"] * scale
+        pointobbs = anns.get("pointobbs")
+        if pointobbs is not None and len(pointobbs):
+            pointobbs = pointobbs * scale
+
+        if self.rotate90_ratio and self.rng.rand() < self.rotate90_ratio:
+            img, rp, rb, _ = T.random_rotate90(
+                img, pointobbs, boxes, rng=self.rng)
+            # None for empty or absent inputs: keep the empty arrays
+            boxes = rb if rb is not None else boxes
+            pointobbs = rp if rp is not None else pointobbs
+
+        flip = self.rng.rand() < self.flip_ratio
+        h, w = img.shape[:2]
+        if flip:
+            img = img[:, ::-1]
+            x1 = w - boxes[:, 2] - 1
+            x2 = w - boxes[:, 0] - 1
+            boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], -1)
+            if pointobbs is not None and len(pointobbs):
+                pointobbs = NR.pointobb_flip(pointobbs, (h, w))
+
+        if self.device_normalize:
+            # raw uint8 BGR out, padded with the rounded mean pixel so
+            # that the pad normalizes to ~0 on the card (as the host
+            # path's zero pad after normalize)
+            pad_val = np.round(self.mean[::-1] if self.to_rgb
+                               else self.mean).astype(np.uint8)
+            padded = np.broadcast_to(
+                pad_val, (size, size, img.shape[-1])).copy()
+            padded[:h, :w] = img
+        else:
+            img = normalize_image(img, self.mean, self.std, self.to_rgb)
+            padded = np.zeros((size, size, img.shape[-1]), np.float32)
+            padded[:h, :w] = img
+
+        g = self.max_gt
+        n = min(len(boxes), g)
+        out_boxes = np.zeros((g, 4), np.float32)
+        out_boxes[:n] = boxes[:n]
+        out_labels = np.zeros((g,), np.int32)
+        out_labels[:n] = anns["labels"][:n]
+        out_valid = np.zeros((g,), bool)
+        out_valid[:n] = True
+
+        sample = dict(imgs=padded, gt_boxes=out_boxes, gt_labels=out_labels,
+                      gt_valid=out_valid,
+                      img_shapes=np.asarray([h, w], np.float32))
+
+        if self.with_rbox:
+            # a patch whose every annotation was ignored has no
+            # pointobbs: it still gets the zero rbox slot, or a mixed
+            # batch would not collate
+            nr = n if (pointobbs is not None and len(pointobbs)) else 0
+            p = _np_best_point_sort(pointobbs[:nr]) if nr else \
+                np.zeros((0, 8), np.float32)
+            d = {"thetaobb": 5, "pointobb": 8, "hobb": 5}[self.rbox_encode]
+            out_r = np.zeros((g, d), np.float32)
+            if nr:
+                if self.rbox_encode == "pointobb":
+                    out_r[:nr] = p
+                elif self.rbox_encode == "thetaobb":
+                    out_r[:nr] = NR.pointobb2thetaobb(p)
+                else:
+                    out_r[:nr] = NR.pointobb2hobb(p)
+            sample["gt_rboxes"] = out_r
+        return sample
 
 
 class TestPipeline:
@@ -88,3 +239,10 @@ class TestPipeline:
         return dict(imgs=padded,
                     img_shapes=np.asarray([h, w], np.float32),
                     scale_factors=np.asarray(scale, np.float32))
+
+
+def collate_batch(samples: list) -> dict:
+    """Stack per-sample dicts into [B, ...] numpy arrays (contiguous:
+    a flipped sample's negative strides do not survive the stack)."""
+    keys = samples[0].keys()
+    return {k: np.stack([s[k] for s in samples]) for k in keys}

@@ -13,7 +13,9 @@ reference's default; a type that is not registered raises `KeyError`.
 (`aidet_tpu_torch.flagship.init_weights`) on ``device``, every
 parameter in the config's dtype: the detector's ``dtype``, else its
 sub-modules' (they must agree), else float32 (the reference's
-default).  Its weights may then be replaced by a state_dict
+default); with ``train=True`` the trainer's model, whose parameters
+stay float32 while its loss computes in that dtype.  Its weights may
+then be replaced by a state_dict
 (`aidet_tpu_torch.convert.flax_to_state_dict` of the reference's
 variables, or a saved port model).
 """
@@ -229,14 +231,16 @@ def build_head(cfg):
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, device="cuda",
-                   seed: int = 0) -> TwoStageDetector:
+                   seed: int = 0, train: bool = False) -> TwoStageDetector:
     """The detector of ``cfg`` on ``device`` in eval mode, with random
     weights from ``torch.Generator().manual_seed(seed)``, every
-    parameter in the config's dtype (see the module docstring).
+    parameter in the config's dtype (see the module docstring), or with
+    ``train`` the trainer's build: float32 parameters, computing in the
+    config's dtype (as `flagship.build_flagship(train=True)`).
     ``train_cfg`` and ``test_cfg`` apply where ``cfg`` has none."""
     model = build(cfg, DETECTORS,
                   dict(train_cfg=train_cfg, test_cfg=test_cfg))
-    return finish(model, False, device, model.compute_dtype, seed)
+    return finish(model, False, device, model.compute_dtype, seed, train)
 
 
 def apply_fp16_cfg(cfg, model_cfg: dict) -> dict:

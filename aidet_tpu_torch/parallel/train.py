@@ -3,8 +3,10 @@ one step of loss, gradients and update.
 
 Port of `aidet_tpu/parallel/train.py` (`build_lr_schedule`,
 `build_optimizer`, `create_train_state`, `make_train_step`) for one
-device; the data-parallel mesh is not ported.  The optimizer is the
-reference's optax chain, written out:
+device; the data-parallel mesh is not ported.  `schedule_from_cfg` is
+the schedule that the reference's train loop builds from a config
+(`aidet_tpu/apis/train.py:118-135`), warmup cap included.  The
+optimizer is the reference's optax chain, written out:
 
     clip_by_global_norm(35) -> add_decayed_weights(1e-4)
         -> sgd(schedule, momentum=0.9)
@@ -47,6 +49,26 @@ def build_lr_schedule(base_lr: float = 0.02, warmup_iters: int = 500,
                 lr = lr * gamma
         return lr
     return schedule
+
+
+def schedule_from_cfg(cfg, iters_per_epoch: int):
+    """The train loop's schedule from a run config's ``optimizer`` (lr),
+    ``lr_config`` (warmup_iters, warmup_ratio, step) and
+    ``total_epochs``.  A config's warmup_iters (500) assumes
+    epoch-scale datasets; on a short run the ramp would swallow the
+    schedule, so it is capped at a fifth of the run, as the reference
+    caps it: min(warmup_iters, max(1, iters_per_epoch * total_epochs //
+    5))."""
+    opt_cfg = cfg.get("optimizer", {})
+    lr_cfg = cfg.get("lr_config", {})
+    total_epochs = cfg.get("total_epochs", 12)
+    warmup_iters = min(int(lr_cfg.get("warmup_iters", 500)),
+                       max(1, iters_per_epoch * total_epochs // 5))
+    return build_lr_schedule(
+        base_lr=opt_cfg.get("lr", 0.02), warmup_iters=warmup_iters,
+        warmup_ratio=lr_cfg.get("warmup_ratio", 1.0 / 3),
+        decay_steps=lr_cfg.get("step", (8, 11)),
+        iters_per_epoch=iters_per_epoch)
 
 
 @dataclass
@@ -105,6 +127,22 @@ class TrainState:
     step: int
     model: nn.Module
     trace: list = field(default_factory=list)
+
+    def state_dict(self) -> dict:
+        """The step and the momentum trace (the model's parameters are
+        the model's own state_dict)."""
+        return dict(step=self.step, trace=list(self.trace))
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Set the step and copy the trace in place (onto the trace's
+        device and dtype)."""
+        if len(state["trace"]) != len(self.trace):
+            raise ValueError(f"a trace of {len(state['trace'])} tensors for "
+                             f"{len(self.trace)} parameters")
+        for t, saved in zip(self.trace, state["trace"]):
+            t.copy_(saved)
+        self.step = int(state["step"])
 
 
 def create_train_state(model: nn.Module, optimizer: SGD) -> TrainState:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's flagship predict and train paths, the
-RBBoxRCNNRRoI predict and train paths, and scene serving on one CUDA
-card.
+RBBoxRCNNRRoI predict and train paths, scene serving, and the train
+loop and test run from a config file on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -87,6 +87,22 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    1 warm scene, 4 pipelined at depth 1 (patches/s), 2 serial with
    each stage's ms; K1's launches (1 per scene), merged detections and
    mAP per scene (near 0 with random weights: a plumbing check).
+15. loop: the train loop and the test run of
+   `configs/dota_theta_obb_r50_fpn_1x.py` (RBBoxRCNN R50-FPN, 1024^2,
+   float32 as the config names no dtype, its optimizer and schedule as
+   written) on 24 train and 8 val seeded synthetic patches written as
+   PNG: `train_detector` through `DOTADataset`, `GroupedLoader` and
+   `TrainPipeline` (host normalize, flip_ratio 0) for 2 epochs at
+   batch 2 (12 steps an epoch) with a checkpoint each epoch, then
+   again from the epoch-1 checkpoint (its epoch held to the
+   uninterrupted run's; under torch.profiler: the device's idle
+   share), then `init_detector` from the checkpoint directory,
+   `run_inference` over the val patches at batch 8 (held to predict on
+   the same batch), the scene merge and the DOTA eval (the ground truth
+   as detections scores 1.0).  Every step's losses, grad_norm and lr,
+   ms per step, images/s, the loader wait per step, the checkpoint
+   save and load ms, K2's launches (1 forward and 1 backward a step)
+   and K1's (1 an inference batch).
 
 Then one ``{"kernels": [...]}`` line, nvidia-smi's name and power limit
 line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
@@ -97,6 +113,7 @@ script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -1563,6 +1580,440 @@ def run_scene(device="cuda", small=False, scenes=4, serial=2, seed=0):
                 merged_per_scene=dets, map=maps, note=SCENE_NOTE)
 
 
+# The train loop and the test run (the loop phase): the flagship's
+# architecture from its config file, trained on seeded synthetic DOTA
+# patches written as PNG (a checkout of the repo holds no dataset), then
+# resumed, tested and scored
+LOOP_CONFIG = "configs/dota_theta_obb_r50_fpn_1x.py"
+LOOP = dict(train=24, val=8, size=1024, objects=60, epochs=2, batch=2,
+            test_batch=8)
+LOOP_SMALL = dict(train=4, val=2, size=256, objects=12, epochs=2, batch=2,
+                  test_batch=2)
+# the small architecture of `flagship.build_flagship(small=True)` as a
+# config, for the CPU rehearsals and tests
+SMALL_MODEL = dict(
+    type="RBBoxRCNN", backbone=dict(type="ResNet", depth=18),
+    neck=dict(type="FPN", in_channels=(64, 128, 256, 512), out_channels=64,
+              num_outs=5),
+    rpn_head=dict(type="RPNHead", in_channels=64, feat_channels=64,
+                  num_anchors=3),
+    bbox_head=dict(type="SharedFCBBoxHead", num_classes=16, in_channels=64,
+                   fc_out_channels=128),
+    rbbox_head=dict(type="RBBoxHead", num_classes=16, in_channels=64,
+                    fc_out_channels=128, encode="thetaobb"),
+    rbbox_encode="thetaobb", img_size=256)
+SMALL_TRAIN_CFG = dict(rpn_proposal=dict(nms_pre=128, nms_post=64,
+                                         max_num=64),
+                       rcnn=dict(num_samples=16))
+SMALL_TEST_CFG = dict(rpn=dict(nms_pre=128, nms_post=64, max_num=64),
+                      rcnn=dict(max_per_img=16))
+# run_inference against predict on the same batch, in one process with
+# the same weights: the same function on the same inputs
+LOOP_INFER_LIMITS = dict(boxes=1e-3, rboxes=1e-3, theta=1e-4, scores=1e-5)
+# the resumed run against the run it resumes, each loss and grad_norm
+# relative to its value (over at least 1): the first step within 1e-5
+# (its losses read the restored weights, batch and sampling seed; only
+# grad_norm sums a gradient, whose last bits vary from run to run on the
+# card), the second within 0.1 (it reads the restored momentum trace
+# and schedule; on the H100 a resumed run's second step differed by
+# up to 2.9e-2, while on the CPU a zeroed trace moved the small model's
+# second step by 0.40 and a step count restored as 0 its first by 0.23)
+LOOP_RESUME_REL = dict(first=1e-5, second=0.1)
+
+
+def write_patch_set(root, first, count, size, objects, seed):
+    """``count`` seeded synthetic patches S<first>..S<first+count-1>
+    (`synth_scene`, each its own scene at offset 0) written under
+    ``root`` as ``images/S<k>__1.0__0___0.png`` by `imio.imwrite`, their
+    COCO-style json in the format of data/dota's patch jsons (bbox as
+    xywh, pointobb, segmentation, area, categories 1-15 named as
+    DOTA_CLASSES) and their scene ground truth json in the format of
+    data/dota's ``*_scene_gt_obb.json``.  Returns (ann_file, img_prefix,
+    gt_json)."""
+    import os
+
+    import numpy as np
+    from aidet_tpu_torch.core.eval.class_names import DOTA_CLASSES
+    from aidet_tpu_torch.data.imio import imwrite
+    prefix = os.path.join(root, "images")
+    os.makedirs(prefix, exist_ok=True)
+    images, anns, gts = [], [], {}
+    for k in range(first, first + count):
+        img, gt = synth_scene(seed + k, size, objects)
+        name = f"S{k}__1.0__0___0.png"
+        imwrite(os.path.join(prefix, name), img)
+        images.append(dict(id=k + 1, file_name=name, width=size,
+                           height=size))
+        for q, label in zip(gt["boxes"].astype(float), gt["labels"]):
+            x, y = q[0::2], q[1::2]
+            area = 0.5 * abs(np.dot(x, np.roll(y, -1))
+                             - np.dot(y, np.roll(x, -1)))
+            anns.append(dict(
+                id=len(anns) + 1, image_id=k + 1,
+                category_id=int(label) + 1,
+                bbox=[x.min(), y.min(), x.max() - x.min(),
+                      y.max() - y.min()],
+                pointobb=q.tolist(), segmentation=[q.tolist()],
+                area=float(area), iscrowd=0))
+        gts[f"S{k}"] = dict(boxes=gt["boxes"].tolist(),
+                            labels=gt["labels"].tolist(),
+                            difficult=gt["difficult"].tolist())
+    split = f"S{first}_{first + count}"
+    ann_file = os.path.join(root, f"{split}.json")
+    gt_json = os.path.join(root, f"{split}_scene_gt_obb.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=i + 1, name=c) for i, c in enumerate(DOTA_CLASSES)]), f)
+    with open(gt_json, "w") as f:
+        json.dump(gts, f)
+    return ann_file, prefix, gt_json
+
+
+def loop_config(root, small=False, seed=0):
+    """The loop's config (`LOOP_CONFIG` as written, or its small
+    architecture) with its data paths on seeded patches written under
+    ``root`` (`write_patch_set`: the train set and the val set), 2
+    epochs at batch 2, a log record every step and a checkpoint every
+    epoch; the optimizer and schedule as written.  Returns (config, the
+    val set's scene gt json)."""
+    from aidet_tpu_torch.utils.config import Config
+    sizes = LOOP_SMALL if small else LOOP
+    cfg = Config.fromfile(LOOP_CONFIG).to_dict()
+    if small:
+        cfg.update(model=SMALL_MODEL, train_cfg=SMALL_TRAIN_CFG,
+                   test_cfg=SMALL_TEST_CFG,
+                   train_pipeline=dict(cfg["train_pipeline"], img_size=256))
+    train = write_patch_set(root, 0, sizes["train"], sizes["size"],
+                            sizes["objects"], seed)
+    val = write_patch_set(root, sizes["train"], sizes["val"], sizes["size"],
+                          sizes["objects"], seed)
+    cfg["data"] = dict(
+        train=dict(cfg["data"]["train"], ann_file=train[0],
+                   img_prefix=train[1]),
+        test=dict(cfg["data"]["test"], ann_file=val[0], img_prefix=val[1]))
+    cfg.update(total_epochs=sizes["epochs"], batch_size=sizes["batch"],
+               log_interval=1, checkpoint_interval=1)
+    return Config(cfg, LOOP_CONFIG), val[2]
+
+
+class LoopRecords(logging.Handler):
+    """Inside a with block, keeps the ``train`` records of the loop's
+    log (`apis.train.train_detector`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        if hasattr(record, "train"):
+            self.records.append(record.train)
+
+    def __enter__(self):
+        from aidet_tpu_torch.utils.logging import get_root_logger
+        get_root_logger().addHandler(self)
+        return self.records
+
+    def __exit__(self, *exc):
+        logging.getLogger("aidet_tpu_torch").removeHandler(self)
+
+
+def span_device_time(prof, span="train_epoch"):
+    """The card's time inside the host windows of the ``span`` events:
+    (window ms, busy ms: the union of the intervals of every kernel and
+    copy on the card, clipped to the windows; the 6 kernels or copies
+    with the most time in them)."""
+    events = prof.events()
+    on_card = [str(getattr(e, "device_type", "")).endswith("CUDA")
+               for e in events]
+    # a record_function span has a row on the card too (its extent);
+    # its name is also a host event's, which no kernel's or copy's is
+    host = {e.name for e, card in zip(events, on_card) if not card}
+    windows = [e.time_range for e, card in zip(events, on_card)
+               if e.name == span and not card]
+    device = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e, card in zip(events, on_card)
+                    if card and e.name not in host)
+    window = busy = 0.0
+    by_name: dict = {}
+    for w in windows:
+        window += w.end - w.start
+        end = w.start
+        for a, b, name in device:
+            if b <= w.start or a >= w.end:
+                continue
+            by_name[name] = by_name.get(name, 0.0) + min(b, w.end) - max(
+                a, w.start)
+            a, b = max(a, end), min(b, w.end)
+            if b > a:
+                busy += b - a
+                end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return window / 1e3, busy / 1e3, [dict(name=k[:80], ms=v / 1e3)
+                                      for k, v in top]
+
+
+def loop_train(cfg, work_dir, device, seed=0, resume_from=None,
+               profile=False):
+    """One `apis.train.train_detector` run of ``cfg`` (the trainer's
+    build of its model, flip_ratio 0): its ``train`` log records, launch
+    counts (set to 0 just before), wall seconds, the count of
+    parameters that moved, and with ``profile`` on the card the card's
+    time in the epoch spans (`span_device_time`, under torch.profiler)."""
+    import torch
+    from aidet_tpu_torch.apis.train import train_detector
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.pipeline import TrainPipeline
+    from aidet_tpu_torch.models.builder import build_detector
+    from torch.profiler import ProfilerActivity, profile as profiler
+    on_card = torch.device(device).type == "cuda"
+    model = build_detector(cfg.model, train_cfg=cfg.train_cfg,
+                           test_cfg=cfg.test_cfg, device=device, seed=seed,
+                           train=True)
+    run = dict(seed=seed, optimizer=cfg.optimizer, lr_config=cfg.lr_config,
+               total_epochs=cfg.total_epochs, batch_size=cfg.batch_size,
+               log_interval=cfg.log_interval,
+               checkpoint_interval=cfg.checkpoint_interval,
+               pipeline=TrainPipeline(**dict(cfg.train_pipeline,
+                                             flip_ratio=0.0)))
+    dataset = build_dataset(cfg.data.train)
+    before = [p.detach().clone() for p in model.parameters()]
+    prof = profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                    ) if profile and on_card else None
+    with LoopRecords() as records:
+        if on_card:
+            torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        if prof is not None:
+            prof.start()
+        try:
+            train_detector(model, dataset, run, work_dir=work_dir,
+                           resume_from=resume_from, device=device)
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            if prof is not None:
+                prof.stop()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(before, model.parameters()))
+    return dict(records=records, launches=launches, wall_s=wall,
+                moved=moved, n_params=len(before),
+                device_time=span_device_time(prof) if prof else None)
+
+
+def loop_test(cfg, ckpt_dir, gt_json, device, batch):
+    """`init_detector(cfg, ckpt_dir)` and `apis.test.run_inference` over
+    the config's test set at ``batch`` (launch counts set to 0 just
+    before, read just after), held to `predict` of the same batch
+    (`LOOP_INFER_LIMITS`); the detections merged into scenes
+    (`DOTADataset.merge_patches_to_scenes`) and scored against
+    ``gt_json`` (DOTA task 1), and the ground truth scored as
+    detections, which must give mAP 1.0.  Returns the fields."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.apis.inference import init_detector, to_numpy
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
+    from aidet_tpu_torch.data.np_rboxes import thetaobb2pointobb
+    from aidet_tpu_torch.data.pipeline import TestPipeline
+    on_card = torch.device(device).type == "cuda"
+    model, _ = init_detector(cfg, ckpt_dir, device=device)
+    dataset = build_dataset(cfg.data.test)
+    if on_card:
+        torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    results, names = run_inference(model, dataset, batch_size=batch)
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    batches = -(-len(dataset) // batch)
+    want = dict.fromkeys(HANDLES, 0)
+    want["roi_align"] = batches if on_card else 0
+    if launches != want:
+        raise AssertionError(f"loop: launches {launches} in {batches} "
+                             f"inference batches, expected {want}")
+    pipe = TestPipeline(img_size=model.img_size, device_normalize=True)
+    samples = [pipe(imread(dataset.img_path(i))) for i in range(len(dataset))]
+    imgs, shapes, factors = (
+        torch.from_numpy(np.stack([s[k] for s in samples])).to(device)
+        for k in ("imgs", "img_shapes", "scale_factors"))
+    ref = to_numpy(model.predict(imgs, shapes, factors))
+    got = {k: np.stack([r[k] for r in results]) for k in results[0]}
+    errs = match_detections({k: torch.from_numpy(v) for k, v in got.items()},
+                            {k: torch.from_numpy(v) for k, v in ref.items()},
+                            LOOP_INFER_LIMITS)
+    dets = [dict(boxes=thetaobb2pointobb(r["rboxes"]), scores=r["scores"],
+                 labels=r["labels"], valid=r["valid"]) for r in results]
+    merged = dataset.merge_patches_to_scenes(dets, names, task="obb")
+    with open(gt_json) as f:
+        gts = {scene: {k: np.asarray(v) for k, v in g.items()}
+               for scene, g in json.load(f).items()}
+    val_map = dataset.evaluate_scenes(merged, gts)[0]
+    gt_map = dataset.evaluate_scenes(
+        {k: dict(g, scores=np.ones(len(g["labels"]), np.float32))
+         for k, g in gts.items()}, gts)[0]
+    if abs(gt_map - 1.0) > SCENE_MAP_TOL:
+        raise AssertionError(f"loop: the ground truth as detections scores "
+                             f"mAP {gt_map}, not 1.0")
+    return dict(inference_s=seconds, inference_batch=batch,
+                inference_launches=launches,
+                k1_launches_per_batch=launches["roi_align"] / batches,
+                inference_against_predict=errs,
+                inference_limits=LOOP_INFER_LIMITS,
+                n_valid=int(got["valid"].sum()), merged_scenes=len(merged),
+                val_map=val_map, gt_as_detections_map=gt_map,
+                note=SCENE_NOTE)
+
+
+def run_loop(device="cuda", small=False, seed=0):
+    """Train `LOOP_CONFIG` (full width, or its small architecture) from
+    PNG patches through `DOTADataset`, `GroupedLoader` and
+    `TrainPipeline` (host normalize, flip_ratio 0), checkpointing each
+    epoch (`loop_train`), under PyTorch's default TF32 settings (cuDNN
+    on, matmul off), twice:
+
+    1. loop: 2 epochs as a user runs them: every loss finite, the
+       parameters moved, ms per step, images/s, the loader's wait and
+       the checkpoints' save ms;
+    2. resumed: epoch 2 again from run 1's epoch-1 checkpoint
+       (resume_from), under torch.profiler on the card (the card's time
+       in the epoch span: its idle share in the profiled window, and
+       against run 1's unprofiled ms per step), with the load ms.  Its
+       steps are held to run 1's epoch 2 (`LOOP_RESUME_REL`): every
+       step's lr equal; the first step's losses and grad_norm (the
+       restored weights, loader order and sampling seed); the second's
+       (the restored momentum trace and schedule).  Later steps are
+       reported, not held: on the card K2's backward sums each tile in
+       the order its integer atomics fill the lists, and cuDNN's
+       backward may too, so a run differs from itself in the last bits
+       of its gradients, and random-weight trajectories part within a
+       few steps.  On the CPU the phase runs on one thread (the plain
+       RoIAlign's backward accumulates in thread order otherwise) and
+       every step is held equal.
+
+    Then test and score from run 1's checkpoint directory
+    (`loop_test`).  K2's forward and backward launch once a step in
+    both runs (none on the CPU).  Returns the phase's fields."""
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    settings = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not on_card:
+        torch.set_num_threads(1)
+    try:
+        return _run_loop(device, small, seed, on_card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = settings[0]
+        torch.backends.cuda.matmul.allow_tf32 = settings[1]
+        torch.set_num_threads(settings[2])
+
+
+def _resume_errors(resumed, want):
+    """Each resumed step's largest difference from the run it resumes,
+    over its losses and grad_norm, relative to the value (over at least
+    1)."""
+    if [r["step"] for r in resumed] != [r["step"] for r in want]:
+        raise AssertionError("loop: the resumed run took steps "
+                             f"{[r['step'] for r in resumed]}, not "
+                             f"{[r['step'] for r in want]}")
+    return [max(abs(r["metrics"][k] - w["metrics"][k])
+                / max(1.0, abs(w["metrics"][k])) for k in w["metrics"])
+            for r, w in zip(resumed, want)]
+
+
+def _run_loop(device, small, seed, on_card):
+    import os
+    import shutil
+    import tempfile
+    sizes = LOOP_SMALL if small else LOOP
+    with tempfile.TemporaryDirectory() as root:
+        cfg, gt_json = loop_config(root, small, seed)
+        first = loop_train(cfg, os.path.join(root, "loop"), device, seed)
+        resume_dir = os.path.join(root, "resumed", "ckpt")
+        shutil.copytree(os.path.join(root, "loop", "ckpt", "step_1"),
+                        os.path.join(resume_dir, "step_1"))
+        again = loop_train(cfg, os.path.join(root, "resumed"), device, seed,
+                           resume_from=resume_dir, profile=True)
+        test = loop_test(cfg, os.path.join(root, "loop", "ckpt"), gt_json,
+                         device, sizes["test_batch"])
+    steps = [r for r in first["records"] if "metrics" in r]
+    resumed = [r for r in again["records"] if "metrics" in r]
+    if len(steps) != cfg.total_epochs * (sizes["train"] // sizes["batch"]):
+        raise AssertionError(f"loop: {len(steps)} step records")
+    bad = [(r["step"], k) for r in steps + resumed
+           for k, v in r["metrics"].items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"loop: losses not finite at {bad}")
+    if first["moved"] == 0:
+        raise AssertionError("loop: the parameters did not move")
+    for name, run, n in (("loop", first, len(steps)),
+                         ("resumed", again, len(resumed))):
+        want = dict.fromkeys(HANDLES, 0)
+        if on_card:
+            want.update(roi_align_train_forward=n, roi_align_backward=n)
+        if run["launches"] != want:
+            raise AssertionError(f"loop: the {name} run's launches "
+                                 f"{run['launches']} in {n} steps, expected "
+                                 f"{want}")
+    epoch2 = [r for r in steps if r["epoch"] == 2]
+    resume = _resume_errors(resumed, epoch2)
+    limits = ([LOOP_RESUME_REL["first"], LOOP_RESUME_REL["second"]]
+              if on_card else [0.0] * len(resume))
+    if any(e > lim for e, lim in zip(resume, limits)) or [
+            r["lr"] for r in resumed] != [r["lr"] for r in epoch2]:
+        raise AssertionError(
+            f"loop: the resumed run differs from the uninterrupted one: "
+            f"{resume} (relative; limits {limits}), lr "
+            f"{[r['lr'] for r in resumed]} against "
+            f"{[r['lr'] for r in epoch2]}")
+    timed = steps[1:]     # the first step builds cuDNN's plans
+    ms = 1e3 * sum(r["time"] for r in timed) / len(timed)
+    profiled = dict(ms_per_step=1e3 * sum(r["time"] for r in resumed)
+                    / len(resumed))
+    if again["device_time"] is not None:
+        window, busy, top = again["device_time"]
+        per_step = busy / len(resumed)
+        profiled.update(window_ms=window, device_ms_per_step=per_step,
+                        idle_share_in_window=1.0 - busy / window,
+                        idle_share_against_unprofiled=1.0 - per_step / ms,
+                        top_device_events=top)
+    return dict(
+        config=LOOP_CONFIG + (" (small architecture)" if small else ""),
+        img=sizes["size"], batch=cfg.batch_size, epochs=cfg.total_epochs,
+        train_patches=sizes["train"], val_patches=sizes["val"],
+        objects=sizes["objects"], dtype="float32 parameters and compute "
+        "(the config names none); TF32 in cuDNN's convolutions (PyTorch's "
+        "default)",
+        steps=[dict(step=r["step"], epoch=r["epoch"], lr=r["lr"],
+                    **r["metrics"]) for r in steps],
+        first_step_ms=steps[0]["time"] * 1e3,
+        step_ms=[r["time"] * 1e3 for r in steps], ms_per_step=ms,
+        images_per_s=cfg.batch_size * 1e3 / ms,
+        loader_wait_ms_per_step=1e3 * sum(r["data_time"] for r in timed)
+        / len(timed),
+        loop_wall_s=first["wall_s"], params_moved=first["moved"],
+        params=first["n_params"],
+        checkpoint_save_ms=[r["checkpoint_save_s"] * 1e3
+                            for r in first["records"]
+                            if "checkpoint_save_s" in r],
+        checkpoint_load_ms=[r["checkpoint_load_s"] * 1e3
+                            for r in again["records"]
+                            if "checkpoint_load_s" in r],
+        resumed_steps=[dict(step=r["step"], **r["metrics"])
+                       for r in resumed],
+        resume_rel=resume, resume_limits=limits, profiled=profiled,
+        launches=first["launches"], resumed_launches=again["launches"],
+        k2_launches_per_step=first["launches"]["roi_align_backward"]
+        / len(steps), **test)
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -1629,6 +2080,8 @@ def main() -> int:
           **run_scene_reference())
     phase("scene", model="flagship R50-FPN", card=info["nvidia_smi"],
           **run_scene())
+    phase("loop", model="RBBoxRCNN R50-FPN", card=info["nvidia_smi"],
+          **run_loop())
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name], **measured[name])

@@ -1,15 +1,19 @@
-"""The PyTorch port and chip_smoke.py must run where JAX, flax, optax,
-torchvision, OpenCV, pandas, matplotlib and the reference package are
-absent, as on the machine with the card.  A subprocess makes every such
-import raise, imports every module of `aidet_tpu_torch` and
-`chip_smoke`, and rehearses chip_smoke's flagship predict and train
-phases, its RBBoxRCNNRRoI predict (also under AIDET_ROI_BAND=x) and
-train, and its scene_reference and scene phases on the CPU (small
-models, plain versions, no kernel launch) to their ends, and writes the
-DOTA eval's CSV export without pandas and matplotlib.  pandas and
-matplotlib may be imported only inside a function (the export's
-optional xlsx and PNG); nothing else of the list anywhere.  The
-kernels' CUDA sources include no framework header."""
+"""The PyTorch port, chip_smoke.py and the port's scripts must run where
+JAX, flax, optax, torchvision, OpenCV, PIL, pandas, matplotlib and the
+reference package are absent, as on the machine with the card.  A
+subprocess makes every such import raise, imports every module of
+`aidet_tpu_torch` and `chip_smoke`, and rehearses chip_smoke's flagship
+predict and train phases, its RBBoxRCNNRRoI predict (also under
+AIDET_ROI_BAND=x) and train, and its scene_reference and scene phases
+on the CPU (small models, plain versions, no kernel launch) to their
+ends, writes the DOTA eval's CSV export without pandas and matplotlib,
+runs one `train_detector` step and one `run_inference` batch over two
+PNG patches written by `imwrite`, and rehearses chip_smoke's loop
+phase.  pandas and matplotlib may be
+imported only inside a function (the export's optional xlsx and PNG);
+nothing else of the list anywhere, in the port, chip_smoke.py or
+tools/torch_train.py, tools/torch_test.py and tools/torch_dota_eval.py.
+The kernels' CUDA sources include no framework header."""
 
 import ast
 import os
@@ -22,7 +26,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "torchvision", "aidet_tpu",
-           "__graft_entry__", "torch2jax", "cv2", "pandas", "matplotlib")
+           "__graft_entry__", "torch2jax", "cv2", "PIL", "pandas",
+           "matplotlib")
 # optional exports may import these inside a function
 OPTIONAL = ("pandas", "matplotlib")
 
@@ -68,6 +73,33 @@ with tempfile.TemporaryDirectory() as d:
     csv = export_dota_results({{"plane": 0.5}}, 0.5, os.path.join(d, "r"),
                               pr_curves={{"plane": ([0.0, 1.0], [1.0, 0.0])}})
     assert sorted(os.listdir(d)) == ["r.csv"], os.listdir(d)
+from aidet_tpu_torch.apis.inference import init_detector
+from aidet_tpu_torch.apis.test import run_inference
+from aidet_tpu_torch.apis.train import train_detector
+from aidet_tpu_torch.data.builder import build_dataset
+from aidet_tpu_torch.data.pipeline import TrainPipeline
+from aidet_tpu_torch.models.builder import build_detector
+from aidet_tpu_torch.utils.config import Config
+with tempfile.TemporaryDirectory() as d:
+    ann, prefix, _ = chip_smoke.write_patch_set(d, 0, 2, 256, 12, seed=0)
+    data = dict(type="DOTADataset", ann_file=ann, img_prefix=prefix)
+    cfg = Config(dict(model=chip_smoke.SMALL_MODEL,
+                      train_cfg=chip_smoke.SMALL_TRAIN_CFG,
+                      test_cfg=chip_smoke.SMALL_TEST_CFG))
+    model = build_detector(cfg.model, train_cfg=cfg.train_cfg,
+                           test_cfg=cfg.test_cfg, device="cpu", train=True)
+    state = train_detector(model, build_dataset(data), dict(
+        batch_size=2, total_epochs=1, num_workers=1,
+        pipeline=TrainPipeline(img_size=256)), work_dir=os.path.join(d, "w"),
+        device="cpu")
+    assert state.step == 1, state.step
+    served, _ = init_detector(cfg, os.path.join(d, "w", "ckpt"),
+                              device="cpu")
+    results, names = run_inference(
+        served, build_dataset(dict(data, test_mode=True)), batch_size=2)
+    assert len(results) == 2 and results[0]["valid"].any(), names
+loop = chip_smoke.run_loop(device="cpu", small=True)
+assert loop["resume_rel"] == [0.0, 0.0] and loop["params_moved"] > 0, loop
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
@@ -102,7 +134,10 @@ def _imports(path):
             yield node.module, top
 
 
-@pytest.mark.parametrize("root", ["aidet_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["aidet_tpu_torch", "chip_smoke.py",
+                                  "tools/torch_train.py",
+                                  "tools/torch_test.py",
+                                  "tools/torch_dota_eval.py"])
 def test_no_reference_import_in_source(root):
     files = ([REPO / root] if root.endswith(".py")
              else sorted((REPO / root).rglob("*.py")))

@@ -1,0 +1,91 @@
+"""Test a detector with the PyTorch port (the port's counterpart of
+tools/test.py; parity: reference tools/test.py + tools/dota/
+dota_test.py: inference -> format -> merge).
+
+    python tools/torch_test.py CONFIG [--checkpoint DIR/ckpt | FILE]
+        [--out results.pkl] [--eval hbb obb] [--submit-dir DIR]
+        [--batch-size 8] [--device cuda|cpu]
+
+It builds the config's detector with the weights of ``--checkpoint`` (a
+checkpoint directory of tools/torch_train.py: its latest model_N; or a
+saved state_dict), runs `apis.test.run_inference` over the config's
+``data.test`` at ``--batch-size`` through its ``test_pipeline``, saves
+{"results", "names"} to ``--out``, then merges each ``--eval`` task's
+patch detections into scenes (obb: the rboxes' quads; hbb: the boxes)
+and writes DOTA submission txt under ``--submit-dir/<task>``.  It runs
+on the CUDA card unless ``--device cpu``, and raises when there is
+none.  The reference's ``--tta`` (apis/tta.py), ``--precompile`` and
+``--n-devices`` are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+
+def parse_args():
+    p = argparse.ArgumentParser(description="Test a detector")
+    p.add_argument("config")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--out", default=None, help="save raw results (.pkl)")
+    p.add_argument("--eval", nargs="*", default=["hbb", "obb"],
+                   choices=["hbb", "obb"])
+    p.add_argument("--submit-dir", default=None,
+                   help="write DOTA submission txt files here")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
+    return p.parse_args()
+
+
+def main():
+    args = parse_args()
+    import numpy as np
+    import torch
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("torch_test: no CUDA card found; pass --device "
+                         "cpu to test on the CPU")
+    from aidet_tpu_torch.apis.inference import init_detector
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.np_rboxes import rbox_quads
+    from aidet_tpu_torch.utils.logging import get_root_logger
+
+    logger = get_root_logger()
+    model, cfg = init_detector(args.config, args.checkpoint,
+                               device=args.device)
+    dataset = build_dataset(cfg.data["test"])
+    results, names = run_inference(model, dataset,
+                                   batch_size=args.batch_size,
+                                   pipeline_cfg=cfg.get("test_pipeline"))
+    logger.info("ran inference on %d images", len(results))
+    if args.out:
+        with open(args.out, "wb") as f:
+            pickle.dump({"results": results, "names": names}, f)
+
+    if hasattr(dataset, "merge_patches_to_scenes") and results:
+        # a refinement head's predict returns refined thetaobbs whatever
+        # the first stage's encode
+        encode = ("thetaobb" if model.rbbox_refine_head is not None
+                  else model.rbbox_head.encode)
+        for task in args.eval:
+            dets = []
+            for r in results:
+                boxes = (rbox_quads(np.asarray(r["rboxes"]), encode)
+                         if task == "obb" else np.asarray(r["boxes"]))
+                dets.append(dict(boxes=boxes, scores=r["scores"],
+                                 labels=r["labels"], valid=r["valid"]))
+            merged = dataset.merge_patches_to_scenes(dets, names, task=task)
+            if args.submit_dir:
+                dataset.format_results_txt(
+                    merged, os.path.join(args.submit_dir, task), task=task)
+            logger.info("%s: merged %d scenes", task, len(merged))
+
+
+if __name__ == "__main__":
+    main()
