@@ -33,7 +33,8 @@ def run_inference(model, dataset, batch_size: int = 8,
     ``pipeline_cfg``: the config's ``test_pipeline`` dict (mean, std,
     to_rgb, img_size, device_normalize).  ``progress(done, total)`` is
     called after each batch.  Returns (results, names): a dict per image
-    of boxes, rboxes, scores, labels and valid (numpy), and the file
+    of predict's outputs as numpy (boxes, scores, labels and valid, and
+    rboxes or, for the mask family, masks [K, 28, 28]), and the file
     names."""
     if mesh is not None or num_shards > 1:
         raise NotImplementedError(

@@ -7,13 +7,18 @@ state_dict.
 state_dict of the matching `aidet_tpu_torch` model.  It is the inverse
 of the mapping in the reference's `tools/torch2jax.py`:
 
-- conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in];
+- conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in]
+  (the semantic head's attention linears among them);
+- a flax ConvTranspose kernel (the mask heads' ``upsample``) [kh, kw,
+  in, out] is flipped in space, then relaid [in, out, kh, kw]:
+  `torch.nn.ConvTranspose2d` correlates with the flipped kernel of
+  what flax's ``transpose_kernel=False`` layer applies;
 - FrozenBN: scale -> weight, bias -> bias, and the batch stats
   mean / var -> running_mean / running_var;
 - top-level modules _backbone / _neck / _rpn / _bbox_head / _rbbox_head
-  / _rbbox_refine_head -> backbone / neck / rpn_head / bbox_head /
-  rbbox_head / rbbox_refine_head; the inner names are the same on both
-  sides.
+  / _rbbox_refine_head / _mask_head / _semantic_head -> backbone / neck
+  / rpn_head / bbox_head / rbbox_head / rbbox_refine_head / mask_head /
+  semantic_head; the inner names are the same on both sides.
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
@@ -35,7 +40,10 @@ import torch
 
 TOP_LEVEL = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn_head",
              "_bbox_head": "bbox_head", "_rbbox_head": "rbbox_head",
-             "_rbbox_refine_head": "rbbox_refine_head"}
+             "_rbbox_refine_head": "rbbox_refine_head",
+             "_mask_head": "mask_head", "_semantic_head": "semantic_head"}
+# the flax ConvTranspose layers of the ported modules, by name
+CONV_TRANSPOSE = {"upsample"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
         ("batch_stats", "mean"): "running_mean",
         ("batch_stats", "var"): "running_var"}
@@ -93,7 +101,9 @@ def flax_to_state_dict(variables, model=None):
             continue
         if collection == "params" and leaf == "kernel":
             name = "weight"
-            if arr.ndim == 4:
+            if arr.ndim == 4 and mid[-1] in CONV_TRANSPOSE:
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:
                 arr = arr.T

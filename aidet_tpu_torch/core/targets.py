@@ -1,8 +1,9 @@
 """Second-stage (RoI head) targets over fixed-size samples.
 
-Port of `bbox_target` and `rbbox_target` (thetaobb) from
-`aidet_tpu/core/targets.py`, over a batch: the sample's fields are
-[B, R], the rois [B, R, 4] and the gts [B, G, ...].
+Port of `bbox_target`, `rbbox_target` (thetaobb, pointobb) and
+`mask_target` from `aidet_tpu/core/targets.py`, over a batch: the
+sample's fields are [B, R], the rois [B, R, 4] and the gts
+[B, G, ...].
 """
 
 from __future__ import annotations
@@ -69,3 +70,41 @@ def rbbox_target(sample: FixedSample, rois, gt_rboxes, gt_labels,
     stds = target_stds or (1.,) * dim
     return _targets(sample, gt_rboxes, gt_labels,
                     lambda m: encode_fn(rois, m, means, stds), pos_weight)
+
+
+def mask_target(sample: FixedSample, rois, gt_masks,
+                mask_size: int = 28) -> torch.Tensor:
+    """Each sampled roi's gt mask, cropped and resized to
+    ``mask_size``^2 by bilinear samples at the cell centres of an
+    S x S grid over the roi (parity: the reference's `mask_target`
+    :99-141, which serves the binary masks and the CenterMap soft
+    targets alike).
+
+    rois [B, R, 4] in the masks' pixels; gt_masks [B, G, H, W] float
+    (the detector's `loss` dequantizes the pipeline's uint8 first).
+    Returns [B, R, S, S] float32, zero where the roi is not positive.
+    Only the sampled corners are gathered, not the rois' whole masks."""
+    b, r = rois.shape[:2]
+    g, hh, ww = gt_masks.shape[1:]
+    gi = sample.gt_inds.clamp(0, g - 1)
+    x1, y1, x2, y2 = rois.float().unbind(-1)
+    w = (x2 - x1 + 1.0).clamp(min=1.0)
+    h = (y2 - y1 + 1.0).clamp(min=1.0)
+    grid = (torch.arange(mask_size, dtype=torch.float32,
+                         device=rois.device) + 0.5) / mask_size
+    ys = (y1[..., None] + grid * h[..., None] - 0.5).clamp(0, hh - 1)
+    xs = (x1[..., None] + grid * w[..., None] - 0.5).clamp(0, ww - 1)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    ly, lx = (ys - y0)[..., :, None], (xs - x0)[..., None, :]
+    y0, x0 = y0.long(), x0.long()
+    y1i, x1i = (y0 + 1).clamp(max=hh - 1), (x0 + 1).clamp(max=ww - 1)
+    bi = torch.arange(b, device=rois.device)[:, None, None, None]
+    gi = gi[..., None, None]
+
+    def take(yi, xi):
+        return gt_masks[bi, gi, yi[..., :, None], xi[..., None, :]].float()
+
+    top = take(y0, x0) * (1 - lx) + take(y0, x1i) * lx
+    bot = take(y1i, x0) * (1 - lx) + take(y1i, x1i) * lx
+    crops = top * (1 - ly) + bot * ly
+    return crops * sample.is_pos[..., None, None]

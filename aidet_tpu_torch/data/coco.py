@@ -5,9 +5,9 @@ Port of `aidet_tpu/data/coco.py::CocoDataset` (:17-121: `cat2label`,
 its ignore, crowd, ``min_area`` and ``max_small_length`` rules and the
 pointobb alignment of mixed OBB/HBB annotations at :93-101;
 `results2json` :122; `evaluate` :148 through the port's
-`core/eval/mean_ap.py`).  `evaluate_segm` waits for the mask slice
-(ROADMAP queue 1 item 8).  Labels of results may be int32 (the
-reference's) or int64 (the port's).
+`core/eval/mean_ap.py`, and `evaluate_segm` :193-226 through
+`core/eval/segm.py` when the results carry masks).  Labels of results
+may be int32 (the reference's) or int64 (the port's).
 """
 
 from __future__ import annotations
@@ -140,11 +140,6 @@ class CocoDataset:
         """COCO-style box mAP without pycocotools: the mean of `eval_map`
         over IoU 0.5:0.95, and AP50 / AP75."""
         from ..core.eval.mean_ap import eval_map
-        if results and "masks" in results[0]:
-            raise NotImplementedError(
-                "CocoDataset.evaluate_segm is not yet ported to "
-                "aidet_tpu_torch: it comes with masks and CenterMap "
-                "(ROADMAP queue 1 item 8)")
         if iou_thrs is None:
             iou_thrs = np.arange(0.5, 1.0, 0.05)
         num_classes = len(self.CLASSES)
@@ -170,7 +165,49 @@ class CocoDataset:
             m, _ = eval_map(det_lists, gt_lists, iou_thr=float(thr),
                             num_classes=num_classes)
             aps[round(float(thr), 2)] = m
-        return dict(
+        result = dict(
             mAP=float(np.mean(list(aps.values()))),
             AP50=aps.get(0.5, 0.0),
             AP75=aps.get(0.75, 0.0))
+        if results and "masks" in results[0]:
+            result.update(self.evaluate_segm(results, iou_thrs=iou_thrs))
+        return result
+
+    def evaluate_segm(self, results, iou_thrs=None, mask_thr=0.5):
+        """Instance-mask mAP (parity: metric='segm' via COCOeval): each
+        valid detection's [S, S] mask crop over its box against the gt
+        polygons, box-bounded mask IoU; crowd polygons are ignore
+        regions (a detection matched to one is neither TP nor FP)."""
+        from ..core.eval.segm import eval_segm, mask_record, polygon_record
+        num_classes = len(self.CLASSES)
+        preds, gts = [], []
+        for i, r in enumerate(results):
+            anns = self.parse_anns(i)
+            hw = (anns.get("height") or 10 ** 9,
+                  anns.get("width") or 10 ** 9)
+            valid = np.asarray(r["valid"]).astype(bool)
+            boxes = np.asarray(r["boxes"])[valid]
+            crops = np.asarray(r["masks"])[valid]
+            preds.append(dict(
+                records=[mask_record(b, m, hw, mask_thr)
+                         for b, m in zip(boxes, crops)],
+                scores=np.asarray(r["scores"])[valid],
+                labels=np.asarray(r["labels"])[valid]))
+            g_records, g_labels = [], []
+            for seg, lab in zip(anns.get("segmentations", []),
+                                anns["labels"]):
+                if not seg:
+                    continue
+                g_records.append(polygon_record(seg, hw))
+                g_labels.append(int(lab) - 1)        # 1-based -> 0-based
+            ig_records = [polygon_record(seg, hw)
+                          for seg in anns.get("segmentations_ignore", [])
+                          if seg]
+            gts.append(dict(records=g_records,
+                            labels=np.asarray(g_labels, np.int64),
+                            ignore_records=ig_records))
+        mean, by_thr = eval_segm(preds, gts, num_classes, iou_thrs=iou_thrs)
+        return dict(
+            segm_mAP=mean,
+            segm_AP50=by_thr.get(0.5, (0.0,))[0],
+            segm_AP75=by_thr.get(0.75, (0.0,))[0])

@@ -6,7 +6,8 @@ per-class NMS and the eval's polygon IoU run: `thetaobb2pointobb`,
 `bbox_nms_np` and the helpers they use; and those that the train
 pipeline runs: `pointobb_best_point_sort` (:31), `pointobb2thetaobb`
 (:47), `thetaobb2hobb` (:91), `pointobb2hobb` (:99) and
-`pointobb_flip` (:103).  It imports numpy alone, so the merge's
+`pointobb_flip` (:103); and `min_area_rect_np`, the mask-to-OBB fit,
+from `aidet_tpu/core/riou.py` (:380-438).  It imports numpy alone, so the merge's
 spawned worker processes start without torch or CUDA
 (`aidet_tpu_torch.data.tiling`).  tests/test_torch_port_scene.py and
 tests/test_torch_port_data.py hold each function equal to the
@@ -343,3 +344,64 @@ def bbox_nms_np(boxes: np.ndarray, scores: np.ndarray,
     keep = np.zeros(len(scores), bool)
     keep[order] = keep_sorted
     return keep
+
+
+# min-area rect of a point set: convex hull + rotating calipers, for the
+# mask-to-OBB fit (reference: core/riou.py, replacing cv2.minAreaRect)
+def min_area_rect_np(points):
+    """Min-area rotated rect around a point set.
+
+    Args:
+      points: np.ndarray [N, 2] (N ≥ 1).
+    Returns:
+      (cx, cy, w, h, theta) with theta in [-pi/2, 0), matching the
+      legacy cv2.minAreaRect convention used throughout the reference.
+    """
+    pts = np.asarray(points, dtype=np.float64)
+    if len(pts) == 1:
+        return float(pts[0, 0]), float(pts[0, 1]), 0.0, 0.0, -np.pi / 2
+
+    # Andrew's monotone chain convex hull
+    order = np.lexsort((pts[:, 1], pts[:, 0]))
+    pts = pts[order]
+
+    def half_hull(p):
+        hull = []
+        for q in p:
+            while len(hull) >= 2:
+                o, a = hull[-2], hull[-1]
+                if (a[0] - o[0]) * (q[1] - o[1]) - (a[1] - o[1]) * (q[0] - o[0]) <= 0:
+                    hull.pop()
+                else:
+                    break
+            hull.append(q)
+        return hull
+
+    lower = half_hull(pts)
+    upper = half_hull(pts[::-1])
+    hull = np.array(lower[:-1] + upper[:-1])
+    if len(hull) < 2:
+        c = pts.mean(0)
+        return float(c[0]), float(c[1]), 0.0, 0.0, -np.pi / 2
+
+    edges = np.roll(hull, -1, axis=0) - hull
+    ang = np.arctan2(edges[:, 1], edges[:, 0])
+    ang = np.mod(ang, np.pi / 2) - np.pi / 2
+    ang = np.unique(ang)
+
+    best = None
+    for a in ang:
+        c, s = np.cos(a), np.sin(a)
+        u = hull[:, 0] * c + hull[:, 1] * s
+        v = -hull[:, 0] * s + hull[:, 1] * c
+        w = u.max() - u.min()
+        h = v.max() - v.min()
+        area = w * h
+        if best is None or area < best[0]:
+            uc = (u.max() + u.min()) / 2
+            vc = (v.max() + v.min()) / 2
+            cx = uc * c - vc * s
+            cy = uc * s + vc * c
+            best = (area, cx, cy, w, h, a)
+    _, cx, cy, w, h, a = best
+    return float(cx), float(cy), float(w), float(h), float(a)

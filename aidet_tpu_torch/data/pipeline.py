@@ -2,7 +2,8 @@
 
 Port of `aidet_tpu/data/pipeline.py` (`IMAGENET_MEAN` / `IMAGENET_STD`
 :20, `normalize_image` :24, `resize_keep_ratio` :38, `TrainPipeline`
-:49-300 on its box and rbox path, `TestPipeline` :303-339,
+:49-300 with its box, rbox, mask and CenterMap targets,
+`TestPipeline` :303-339, `rasterize_polygons` :342-354,
 `collate_batch` :357) without OpenCV:
 
 - `resize_keep_ratio` returns an image that already has the target
@@ -16,9 +17,13 @@ Port of `aidet_tpu/data/pipeline.py` (`IMAGENET_MEAN` / `IMAGENET_STD`
   padding, the function the reference's native `normalize_pad`
   computes.
 
-`TrainPipeline`'s mask, mask-weight, semantic and heatmap targets and
-its albu and InstaBoost stages raise `NotImplementedError`: they wait
-for later slices (ROADMAP queue 1 items 8 and 11).
+- the masks, mask weights, pseudo-segmentation and heatmap weights
+  are `data.centermap`'s and `rasterize_polygons`', whose polygon fill
+  is `data.raster.fill_poly` (OpenCV's `fillPoly`).
+
+`TrainPipeline`'s albu and InstaBoost stages raise
+`NotImplementedError`: they wait for a later slice (ROADMAP queue 1
+item 11).
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import torch.nn.functional as F
 
 from . import np_rboxes as NR
 from . import transforms as T
+from .centermap import heatmap_weight, pointobbs2centermap, \
+    pseudo_segmentation
+from .raster import fill_poly
 
 IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 IMAGENET_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -75,11 +83,25 @@ class TrainPipeline:
     then its multiple of 90°) and the flip, so a seed gives the
     reference's samples.  The loader's decode threads share it, as the
     reference's do: which sample takes which draw then follows the
-    threads' timing (ROADMAP §3).  The reference's options of later
-    slices (masks, CenterMap weights, semantic maps, albu, InstaBoost)
-    raise `NotImplementedError`; their shape parameters (mask_size,
-    mask_type, centermap_*, seg_scale, reverse_heatmap_weight) act only
-    with them."""
+    threads' timing (ROADMAP §3).
+
+    Targets of the mask family (parity: the reference's LoadAnnotations
+    flags and SegRescale 1/4), each over the whole padded img_size^2
+    canvas:
+      with_mask: gt_masks [max_gt, S, S] at S = mask_size (default
+        img_size // 4), binary quads ('binary', MaskOBB) or soft
+        centerness pseudo-masks ('centermap', `centermap_rate` and
+        `centermap_factor` shape the template);
+      with_mask_weight / with_reverse_mask_weight (exclusive):
+        gt_mask_weights, the 1 - centerness (or centerness) template
+        warped into each quad;
+      with_semantic: gt_semantic [img_size // seg_scale]^2, the quads
+        painted with their labels (255 beyond the image);
+      with_heatmap_weight: gt_seg_weights, the scene's centerness
+        maximum (1 - it with reverse_heatmap_weight).
+    With device_normalize the [0, 1] maps go out as uint8 (`_quantize`),
+    dequantized on the card.  The albu and InstaBoost stages raise
+    `NotImplementedError`."""
 
     def __init__(self, img_size: int = 1024, max_gt: int = 256,
                  flip_ratio: float = 0.5, rotate90_ratio: float = 0.0,
@@ -100,19 +122,17 @@ class TrainPipeline:
                  mean=IMAGENET_MEAN, std=IMAGENET_STD,
                  to_rgb: bool = True, device_normalize: bool = False,
                  seed: int = 0):
-        later = dict(with_mask=with_mask, with_mask_weight=with_mask_weight,
-                     with_reverse_mask_weight=with_reverse_mask_weight,
-                     with_semantic=with_semantic,
-                     with_heatmap_weight=with_heatmap_weight, albu=albu,
-                     instaboost=instaboost)
-        for name, value in later.items():
+        for name, value in dict(albu=albu, instaboost=instaboost).items():
             if value:
                 raise NotImplementedError(
                     f"TrainPipeline {name} is not yet ported to "
-                    "aidet_tpu_torch: it comes with " + (
-                        "masks and CenterMap (ROADMAP queue 1 item 8)"
-                        if name.startswith("with_") else
-                        "data and tools (ROADMAP queue 1 item 11)"))
+                    "aidet_tpu_torch: it comes with data and tools "
+                    "(ROADMAP queue 1 item 11)")
+        if with_mask_weight and with_reverse_mask_weight:
+            raise ValueError("with_mask_weight and with_reverse_mask_weight "
+                             "exclude each other")
+        if mask_type not in ("binary", "centermap"):
+            raise ValueError(f"mask_type {mask_type!r}")
         if rbox_encode not in ("thetaobb", "pointobb", "hobb"):
             raise ValueError(f"rbox_encode {rbox_encode!r}")
         self.scale_range = scale_range
@@ -122,6 +142,18 @@ class TrainPipeline:
         self.rotate90_ratio = rotate90_ratio
         self.with_rbox = with_rbox
         self.rbox_encode = rbox_encode
+        self.with_mask = with_mask
+        self.mask_size = mask_size or img_size // 4
+        self.mask_type = mask_type
+        self.with_mask_weight = with_mask_weight
+        self.with_reverse_mask_weight = with_reverse_mask_weight
+        self.with_semantic = with_semantic
+        self.with_heatmap_weight = with_heatmap_weight
+        self.reverse_heatmap_weight = reverse_heatmap_weight
+        self.centermap_rate = centermap_rate
+        self.centermap_factor = centermap_factor
+        self.centermap_template = centermap_template
+        self.seg_scale = seg_scale
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.to_rgb = to_rgb
@@ -203,7 +235,67 @@ class TrainPipeline:
                 else:
                     out_r[:nr] = NR.pointobb2hobb(p)
             sample["gt_rboxes"] = out_r
+        sample.update(self.mask_targets(pointobbs, anns["labels"], n, h, w))
         return sample
+
+    def mask_targets(self, pointobbs, labels, n, h, w):
+        """The mask family's targets of the first ``n`` quads (see the
+        class docstring) of an image whose content is h x w."""
+        out = {}
+        size, g = self.img_size, self.max_gt
+        have = bool(n) and pointobbs is not None and len(pointobbs) > 0
+        raw = np.asarray(pointobbs[:n]) if have else None
+        quads = (raw.astype(np.float32) if have
+                 else np.zeros((0, 8), np.float32))
+        ms = self.mask_size
+        # only the first n slots hold quads: they are quantized alone and
+        # the padding stays 0 (the same arrays as quantizing all g)
+        if self.with_mask:
+            masks = np.zeros((n, ms, ms), np.float32)
+            if have and self.mask_type == "centermap":
+                masks = pointobbs2centermap(
+                    raw, (size, size), mask_size=ms,
+                    factor=self.centermap_factor, rate=self.centermap_rate,
+                    template_size=self.centermap_template)
+            elif have:
+                masks = rasterize_polygons(raw, (size, size), ms)
+            out["gt_masks"] = self._pad(self._quantize(masks), g)
+        if self.with_mask_weight or self.with_reverse_mask_weight:
+            weights = np.zeros((n, ms, ms), np.float32)
+            if have:
+                weights = pointobbs2centermap(
+                    raw, (size, size), mask_size=ms,
+                    factor=self.centermap_factor,
+                    kind="weight" if self.with_mask_weight else "reverse",
+                    template_size=self.centermap_template)
+            out["gt_mask_weights"] = self._pad(self._quantize(weights), g)
+        out_size = size // self.seg_scale
+        if self.with_semantic:
+            out["gt_semantic"] = pseudo_segmentation(
+                quads, labels[:n], (size, size), out_size, valid_hw=(h, w))
+        if self.with_heatmap_weight:
+            hw_map = heatmap_weight(quads, (size, size), out_size,
+                                    factor=self.centermap_factor)
+            if self.reverse_heatmap_weight:
+                hw_map = 1.0 - hw_map
+            out["gt_seg_weights"] = self._quantize(hw_map)
+        return out
+
+    @staticmethod
+    def _pad(arr, g):
+        """[n, ...] -> [g, ...], zero rows after the first n."""
+        out = np.zeros((g,) + arr.shape[1:], arr.dtype)
+        out[:len(arr)] = arr
+        return out
+
+    def _quantize(self, arr):
+        """[0, 1] maps as uint8 (round(value * 255)) when the pipeline
+        ships raw pixels (device_normalize): 4x less to move to the card;
+        the reference's centermaps are uint8 images too.  Float32
+        otherwise."""
+        if not self.device_normalize:
+            return arr
+        return np.round(arr * 255.0).astype(np.uint8)
 
 
 class TestPipeline:
@@ -239,6 +331,19 @@ class TestPipeline:
         return dict(imgs=padded,
                     img_shapes=np.asarray([h, w], np.float32),
                     scale_factors=np.asarray(scale, np.float32))
+
+
+def rasterize_polygons(pointobbs, img_hw, mask_size):
+    """Binary masks float32 [N, S, S] of quads [N, 8] in the (H, W)
+    frame, rasterised at ``mask_size``^2 over the whole image (the
+    corners scaled and rounded, then `raster.fill_poly`)."""
+    h, w = img_hw
+    out = np.zeros((len(pointobbs), mask_size, mask_size), np.float32)
+    scale = [mask_size / w, mask_size / h]
+    for i, p in enumerate(pointobbs):
+        pts = np.round(np.asarray(p).reshape(4, 2) * scale).astype(np.int32)
+        fill_poly(out[i], pts, 1.0)
+    return out
 
 
 def collate_batch(samples: list) -> dict:

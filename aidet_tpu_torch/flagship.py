@@ -43,13 +43,17 @@ from .models.necks.fpn import FPN
 
 
 def init_weights(model: nn.Module, generator: torch.Generator):
-    """Conv and linear weights ~ N(0, 1 / fan_in) (a LeCun-normal draw,
-    as the reference's default initializer), biases 0; frozen-BN
-    statistics stay the identity."""
+    """Conv, transposed-conv and linear weights ~ N(0, 1 / fan_in) (a
+    LeCun-normal draw, as the reference's default initializer; a
+    transposed conv's [in, out, kh, kw] weight has fan_in in * kh * kw,
+    as flax counts it), biases 0; frozen-BN statistics stay the
+    identity."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
+                if isinstance(m, nn.ConvTranspose2d):
+                    fan_in = m.weight[:, 0].numel()
                 w = torch.randn(m.weight.shape, generator=generator)
                 m.weight.copy_(w / math.sqrt(fan_in))
                 if m.bias is not None:

@@ -93,10 +93,12 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity)
 
 
-# the depths the flagship's two configurations use
+# the depths the flagship's two configurations and the CenterMap-Net
+# TGRS configs use
 ARCH_SETTINGS = {
     18: (BasicBlock, (2, 2, 2, 2)),
     50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
 }
 BASE_CHANNELS = 64
 

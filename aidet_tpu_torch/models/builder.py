@@ -29,7 +29,9 @@ from ..utils.registry import build_from_cfg
 from .backbones.resnet import ARCH_SETTINGS, ResNet
 from .detectors.two_stage import TwoStageDetector
 from .heads.bbox_head import RBBoxHead, SharedFCBBoxHead
+from .heads.mask_head import CenterMapHead, FCNMaskHead
 from .heads.rpn_head import RPNHead
+from .heads.semantic_head import WPSGAHead
 from .necks.fpn import FPN
 from .registry import BACKBONES, DETECTORS, HEADS, NECKS
 
@@ -131,16 +133,48 @@ def _rbbox_head(num_classes=16, in_channels=256, fc_out_channels=1024,
                      roi_feat_size=roi_feat_size, encode=encode)
 
 
+@HEADS.register(name="FCNMaskHead")
+def _fcn_mask_head(num_convs=4, in_channels=256, conv_out_channels=256,
+                   num_classes=81, dtype=None, **options):
+    _only_defaults("FCNMaskHead", options, dict(
+        norm_cfg=None, upsample_ratio=2, class_agnostic=False))
+    return FCNMaskHead(num_convs=num_convs, in_channels=in_channels,
+                       conv_out_channels=conv_out_channels,
+                       num_classes=num_classes)
+
+
+@HEADS.register(name="CenterMapHead")
+def _centermap_head(num_convs=4, in_channels=256, conv_out_channels=256,
+                    num_classes=16, dtype=None, **options):
+    _only_defaults("CenterMapHead", options, dict(upsample_ratio=2))
+    return CenterMapHead(num_convs=num_convs, in_channels=in_channels,
+                         conv_out_channels=conv_out_channels,
+                         num_classes=num_classes)
+
+
+@HEADS.register(name="WPSGAHead")
+def _wpsga_head(in_channels=256, channels=128, num_levels=4, num_classes=16,
+                with_attention=True, loss_weight=1.0, use_focal=True,
+                focal_gamma=2.0, dtype=None, **options):
+    # common_stride is a field of the reference's head that its forward
+    # does not read
+    _only_defaults("WPSGAHead", options, dict(common_stride=8))
+    return WPSGAHead(in_channels=in_channels, channels=channels,
+                     num_levels=num_levels, num_classes=num_classes,
+                     with_attention=with_attention, loss_weight=loss_weight,
+                     use_focal=use_focal, focal_gamma=focal_gamma)
+
+
 # the reference TwoStageDetector's fields that the port's detector
 # implements only at their defaults (roi_align_impl picks among
 # implementations of one function: the port has its own)
 DETECTOR_DEFAULTS = dict(
-    shared_head=None, mask_head=None, mask_iou_head=None, grid_head=None,
-    grid_roi_size=14, semantic_head=None, semantic_fusion="add",
-    semantic_level=0, strides=TwoStageDetector.strides, anchor_scales=(8,),
+    shared_head=None, mask_iou_head=None, grid_head=None,
+    grid_roi_size=14, semantic_fusion="add", semantic_level=0,
+    strides=TwoStageDetector.strides, anchor_scales=(8,),
     anchor_ratios=(0.5, 1.0, 2.0), hobb_robust_loss=False,
     ga_target_stds=(0.07, 0.07, 0.14, 0.14), ga_loc_filter_thr=0.01,
-    mask_loss_type="bce", img_norm=None)
+    img_norm=None)
 
 
 def _sub_dtypes(cfgs):
@@ -150,26 +184,34 @@ def _sub_dtypes(cfgs):
 
 def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
                bbox_head=None, rbbox_head=None, rbbox_refine_head=None,
+               mask_head=None, semantic_head=None, mask_loss_type="bce",
                train_cfg=None, test_cfg=None, img_size=1024,
                rbbox_encode="thetaobb", roi_align_impl="auto", dtype=None,
                **options):
     """A `TwoStageDetector` from the reference's detector keywords, with
     its defaults for the sub-modules a config leaves out
     (two_stage.py:126-177); its ``compute_dtype`` is the config's
-    dtype."""
+    dtype.  A detector needs an rbbox head or a mask head: the rotated
+    boxes come from one or the other."""
+    if options.get("mask_iou_head"):
+        raise NotImplementedError(f"{type_name}: MaskIoUHead (Mask Scoring "
+                                  f"R-CNN) is {NOT_PORTED}")
     _only_defaults(type_name, options, DETECTOR_DEFAULTS)
     if roi_align_impl not in ("auto", "xla", "pallas"):
         raise ValueError(f"roi_align_impl {roi_align_impl!r}")
-    if not rbbox_head:
-        raise NotImplementedError(f"{type_name} without an rbbox_head is "
-                                  f"{NOT_PORTED}")
+    if not rbbox_head and not mask_head:
+        raise NotImplementedError(f"{type_name} without an rbbox_head or a "
+                                  f"mask_head is {NOT_PORTED}")
     cfgs = dict(
         backbone=backbone or dict(type="ResNet", depth=50),
         neck=neck or dict(type="FPN", num_outs=5),
         rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3),
         bbox_head=bbox_head or dict(type="SharedFCBBoxHead",
-                                    num_classes=16),
-        rbbox_head=rbbox_head)
+                                    num_classes=16))
+    for key, cfg in (("rbbox_head", rbbox_head), ("mask_head", mask_head),
+                     ("semantic_head", semantic_head)):
+        if cfg:
+            cfgs[key] = cfg
     if rbbox_refine_head:
         cfgs["rbbox_refine_head"] = dict(rbbox_refine_head)
         cfgs["rbbox_refine_head"].setdefault("type", "RBBoxHead")
@@ -185,16 +227,18 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
     mods = {k: build_backbone(c) if k == "backbone"
             else build_neck(c) if k == "neck" else build_head(c)
             for k, c in cfgs.items()}
-    if mods["rbbox_head"].encode != rbbox_encode:
+    if "rbbox_head" in mods and mods["rbbox_head"].encode != rbbox_encode:
         raise NotImplementedError(
             f"{type_name}: rbbox_encode {rbbox_encode!r} differs from the "
             f"rbbox head's encode {mods['rbbox_head'].encode!r}, which is "
             f"{NOT_PORTED}")
     model = TwoStageDetector(
         mods["backbone"], mods["neck"], mods["rpn_head"], mods["bbox_head"],
-        mods["rbbox_head"], img_size=img_size, train_cfg=train_cfg,
+        mods.get("rbbox_head"), img_size=img_size, train_cfg=train_cfg,
         test_cfg=test_cfg, compute_dtype=dtype,
-        rbbox_refine_head=mods.get("rbbox_refine_head"))
+        rbbox_refine_head=mods.get("rbbox_refine_head"),
+        mask_head=mods.get("mask_head"), mask_loss_type=mask_loss_type,
+        semantic_head=mods.get("semantic_head"))
     return model
 
 
@@ -210,6 +254,27 @@ def _rbbox_rcnn_rroi(rbbox_head=None, rbbox_refine_head=None, **kwargs):
         "RBBoxRCNNRRoI", rbbox_head=rbbox_head or dict(type="RBBoxHead"),
         rbbox_refine_head=rbbox_refine_head
         or dict(type="RBBoxHead", encode="rtheta"), **kwargs)
+
+
+def _preset(type_name, **preset):
+    """A detector type whose keywords default to ``preset`` (a config's
+    keyword replaces the preset's entry, as the reference's
+    `_two_stage_factory`)."""
+    def factory(**kwargs):
+        return _two_stage(type_name, **dict(preset, **kwargs))
+    DETECTORS.register(factory, name=type_name)
+    return factory
+
+
+_preset("MaskRCNN", mask_head=dict(type="FCNMaskHead"))
+_preset("MaskOBB", mask_head=dict(type="FCNMaskHead"))
+_preset("CenterMapOBB", mask_head=dict(type="CenterMapHead"),
+        mask_loss_type="centermap")
+# CenterMap-Net: CenterMapOBB and the WPSGA semantic branch fused into
+# the RoI features by addition
+_preset("CenterMapNet", mask_head=dict(type="CenterMapHead"),
+        mask_loss_type="centermap",
+        semantic_head=dict(type="WPSGAHead", channels=256))
 
 
 def build(cfg, registry, default_args=None):

@@ -1,26 +1,37 @@
-"""Two-stage detector: the RBBoxRCNN and RBBoxRCNNRRoI predict paths
-and training losses.
+"""Two-stage detector: the RBBoxRCNN, RBBoxRCNNRRoI, MaskOBB,
+CenterMapOBB and CenterMap-Net predict paths and training losses.
 
 Port of `aidet_tpu/models/detectors/two_stage.py::TwoStageDetector`
-for the RBBoxRCNN branch of
+for those branches of
 
 - `predict`: uint8 normalize, backbone, FPN, RPN proposals, multi-level
-  RoIAlign, SharedFC bbox head, HBB decode and multiclass NMS, then the
+  RoIAlign, SharedFC bbox head, HBB decode and multiclass NMS (its IoU
+  threshold from test_cfg.rcnn's ``nms`` dict or ``nms_thr``), then the
   rbbox head on the kept crops only and the rotated decode (thetaobb or
   pointobb) chosen through the NMS keep provenance; with a refinement
   head (RBBoxRCNNRRoI), the selected rboxes are re-cropped by rotated
-  RoIAlign (kernel K4 on the card) and refined by rtheta deltas;
+  RoIAlign (kernel K4 on the card) and refined by rtheta deltas; with
+  a mask head (MaskOBB, CenterMapOBB, CenterMap-Net), the detections'
+  boxes are cropped at 14x14 (K1) and the head's map of each
+  detection's class is returned as ``masks`` (sigmoid for the BCE
+  head, raw for the CenterMap head); with a semantic head
+  (CenterMap-Net), its map is cropped by a single-level RoIAlign at
+  level 0's stride (K1 on one level) and added to every RoI crop;
 - `loss`: the RPN's anchor-target loss, proposals without gradient,
   gt boxes prepended as candidates, MaxIoU assignment and fixed random
   sampling per image, one RoIAlign (kernel K2 on the card) whose crops
-  feed both the bbox and the rbbox head, and their losses; with a
+  feed the bbox head and the rbbox head, and their losses; with a
   refinement head, the class-selected first-stage rboxes of the
   positive rois are re-cropped by rotated RoIAlign (kernel K4, forward
   and backward, on the card) and the refinement head's rtheta and
-  classification losses are added.
+  classification losses are added; with a semantic head, its
+  pseudo-segmentation loss and the fusion into the crops (K2 on one
+  level); with a mask head, its crops of the positive rois at 14x14
+  (K2) against `core.targets.mask_target` of the gt masks: BCE or the
+  CenterMap loss with mask weights.
 
-The GA-RPN, OHEM and combined samplers, and the grid, semantic,
-shared-head and mask branches are not ported.
+The GA-RPN, OHEM and combined samplers, and the grid, shared-head,
+Mask Scoring (`MaskIoUHead`) and HTC branches are not ported.
 """
 
 from __future__ import annotations
@@ -37,15 +48,18 @@ from ...core.assign import max_iou_assign
 from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, pointobb2thetaobb,
                             rtheta2delta)
 from ...core.sample import sample_fixed
-from ...core.targets import bbox_target, rbbox_target
-from ...ops.nms import multiclass_nms, select_parallel_rboxes
+from ...core.targets import bbox_target, mask_target, rbbox_target
+from ...ops.nms import (multiclass_nms, nms_cfg_kwargs,
+                        select_parallel_rboxes)
 from ...ops.roi_align import roi_align_bandx_forward, roi_align_forward
 from ...ops.rroi_align import rroi_align_forward
 from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
                                  rpn_proposals)
 from ..heads.bbox_head import (bbox_head_decode, bbox_head_loss,
                                rbbox_head_decode)
-from ..losses import CrossEntropyLoss, SmoothL1Loss
+from ..heads.semantic_head import semantic_loss
+from ..losses import (CenterMapLoss, CrossEntropyLoss, SmoothL1Loss,
+                      mask_cross_entropy)
 from ..preprocess import device_normalize
 
 # the reference's defaults (configs/dota/dota_v002_theta_obb_r50_v1_train.py)
@@ -69,6 +83,8 @@ DEFAULT_TEST_CFG: dict = dict(
 RPN_TARGET_STDS = (1.0, 1.0, 1.0, 1.0)
 RCNN_TARGET_MEANS = (0.0, 0.0, 0.0, 0.0)
 RCNN_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
+# the mask branch's RoIAlign size (the head upsamples it to 28)
+MASK_ROI_SIZE = 14
 
 
 def _merge(default: dict, override) -> dict:
@@ -82,11 +98,27 @@ def _merge(default: dict, override) -> dict:
     return out
 
 
+def _dq(x):
+    """uint8 targets quantized by the pipeline as value / 255 in float32
+    (the reference's ``_dq``, two_stage.py:385-390); others as they
+    are."""
+    return x.float() / 255.0 if x is not None and x.dtype == torch.uint8 \
+        else x
+
+
 class TwoStageDetector(nn.Module):
     """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head, and
     with ``rbbox_refine_head`` (an rtheta `RBBoxHead`) RBBoxRCNNRRoI.
     The first-stage rbbox codec (the reference's ``rbbox_encode``) is
-    the rbbox head's ``encode``: thetaobb or pointobb.
+    the rbbox head's ``encode``: thetaobb or pointobb.  Without an rbbox
+    head and with a ``mask_head`` (an `FCNMaskHead` trained with BCE,
+    ``mask_loss_type="bce"``, or a `CenterMapHead` trained with the
+    CenterMap loss, "centermap") it is MaskOBB or CenterMapOBB, whose
+    rotated boxes come from the masks on the host
+    (`core.masks.masks_to_thetaobbs`); with a ``semantic_head`` (a
+    `WPSGAHead`) too, CenterMap-Net: its map at pyramid level 0 is
+    cropped with every RoI and added to the crops (the reference's
+    default fusion and level, the only ones its configs use).
 
     compute_dtype: the dtype of `loss`'s convolutions and matrix
     products when it differs from the parameters' (the training build
@@ -101,7 +133,8 @@ class TwoStageDetector(nn.Module):
 
     def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head,
                  img_size=1024, train_cfg=None, test_cfg=None,
-                 compute_dtype=None, rbbox_refine_head=None):
+                 compute_dtype=None, rbbox_refine_head=None, mask_head=None,
+                 mask_loss_type="bce", semantic_head=None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -113,6 +146,15 @@ class TwoStageDetector(nn.Module):
             raise ValueError("rbbox_refine_head regresses against rotated "
                              "proposals; encode must be 'rtheta'")
         self.rbbox_refine_head = rbbox_refine_head
+        if rbbox_refine_head is not None and rbbox_head is None:
+            raise ValueError("rbbox_refine_head refines the rbbox head's "
+                             "boxes; it needs an rbbox_head")
+        if mask_loss_type not in ("bce", "centermap"):
+            raise ValueError(f"mask_loss_type {mask_loss_type!r}: 'bce' or "
+                             "'centermap'")
+        self.mask_head = mask_head
+        self.mask_loss_type = mask_loss_type
+        self.semantic_head = semantic_head
         self.img_size = img_size
         self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
         self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
@@ -121,6 +163,7 @@ class TwoStageDetector(nn.Module):
         self.rpn_bbox_loss = SmoothL1Loss(beta=1.0 / 9.0)
         self.rcnn_cls_loss = CrossEntropyLoss()
         self.rcnn_bbox_loss = SmoothL1Loss(beta=1.0)
+        self.centermap_loss = CenterMapLoss()
         anchors, sizes = build_pyramid_anchors(img_size, self.strides)
         self.register_buffer("anchors", anchors, persistent=False)
         self.level_sizes = sizes
@@ -160,13 +203,28 @@ class TwoStageDetector(nn.Module):
         return roi_align_forward(levels, rois_b.float(), out_size,
                                  self.strides[:4])
 
+    def _fuse_semantic(self, crops, sem_feat, rois_b, out_size):
+        """The semantic map [B, H, W, C] cropped at the rois [B, R, 4] by
+        the single-level RoIAlign at level 0's stride (sampling ratio 2,
+        aligned: the reference's `ops/roi_align.py::roi_align`,
+        two_stage.py:352-365) and added to the crops [B, R, s, s, C].  The crop is the multi-level
+        RoIAlign over one level: K1 on the card under no_grad, K2
+        (forward and backward) when the map needs a gradient, the plain
+        version on the CPU."""
+        with record_function("semantic_roi_align"):
+            sem = roi_align_forward([sem_feat.contiguous()], rois_b.float(),
+                                    out_size, self.strides[:1])
+        return crops + sem
+
     @torch.no_grad()
     def predict(self, imgs, img_shapes, scale_factors=None):
         """imgs [B, H, W, 3] (uint8 BGR, or normalized floats),
         img_shapes [B, 2] (h, w), scale_factors [B] (the test
         pipeline's resize factor of each image, or None).  Returns
-        fixed-size results: boxes [B, K, 4], rboxes [B, K, D] (D = 5
-        thetaobbs, or 8 pointobb corners without a refinement head), and
+        fixed-size results: boxes [B, K, 4]; with an rbbox head rboxes
+        [B, K, D] (D = 5 thetaobbs, or 8 pointobb corners without a
+        refinement head); with a mask head masks [B, K, 28, 28]
+        (`_predict_masks`, in the crop's frame: not rescaled); and
         scores, labels (0-based, -1 if invalid) and valid [B, K].
         With ``scale_factors`` the boxes and rboxes are divided back to
         the original image (`_rescale`).
@@ -190,10 +248,17 @@ class TwoStageDetector(nn.Module):
                 img_shapes, target_stds=RPN_TARGET_STDS, **ec["rpn"])
 
         b, p = props.shape[:2]
+        sem_feat = None
+        if self.semantic_head is not None:
+            with record_function("semantic_head"):
+                sem_feat = self.semantic_head(feats)[1]
         with record_function("roi_align"):
             crops = self._roi_features(feats, props,
                                        self.bbox_head.roi_feat_size,
                                        infer=True)
+        if sem_feat is not None:
+            crops = self._fuse_semantic(crops, sem_feat, props,
+                                        self.bbox_head.roi_feat_size)
         with record_function("bbox_head"):
             cls_score, bbox_pred = self.bbox_head(
                 crops.reshape((b * p,) + crops.shape[2:]))
@@ -204,12 +269,24 @@ class TwoStageDetector(nn.Module):
                 bbox_pred.reshape(b, p, -1), RCNN_TARGET_MEANS,
                 RCNN_TARGET_STDS, img_shape=img_shapes[:, None, :])
             dets = multiclass_nms(boxes, scores, rc["score_thr"],
-                                  iou_thr=rc["nms_thr"],
                                   max_num=rc["max_per_img"],
-                                  valid=prop_valid)
+                                  valid=prop_valid, **nms_cfg_kwargs(rc))
         out = dict(boxes=dets.boxes, scores=dets.scores,
                    labels=dets.labels, valid=dets.valid)
 
+        if self.rbbox_head is not None:
+            out["rboxes"] = self._predict_rboxes(feats, crops, props, dets)
+        if self.mask_head is not None:
+            with record_function("mask_head"):
+                out["masks"] = self._predict_masks(feats, sem_feat, dets)
+        if scale_factors is not None:
+            self._rescale(out, scale_factors)
+        return out
+
+    def _predict_rboxes(self, feats, crops, props, dets):
+        """The rbbox head's rotated boxes of the kept detections [B, K,
+        D], refined by the refinement head if there is one."""
+        b, p = props.shape[:2]
         # the parallel rbbox decode only reads the rows the HBB NMS
         # kept, so the rbbox head runs on those K crops alone
         with record_function("rbbox_head"):
@@ -224,14 +301,35 @@ class TwoStageDetector(nn.Module):
                 rreg.reshape(b, k, -1), self.rbbox_head.encode)
             local = dets._replace(roi_idx=torch.arange(
                 k, device=props.device).expand(b, k))
-            out["rboxes"] = select_parallel_rboxes(
+            rboxes = select_parallel_rboxes(
                 rboxes, local, self.rbbox_head.out_dim_reg)
         if self.rbbox_refine_head is not None:
             with record_function("rroi_refine"):
-                out["rboxes"] = self._refine(feats, out["rboxes"], dets)
-        if scale_factors is not None:
-            self._rescale(out, scale_factors)
-        return out
+                rboxes = self._refine(feats, rboxes, dets)
+        return rboxes
+
+    def _predict_masks(self, feats, sem_feat, dets):
+        """The mask branch of predict (reference two_stage.py:1088-1109):
+        the detections' boxes cropped at 14x14 (K1 on the card; with a
+        semantic head its map fused in), the mask head, and each
+        detection's map at its label's channel (0-based labels, clamped
+        to the head's channels): raw for the CenterMap head, sigmoid for
+        the BCE head.  Returns [B, K, S, S] (S = 28)."""
+        det_rois = dets.boxes[..., :4]
+        b, k = det_rois.shape[:2]
+        mcrops = self._roi_features(feats, det_rois, MASK_ROI_SIZE,
+                                    infer=True)
+        if sem_feat is not None:
+            mcrops = self._fuse_semantic(mcrops, sem_feat, det_rois,
+                                         MASK_ROI_SIZE)
+        pred = self.mask_head(mcrops.reshape((b * k,) + mcrops.shape[2:]))
+        c = pred.shape[-1]
+        lbl = dets.labels.reshape(-1).long().clamp(0, c - 1)
+        sel = torch.gather(pred, -1, lbl[:, None, None, None].expand(
+            pred.shape[:-1] + (1,)))[..., 0]
+        if self.mask_loss_type != "centermap":
+            sel = torch.sigmoid(sel)
+        return sel.reshape((b, k) + sel.shape[1:])
 
     def _rescale(self, out, scale_factors):
         """Divide ``out``'s boxes and rboxes by each image's scale
@@ -241,6 +339,8 @@ class TwoStageDetector(nn.Module):
         kept; pointobb corners are all divided."""
         sf = scale_factors.to(out["boxes"]).reshape(-1, 1, 1)
         out["boxes"] = out["boxes"] / sf
+        if "rboxes" not in out:
+            return
         rb = out["rboxes"]
         if rb.shape[-1] == 5 and (self.rbbox_head.encode == "thetaobb"
                                   or self.rbbox_refine_head is not None):
@@ -292,20 +392,30 @@ class TwoStageDetector(nn.Module):
                               enabled=cd != self.dtype)
 
     def loss(self, imgs, gt_boxes, gt_valid, gt_labels, img_shapes,
-             gt_rboxes, generator: torch.Generator):
-        """The RBBoxRCNN and RBBoxRCNNRRoI training loss (reference:
-        `loss`, two_stage.py:367-760, without its other optional
-        branches).
+             gt_rboxes=None, generator: torch.Generator = None,
+             gt_masks=None, gt_mask_weights=None, gt_semantic=None,
+             gt_seg_weights=None):
+        """The training loss of the ported branches (reference: `loss`,
+        two_stage.py:367-832, without its other optional branches).
 
         imgs [B, S, S, 3] (uint8 BGR or normalized floats); gt_boxes
         [B, G, 4]; gt_valid [B, G]; gt_labels [B, G] (1-based);
         img_shapes [B, 2] (h, w); gt_rboxes [B, G, D] in the rbbox
-        head's encode: thetaobbs [B, G, 5] or pointobbs [B, G, 8].
-        Sampling draws from ``generator`` (on the images' device): the
-        RPN's positives and negatives, then the RoI sample's.
-        Returns float32 scalars: loss_rpn_cls, loss_rpn_bbox, loss_cls,
-        loss_bbox, loss_rbbox_cls, loss_rbbox, and with a refinement
-        head loss_rbbox_refine and loss_rbbox_refine_cls (`_refine_loss`).
+        head's encode: thetaobbs [B, G, 5] or pointobbs [B, G, 8]
+        (read only with an rbbox head); gt_masks [B, G, Hm, Wm] (binary
+        masks for the BCE head, soft centermaps for the CenterMap head)
+        and gt_mask_weights [B, G, Hm, Wm] (CenterMap only, optional),
+        over the whole padded image at Hm / S of its scale; gt_semantic
+        [B, Hs, Ws] class indices (255 ignored) and gt_seg_weights
+        [B, Hs, Ws] (optional) for the semantic head.  Mask-type targets
+        may be uint8 quantized by the pipeline (`_dq`: value / 255 on
+        the card).  Sampling draws from ``generator`` (on the images'
+        device): the RPN's positives and negatives, then the RoI
+        sample's.  Returns float32 scalars: loss_rpn_cls, loss_rpn_bbox,
+        loss_cls, loss_bbox; with an rbbox head loss_rbbox_cls and
+        loss_rbbox, and with a refinement head loss_rbbox_refine and
+        loss_rbbox_refine_cls (`_refine_loss`); with a semantic head and
+        gt_semantic loss_seg; with a mask head loss_mask (`_mask_loss`).
 
         Mixed precision: the backbone, FPN, RPN head and RoI heads run
         under `_mixed_precision`; the heads' outputs are cast to float32
@@ -318,6 +428,11 @@ class TwoStageDetector(nn.Module):
         if rc.get("sampler", "random") != "random":
             raise NotImplementedError(f"rcnn sampler {rc['sampler']!r} "
                                       "is not ported; 'random' is")
+        if generator is None:
+            raise TypeError("loss needs the sampling generator")
+        gt_masks = _dq(gt_masks)
+        gt_mask_weights = _dq(gt_mask_weights)
+        gt_seg_weights = _dq(gt_seg_weights)
         img_shapes = img_shapes.float()
         gt_boxes = gt_boxes.float()
         b = imgs.shape[0]
@@ -375,15 +490,28 @@ class TwoStageDetector(nn.Module):
                              "rpn_proposal max_num)")
         rois = torch.gather(cand, 1, sample.inds[..., None].expand(-1, -1, 4))
 
-        # one RoIAlign: both heads read the same crops, so the step has
-        # one K2 forward and one K2 backward launch
+        sem_feat = None
+        if self.semantic_head is not None:
+            with amp, record_function("semantic_head"):
+                seg_logits, sem_feat = self.semantic_head(feats)
+            if gt_semantic is not None:
+                sh = self.semantic_head
+                losses["loss_seg"] = semantic_loss(
+                    seg_logits.float(), gt_semantic, gt_seg_weights,
+                    loss_weight=sh.loss_weight, use_focal=sh.use_focal,
+                    focal_gamma=sh.focal_gamma)
+
+        # one RoIAlign: both box heads read the same crops, so the step
+        # has one multi-level K2 forward and backward launch for them
         with record_function("roi_align"):
             crops = self._roi_features(feats, rois,
                                        self.bbox_head.roi_feat_size)
+        if sem_feat is not None:
+            crops = self._fuse_semantic(crops, sem_feat, rois,
+                                        self.bbox_head.roi_feat_size)
         crops = crops.reshape((b * r,) + crops.shape[2:])
         with amp, record_function("roi_heads"):
             cls_score, bbox_pred = self.bbox_head(crops)
-            rcls, rreg = self.rbbox_head(crops)
 
         def flat(t):
             return t._make(x.reshape((b * r,) + x.shape[2:]) for x in t)
@@ -394,18 +522,71 @@ class TwoStageDetector(nn.Module):
         losses["loss_cls"], losses["loss_bbox"] = bbox_head_loss(
             cls_score.float(), bbox_pred.float(), tgt,
             self.rcnn_cls_loss, self.rcnn_bbox_loss)
-        rtgt = flat(rbbox_target(sample, rois, gt_rboxes.float(), gt_labels,
-                                 self.rbbox_head.encode,
-                                 pos_weight=rc["pos_weight"]))
-        losses["loss_rbbox_cls"], losses["loss_rbbox"] = bbox_head_loss(
-            rcls.float(), rreg.float(), rtgt, self.rcnn_cls_loss,
-            self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg)
-        if self.rbbox_refine_head is not None:
-            with record_function("rroi_refine"):
-                losses.update(self._refine_loss(
-                    feats, rois, rreg.float().reshape(b, r, -1), sample,
-                    gt_rboxes.float(), gt_labels, amp))
+        if self.rbbox_head is not None:
+            with amp, record_function("roi_heads"):
+                rcls, rreg = self.rbbox_head(crops)
+            rtgt = flat(rbbox_target(sample, rois, gt_rboxes.float(),
+                                     gt_labels, self.rbbox_head.encode,
+                                     pos_weight=rc["pos_weight"]))
+            losses["loss_rbbox_cls"], losses["loss_rbbox"] = bbox_head_loss(
+                rcls.float(), rreg.float(), rtgt, self.rcnn_cls_loss,
+                self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg)
+            if self.rbbox_refine_head is not None:
+                with record_function("rroi_refine"):
+                    losses.update(self._refine_loss(
+                        feats, rois, rreg.float().reshape(b, r, -1), sample,
+                        gt_rboxes.float(), gt_labels, amp))
+        if self.mask_head is not None:
+            with record_function("mask_loss"):
+                losses["loss_mask"] = self._mask_loss(
+                    feats, sem_feat, rois, sample, gt_masks,
+                    gt_mask_weights, gt_labels, amp)
         return losses
+
+    def _mask_loss(self, feats, sem_feat, rois, sample, gt_masks,
+                   gt_mask_weights, gt_labels, amp):
+        """The mask branch's loss (reference two_stage.py:761-814): the
+        first p_max = int(num_samples * pos_fraction) sampled rois (the
+        positives come first) cropped at 14x14 (K2 on the card; with a
+        semantic head its map fused in), the mask head, and the targets
+        of `mask_target`: the gt masks cropped at the rois scaled into
+        mask pixels (by gt_masks' width over img_size) at the head's
+        output size.  loss_mask, averaged over max(#positives, 1) * S^2:
+        the CenterMap loss at each roi's class, with the mask weights
+        cropped the same way entering as w + 1, or the class-sliced
+        sigmoid BCE; rois that are not positive weigh 0."""
+        rc = self.train_cfg["rcnn"]
+        b = rois.shape[0]
+        p_max = int(rc["num_samples"] * rc["pos_fraction"])
+        pos_rois = rois[:, :p_max]
+        pos = sample._make(x[:, :p_max] for x in sample)
+        mcrops = self._roi_features(feats, pos_rois, MASK_ROI_SIZE)
+        if sem_feat is not None:
+            mcrops = self._fuse_semantic(mcrops, sem_feat, pos_rois,
+                                         MASK_ROI_SIZE)
+        with amp:
+            pred = self.mask_head(
+                mcrops.reshape((b * p_max,) + mcrops.shape[2:]))
+        pred = pred.float()
+        msize = pred.shape[1]
+        mrois = pos_rois * (gt_masks.shape[-1] / self.img_size)
+        tgt = mask_target(pos, mrois, gt_masks, msize).reshape(
+            b * p_max, msize, msize)
+        g = gt_labels.shape[1]
+        labels = torch.where(pos.is_pos, torch.gather(
+            gt_labels.long(), 1, pos.gt_inds.clamp(0, g - 1)), 0).reshape(-1)
+        is_pos = pos.is_pos.reshape(-1).float()
+        navg = is_pos.sum().clamp(min=1.0) * msize ** 2
+        if self.mask_loss_type == "centermap":
+            mw = None
+            if gt_mask_weights is not None:
+                mw = mask_target(pos, mrois, gt_mask_weights, msize).reshape(
+                    tgt.shape) + 1.0
+            return self.centermap_loss(pred, tgt, labels, mask_weight=mw,
+                                       roi_weight=is_pos, avg_factor=navg)
+        return mask_cross_entropy(pred, tgt, labels,
+                                  weight=is_pos[:, None, None],
+                                  avg_factor=navg)
 
     def _refine_loss(self, feats, rois, rreg, sample, gt_rboxes, gt_labels,
                      amp):

@@ -1,13 +1,15 @@
-"""Losses of the flagship's train step: softmax and sigmoid cross
-entropy, smooth L1, and their weighting and reduction.
+"""Losses of the train step: softmax and sigmoid cross entropy, smooth
+L1, the mask heads' class-sliced losses, and their weighting and
+reduction.
 
 Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 `cross_entropy_loss.py` (`cross_entropy`, `binary_cross_entropy`,
-`CrossEntropyLoss`) and `smooth_l1_loss.py` (`smooth_l1_loss`,
-`SmoothL1Loss`).  Labels follow the reference: 0 is background,
-1..C the classes; softmax logits carry C + 1 channels, sigmoid logits
-C.  The mask variant of `CrossEntropyLoss` is not ported (no mask
-branch in this slice).
+`mask_cross_entropy`, `CrossEntropyLoss`), `smooth_l1_loss.py`
+(`smooth_l1_loss`, `SmoothL1Loss`) and `centermap_loss.py`
+(`CenterMapLoss`).  Labels follow the reference: 0 is background,
+1..C the classes; softmax logits carry C + 1 channels, sigmoid and
+mask logits C.  `CrossEntropyLoss(use_mask=True)` is not ported: the
+detector calls `mask_cross_entropy` itself, as the reference's does.
 """
 
 from __future__ import annotations
@@ -66,6 +68,49 @@ def binary_cross_entropy(pred, label, weight=None, reduction="mean",
     loss = (pred.clamp(min=0) - pred * label
             + torch.log1p(torch.exp(-pred.abs())))
     return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+def _class_slice(pred, label):
+    """The channel of each roi's 1-based class: pred [R, S, S, C],
+    label [R] -> [R, S, S] (label - 1 clamped to [0, C - 1])."""
+    c = pred.shape[-1]
+    idx = (label.long() - 1).clamp(0, c - 1)
+    return torch.gather(pred, -1, idx[:, None, None, None].expand(
+        pred.shape[:-1] + (1,)))[..., 0]
+
+
+def mask_cross_entropy(pred, target, label=None, reduction="mean",
+                       avg_factor=None, weight=None):
+    """Per-roi class-sliced sigmoid BCE of a mask head: pred [R, S, S,
+    C] logits, target [R, S, S], label [R] (1-based class of each roi,
+    which picks its channel; None when pred is already sliced)."""
+    if label is not None:
+        pred = _class_slice(pred, label)
+    loss = (pred.clamp(min=0) - pred * target
+            + torch.log1p(torch.exp(-pred.abs())))
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+class CenterMapLoss:
+    """The CenterMap head's regression (parity: the reference's
+    centermap_loss.py:33-71): each roi's map at its class channel
+    against the soft centerness target, squared error, times the
+    per-pixel ``mask_weight`` [R, S, S] and the per-roi ``roi_weight``
+    [R] when given, reduced with ``avg_factor``."""
+
+    def __init__(self, reduction="mean", loss_weight=1.0):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, label, mask_weight=None,
+                 roi_weight=None, avg_factor=None):
+        loss = (_class_slice(pred, label) - target) ** 2
+        if mask_weight is not None:
+            loss = loss * mask_weight
+        if roi_weight is not None:
+            loss = loss * roi_weight[:, None, None]
+        return self.loss_weight * weight_reduce_loss(
+            loss, None, self.reduction, avg_factor)
 
 
 class CrossEntropyLoss:

@@ -3,8 +3,8 @@ detector heads.
 
 Port of `aidet_tpu/ops/nms.py` (`_suppression_matrix`,
 `_greedy_keep_presupp`, `nms`, `multiclass_nms`, `NMSResult`,
-`select_parallel_rboxes`), in plain PyTorch: the reference writes these
-as XLA code, not as Pallas kernels.  Every function takes any number of
+`select_parallel_rboxes`, `nms_cfg_kwargs`), in plain PyTorch: the
+reference writes these as XLA code, not as Pallas kernels.  Every function takes any number of
 leading batch dimensions, so all (image, level) or (image, class)
 problems of a call are solved together.  Outputs are padded to a fixed
 size with a validity mask, as in the reference.
@@ -118,6 +118,29 @@ def _per_class_boxes(multi_bboxes, num_classes, dim):
                else per[:, :, -num_classes:])
         return per.transpose(1, 2)
     return multi_bboxes[:, None].expand(b, num_classes, n, dim)
+
+
+def nms_cfg_kwargs(cfg: dict) -> dict:
+    """A test_cfg's NMS selection as `multiclass_nms` keywords (port of
+    the reference's `ops/nms.py::nms_cfg_kwargs` :246-268; parity:
+    bbox_nms.py:45-47): the flat ``nms_thr`` key, overridden by a
+    reference-style ``nms=dict(type='nms', iou_thr=...)``.  Soft-NMS
+    (``type='soft_nms'``) raises `NotImplementedError` until it is
+    ported (ROADMAP queue 1 item 10); it never falls back to hard NMS.
+    """
+    out: dict = dict(iou_thr=cfg.get("nms_thr", 0.5))
+    ncfg = cfg.get("nms")
+    if ncfg:
+        d = dict(ncfg)
+        t = d.pop("type", "nms")
+        out["iou_thr"] = d.pop("iou_thr", out["iou_thr"])
+        if t == "soft_nms":
+            raise NotImplementedError(
+                "test_cfg nms type 'soft_nms' is not yet ported to "
+                "aidet_tpu_torch (ROADMAP queue 1 item 10)")
+        if t != "nms":
+            raise ValueError(f"unknown nms type {t!r}")
+    return out
 
 
 def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,

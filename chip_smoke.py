@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's flagship predict and train paths, the
-RBBoxRCNNRRoI predict and train paths, scene serving, and the train
-loop and test run from a config file on one CUDA card.
+RBBoxRCNNRRoI predict and train paths, scene serving, the train loop
+and test run from a config file, and CenterMap-Net's predict and train
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -40,7 +41,9 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    and with the TPU kernel's window bump), both in bfloat16 and
    float32, and K4's backward at the RRoI train step's (128 rotated
    rois per image, 7x7, bfloat16 and float32, held and reported as K2's
-   backward).
+   backward); K2's forward and backward also at the mask branch's
+   14x14 on 128 rois per image (bfloat16; the backward in float32
+   too).
 4. reference: the small flagship (ResNet-18, float32) predict on the
    card against the same weights on the CPU, where the plain versions
    run.
@@ -103,9 +106,29 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    ms per step, images/s, the loader wait per step, the checkpoint
    save and load ms, K2's launches (1 forward and 1 backward a step)
    and K1's (1 an inference batch).
+16. centermap_reference and 17. maskobb_reference: the small
+   CenterMap-Net (the CenterMap and WPSGA heads) and the small MaskOBB
+   (the FCN mask head, sigmoid masks), float32 with TF32 off, on the
+   card against the CPU: predict's detections paired and their 28 x 28
+   masks within 1e-2, then one train step under a train_cfg that keeps
+   every candidate (each loss, loss_mask and loss_seg among them, and
+   the update, held as reference_train's).
+18. centermap_predict: `configs/dota_centermap_net_tgrs_mask_weight_v4.py`
+   as written (R101-FPN, float32 with cuDNN's TF32, 1000 detections an
+   image) on 3 requests of 2 seeded uint8 1024^2 images: ms per call,
+   K1's launches (4 a call: 7x7 and 14x14, multi-level and on the
+   semantic map), peak memory, detections, and the host's mask-to-OBB
+   fit as its own stage.
+19. centermap_train: the same config's train step on batches that the
+   port's `TrainPipeline` made from 8 seeded PNG patches of 60 objects
+   (CenterMap masks, mask weights, pseudo-segmentation, heatmap
+   weights, shipped as uint8), 1 warm-up and 3 timed steps: every loss,
+   ms per step, K2's launches (4 forward and 4 backward a step), peak
+   memory, and the pipeline's host ms per image for each target kind.
 
-Then one ``{"kernels": [...]}`` line, nvidia-smi's name and power limit
-line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
+Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
+first path, and ``launches_by_path`` on every path), nvidia-smi's name
+and power limit line, and last ``{"ok": true, "device": {...}}``.  A failure anywhere
 prints its traceback and exits non-zero without those lines.  The
 script imports nothing of JAX or of the reference package.
 """
@@ -142,6 +165,12 @@ TRAIN = dict(batch=2, rois=512, img=1024, channels=256, max_gt=64)
 RROI = dict(batch=2, rois=2000, img=1024, channels=256, rrois=100)
 # the RRoI train step's rotated crops: 512 * 0.25 = 128 per image
 RTRAIN = dict(batch=2, img=1024, channels=256, rrois=128)
+# the mask branch's train crops: the 512 * 0.25 = 128 first samples per
+# image at 14x14
+MASK_TRAIN = dict(batch=2, rois=128, img=1024, channels=256)
+# CenterMap-Net's semantic map: one float32 level at level 0's stride
+# ([2, 256, 256, 256] at 1024^2), cropped at every roi of the path
+SEMANTIC_STRIDES = (4,)
 # the kernels' wrappers (module of aidet_tpu_torch.ops, handle) by the
 # name of their entry in the kernels line
 HANDLES = dict(roi_align=("roi_align", "roi_align_kernel"),
@@ -404,13 +433,13 @@ def backward_lists(kernel):
                 scratch_bytes=kernel.scratch.numel() * 4)
 
 
-def main_path_inputs(gen, shape, dtype, device):
-    """Seeded levels [B, img/s, img/s, C] and proposal-like rois of one
+def main_path_inputs(gen, shape, dtype, device, strides=MAIN["strides"]):
+    """Seeded levels [B, img/s, img/s, C] for each stride (the FPN's
+    four, or the semantic map's one) and proposal-like rois of one
     path's ``shape`` (MAIN or TRAIN), with their routing."""
     import torch
     from aidet_tpu_torch.ops.roi_align import route_rois
     b, r, img, c = (shape[k] for k in ("batch", "rois", "img", "channels"))
-    strides = MAIN["strides"]
     feats = [torch.randn(b, img // s, img // s, c, generator=gen)
              .to(device=device, dtype=dtype) for s in strides]
     rois_b = main_path_rois(gen, b, r, img).to(device)
@@ -421,20 +450,24 @@ def main_path_inputs(gen, shape, dtype, device):
     return feats, rois_b, rois, lvls, bidx
 
 
-def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
+def run_forward_kernel(kernel, name, shape, sizes, device="cuda",
+                       dtype_name="bfloat16", strides=MAIN["strides"]):
     """A RoIAlign forward handle (K1, or K2's forward) against the
-    plain version at ``shape`` for each out_size in ``sizes``, bfloat16;
-    returns the fields of its entry in the kernels line (the first
-    size's), with its share of the bound (bound_ms / ms)."""
+    plain version at ``shape`` for each out_size in ``sizes``, in
+    ``dtype_name`` (limit ATOL_BF16 or ATOL_F32), on the levels of
+    ``strides`` (the FPN's four, or the semantic map's one); returns the
+    fields of its entry in the kernels line (the first size's), with its
+    share of the bound (bound_ms / ms)."""
     import torch
     from aidet_tpu_torch.ops.roi_align import batched_multilevel_roi_align
-    strides = MAIN["strides"]
+    dtype = getattr(torch, dtype_name)
+    atol = ATOL_BF16 if dtype == torch.bfloat16 else ATOL_F32
     feats, rois_b, rois, lvls, bidx = main_path_inputs(
-        torch.Generator().manual_seed(0), shape, torch.bfloat16, device)
+        torch.Generator().manual_seed(0), shape, dtype, device, strides)
     result = None
     for s in sizes:
         out = torch.empty((rois.shape[0], s, s, shape["channels"]),
-                          dtype=torch.bfloat16, device=device)
+                          dtype=dtype, device=device)
 
         def launch():
             kernel(feats, rois, bidx, lvls, out, strides, 2, True)
@@ -447,9 +480,10 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
         torch.cuda.synchronize()
         err = (out.reshape(ref.shape).float() - ref.float()).abs().max()
         err = float(err)
-        if not math.isfinite(err) or err > ATOL_BF16:
-            raise AssertionError(f"{name} s={s}: max abs err {err} > "
-                                 f"{ATOL_BF16} against the plain version")
+        if not math.isfinite(err) or err > atol:
+            raise AssertionError(f"{name} s={s} {dtype_name} on "
+                                 f"{len(strides)} level(s): max abs err "
+                                 f"{err} > {atol} against the plain version")
         bound_ms, bound_by = roi_align_bound(feats, rois, lvls, bidx, out,
                                              strides)
         fields = dict(max_abs_err=err, **kernel_times(launch, 50, 5),
@@ -457,36 +491,37 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda"):
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=name, out_size=s, rois=rois.shape[0],
-              dtype="bfloat16", atol=ATOL_BF16, **fields)
+              levels=len(strides), dtype=dtype_name, atol=atol, **fields)
         result = result or fields
     return result
 
 
-def run_backward_kernel(device="cuda", rotated=False):
+def run_backward_kernel(device="cuda", rotated=False, shape=None, s=7,
+                        dtype_names=("bfloat16", "float32"),
+                        strides=MAIN["strides"]):
     """K2's backward (K4's if ``rotated``) against the autograd gradient
     of the plain version at the train step's shapes (7x7: 2 x 512 rois,
-    or 2 x 128 rotated rois), in bfloat16 and in float32, launched twice
-    and both launches held to the limits; returns the bfloat16 fields of
-    its entry in the kernels line."""
+    or 2 x 128 rotated rois; K2's at ``shape`` and ``s`` x ``s`` if
+    given, on the levels of ``strides``), in each of ``dtype_names``,
+    launched twice and both launches held to the limits; returns the
+    first dtype's fields of its entry in the kernels line."""
     import torch
     from aidet_tpu_torch.ops import roi_align, rroi_align
-    strides = MAIN["strides"]
-    s = 7
     kernel = (rroi_align.rroi_align_backward_kernel if rotated
               else roi_align.roi_align_backward_kernel)
     plain_fn = (rroi_align.batched_rroi_align if rotated
                 else roi_align.batched_multilevel_roi_align)
     label = "K4 backward" if rotated else "K2 backward"
     result = None
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
+    for name in dtype_names:
+        dtype = getattr(torch, name)
         gen = torch.Generator().manual_seed(1)
         if rotated:
             feats, rois_b, rois, lvls, bidx = rroi_train_inputs(gen, dtype,
                                                                 device)
         else:
             feats, rois_b, rois, lvls, bidx = main_path_inputs(
-                gen, TRAIN, dtype, device)
+                gen, shape or TRAIN, dtype, device, strides)
         shapes = [tuple(f.shape) for f in feats]
         grad_out = torch.randn(rois.shape[0], s, s, feats[0].shape[-1],
                                generator=gen).to(device=device, dtype=dtype)
@@ -534,7 +569,8 @@ def run_backward_kernel(device="cuda", rotated=False):
         fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=("rroi_align_backward" if rotated
                                  else "roi_align_backward"), out_size=s,
-              rois=rois.shape[0], dtype=name, max_abs_err_per_level=errs,
+              rois=rois.shape[0], levels=len(feats), dtype=name,
+              max_abs_err_per_level=errs,
               limit_per_level=limits, rel_tol=BWD_REL_TOL[name],
               rerun_max_abs_diff=rerun_err, lists=lists, **fields)
         result = result or fields
@@ -730,8 +766,13 @@ def run_kernels():
     fields of each one's entry in the kernels line, by name."""
     from aidet_tpu_torch.ops.roi_align import (roi_align_kernel,
                                                roi_align_train_kernel)
-    # K1 at the RRoI predict's 2 x 2000 proposals too (a phase line)
+    # K1 at the RRoI predict's 2 x 2000 proposals too, and K2 at the
+    # mask branch's 14x14 on 2 x 128 rois (phase lines)
     run_forward_kernel(roi_align_kernel, "roi_align", RROI, (7,))
+    run_forward_kernel(roi_align_train_kernel, "roi_align_train_forward",
+                       MASK_TRAIN, (14,))
+    run_backward_kernel(shape=MASK_TRAIN, s=14)
+    run_centermap_kernels(roi_align_kernel, roi_align_train_kernel)
     return dict(
         roi_align=run_forward_kernel(roi_align_kernel, "roi_align", MAIN,
                                      (7, 14)),
@@ -741,6 +782,29 @@ def run_kernels():
         roi_align_bandx=run_bandx_kernel(),
         rroi_align=run_rroi_kernel(),
         rroi_align_backward=run_backward_kernel(rotated=True))
+
+
+def run_centermap_kernels(k1, k2_forward):
+    """K1 and K2 at the CenterMap path's own shapes and dtype (float32),
+    each against the plain version, with its bound, on its own line.
+    Four FPN levels: K1 at 7x7 on 2 x 2000 proposals and at 14x14 on
+    2 x 1000 detections (predict), K2's forward at 7x7 on 2 x 512
+    sampled rois and at 14x14 on 2 x 128 positives (train).  One level,
+    the semantic map ([2, 256, 256, 256] at stride 4) cropped at the
+    same rois: K1 (predict), and K2's forward and backward (train)."""
+    for strides in (MAIN["strides"], SEMANTIC_STRIDES):
+        run_forward_kernel(k1, "roi_align", RROI, (7,),
+                           dtype_name="float32", strides=strides)
+        run_forward_kernel(k1, "roi_align", MAIN, (14,),
+                           dtype_name="float32", strides=strides)
+        run_forward_kernel(k2_forward, "roi_align_train_forward", TRAIN,
+                           (7,), dtype_name="float32", strides=strides)
+        run_forward_kernel(k2_forward, "roi_align_train_forward",
+                           MASK_TRAIN, (14,), dtype_name="float32",
+                           strides=strides)
+    for shape, s in ((TRAIN, 7), (MASK_TRAIN, 14)):
+        run_backward_kernel(shape=shape, s=s, dtype_names=("float32",),
+                            strides=SEMANTIC_STRIDES)
 
 
 def run_reference(device="cuda"):
@@ -807,7 +871,8 @@ def match_detections(got, ref, limits, rbox_clear=None, max_unpaired=0,
     same image and label whose score, box, rbox centre and size (px)
     and theta are within ``limits`` (with "rboxes_rel", the rbox limit
     grows by that share of the rbox's largest coordinate; without
-    "rboxes", only scores and boxes, of any width, are held); raise if the
+    "rboxes", only scores and boxes, of any width, are held; with
+    "masks", each pair's largest mask difference too); raise if the
     valid counts differ or more than ``max_unpaired`` detections find no
     partner.  Detections whose scores differ by less than the two runs'
     rounding may come out in either order, so partners are searched
@@ -843,6 +908,10 @@ def match_detections(got, ref, limits, rbox_clear=None, max_unpaired=0,
                                      - ref["scores"][b, j])),
                     boxes=float((got["boxes"][b, i]
                                  - ref["boxes"][b, j]).abs().max()))
+                if "masks" in limits:
+                    d["masks"] = float((got["masks"][b, i].float()
+                                        - ref["masks"][b, j].float())
+                                       .abs().max())
                 lim = dict(limits)
                 if "rboxes" in limits:
                     d.update(
@@ -1870,6 +1939,27 @@ def loop_test(cfg, ckpt_dir, gt_json, device, batch):
                 note=SCENE_NOTE)
 
 
+def tf32_defaults():
+    """A context with PyTorch's default TF32 settings (cuDNN's
+    convolutions in TF32, matrix products in float32), restored after:
+    the float32 configs run as a user's would."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+    return ctx()
+
+
 def run_loop(device="cuda", small=False, seed=0):
     """Train `LOOP_CONFIG` (full width, or its small architecture) from
     PNG patches through `DOTADataset`, `GroupedLoader` and
@@ -1901,18 +1991,14 @@ def run_loop(device="cuda", small=False, seed=0):
     both runs (none on the CPU).  Returns the phase's fields."""
     import torch
     on_card = torch.device(device).type == "cuda"
-    settings = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads())
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
+    threads = torch.get_num_threads()
     if not on_card:
         torch.set_num_threads(1)
     try:
-        return _run_loop(device, small, seed, on_card)
+        with tf32_defaults():
+            return _run_loop(device, small, seed, on_card)
     finally:
-        torch.backends.cudnn.allow_tf32 = settings[0]
-        torch.backends.cuda.matmul.allow_tf32 = settings[1]
-        torch.set_num_threads(settings[2])
+        torch.set_num_threads(threads)
 
 
 def _resume_errors(resumed, want):
@@ -2014,6 +2100,430 @@ def _run_loop(device, small, seed, on_card):
         / len(steps), **test)
 
 
+# The CenterMap family (MaskOBB, CenterMapOBB, CenterMap-Net): the
+# paper's configuration at full width, 2 images of 1024^2, 3 predict
+# calls and 3 train steps (1 warm-up step first) from 8 PNG patches of
+# 60 objects; the CPU rehearsal at the small architecture on 256^2
+CENTERMAP_CONFIG = "configs/dota_centermap_net_tgrs_mask_weight_v4.py"
+CENTERMAP = dict(img=1024, batch=2, calls=3, steps=3, patches=8,
+                 objects=60)
+CENTERMAP_SMALL = dict(img=256, batch=2, calls=2, steps=1, patches=4,
+                       objects=12)
+# the small architecture (`SMALL_MODEL`'s backbone, FPN, RPN and bbox
+# head) with the mask family's heads at its widths
+SMALL_MASK_HEADS = dict(
+    centermap=dict(
+        type="CenterMapNet",
+        mask_head=dict(type="CenterMapHead", num_convs=4, in_channels=64,
+                       conv_out_channels=64, num_classes=16),
+        semantic_head=dict(type="WPSGAHead", in_channels=64, channels=64,
+                           num_classes=16)),
+    maskobb=dict(
+        type="MaskOBB",
+        mask_head=dict(type="FCNMaskHead", num_convs=4, in_channels=64,
+                       conv_out_channels=64, num_classes=16)))
+# predict on the card against the CPU (float32, TF32 off): the
+# reference phase's limits, and each paired detection's 28 x 28 map
+# within 1e-2 (raw CenterMap values or sigmoids, of order 1)
+MASK_REF_LIMITS = dict(boxes=1.0, scores=1e-2, masks=1e-2)
+MASK_REF_TRAIN_LIMITS = dict(losses_rel=1e-3, update_rel_l2=1e-3,
+                             leaf_over_largest=1e-2)
+MASK_TITLES = dict(centermap="small CenterMap-Net float32",
+                   maskobb="small MaskOBB float32")
+
+
+def small_mask_model(kind):
+    """The small architecture's config with ``kind``'s heads."""
+    cfg = {k: v for k, v in SMALL_MODEL.items()
+           if k not in ("type", "rbbox_head", "rbbox_encode")}
+    cfg.update(SMALL_MASK_HEADS[kind])
+    return cfg
+
+
+def build_mask_model(kind, device, train=False, train_cfg=None, seed=0):
+    """The small ``kind`` model ("centermap" or "maskobb") from
+    `build_detector`: the predict build, or with ``train`` the
+    trainer's (float32 either way)."""
+    from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.models.detectors.two_stage import _merge
+    return build_detector(small_mask_model(kind),
+                          train_cfg=_merge(SMALL_TRAIN_CFG, train_cfg),
+                          test_cfg=SMALL_TEST_CFG, device=device, seed=seed,
+                          train=train)
+
+
+def mask_targets(kind, quads, labels, img, device_normalize=True):
+    """The mask family's targets of one image's quads [G, 8] (labels
+    [G], 1-based) over an img^2 canvas, as `TrainPipeline` makes them:
+    CenterMap soft masks and mask weights, pseudo-segmentation and heatmap
+    weights ("centermap"), or binary masks ("maskobb"), at img / 4;
+    [0, 1] maps as uint8 with ``device_normalize``."""
+    import numpy as np
+    from aidet_tpu_torch.data.pipeline import TrainPipeline
+    pipe = TrainPipeline(
+        img_size=img, max_gt=len(quads), with_mask=True,
+        mask_type="centermap" if kind == "centermap" else "binary",
+        with_mask_weight=kind == "centermap",
+        with_semantic=kind == "centermap",
+        with_heatmap_weight=kind == "centermap",
+        device_normalize=device_normalize)
+    return pipe.mask_targets(np.asarray(quads, np.float32),
+                              np.asarray(labels), len(quads), img, img)
+
+
+def mask_train_batch(kind, batch, img, n_gt, seed, device):
+    """`flagship.synthetic_train_batch` with the targets of
+    `mask_targets` from its rotated gts (uint8 maps, dequantized on the
+    card)."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.data.np_rboxes import thetaobb2pointobb
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    data = synthetic_train_batch(batch, img, n_gt, seed, device)
+    quads = thetaobb2pointobb(data["gt_rboxes"].cpu().numpy())
+    labels = data["gt_labels"].cpu().numpy()
+    per = [mask_targets(kind, q, lb, img) for q, lb in zip(quads, labels)]
+    for k in per[0]:
+        data[k] = torch.from_numpy(np.stack([t[k] for t in per])).to(device)
+    return data
+
+
+def mask_step_once(kind, device, img, n_gt, train_cfg, seed=0):
+    """One train step of the small ``kind`` model on ``device``: as
+    `train_step_once`, on `mask_train_batch`."""
+    import torch
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    net = build_mask_model(kind, device, train=True, train_cfg=train_cfg,
+                           seed=seed)
+    params = list(net.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.02))
+    state = create_train_state(net, optimizer)
+    step = make_train_step(net, optimizer)
+    batch = mask_train_batch(kind, 2, img, n_gt, seed, device)
+    _, metrics = step(state, batch,
+                      torch.Generator(device=device).manual_seed(seed))
+    return ({k: float(v) for k, v in metrics.items()}, before,
+            [p.detach().cpu() for p in params])
+
+
+def run_mask_reference(device="cuda", kind="centermap"):
+    """The small ``kind`` model (float32, TF32 off) on ``device``
+    against the CPU with the same weights: predict on 2 seeded uint8
+    images (`match_detections` with `MASK_REF_LIMITS`: every detection
+    paired, its mask too), then one train step under a train_cfg that
+    keeps every candidate (`compare_steps` with
+    `MASK_REF_TRAIN_LIMITS`: each loss, loss_mask and loss_seg among
+    them, and grad_norm within 1e-3 relative, the update within 1e-3
+    relative L2, each leaf within 1e-2 of its largest update).  Returns
+    the phase's fields."""
+    import torch
+    from aidet_tpu_torch.flagship import keep_every_candidate_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img, n_gt = 256, 8
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    got, ref = ({k: v.cpu() for k, v in build_mask_model(kind, d).predict(
+        imgs.to(d), shapes.to(d)).items()} for d in (device, "cpu"))
+    errs = match_detections(got, ref, MASK_REF_LIMITS)
+    net = build_mask_model(kind, "cpu", train=True)
+    cfg = keep_every_candidate_cfg(img, n_gt,
+                                   net.train_cfg["rpn_proposal"]["max_num"])
+    step = [mask_step_once(kind, d, img, n_gt, cfg) for d in (device, "cpu")]
+    train = compare_steps(f"{kind}_reference", *step, MASK_REF_TRAIN_LIMITS)
+    train["worst_leaf"] = [n for n, _ in net.named_parameters()][
+        train["worst_leaf"]]
+    return dict(model=MASK_TITLES[kind], img=img, tf32=False,
+                n_valid=int(got["valid"].sum()), max_abs_err=errs,
+                limits=MASK_REF_LIMITS, gts=n_gt, losses_card=step[0][0],
+                losses_cpu=step[1][0], train=train)
+
+
+def centermap_model(device, small, seed=0, train=False):
+    """`CENTERMAP_CONFIG` as written (float32: it names no dtype), or
+    with ``small`` the small CenterMap-Net, from `build_detector` with
+    seeded weights; returns (model, config dict)."""
+    from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(CENTERMAP_CONFIG).to_dict()
+    if small:
+        cfg.update(model=dict(small_mask_model("centermap"), img_size=256),
+                   train_cfg=SMALL_TRAIN_CFG, test_cfg=SMALL_TEST_CFG,
+                   train_pipeline=dict(cfg["train_pipeline"], img_size=256,
+                                       max_gt=64))
+    model = build_detector(cfg["model"], train_cfg=cfg["train_cfg"],
+                           test_cfg=cfg["test_cfg"], device=device,
+                           seed=seed, train=train)
+    return model, cfg
+
+
+def run_centermap_predict(device="cuda", small=False, seed=0):
+    """CenterMap-Net's predict (`centermap_model`) on 2 seeded uint8
+    images, ``calls`` times, under `tf32_defaults`: the outputs' shapes
+    and finiteness, ms per call, K1's launches (4 a call on the card:
+    7x7 and 14x14, each multi-level and on the semantic map; none on
+    the CPU), peak memory, then the host's OBB extraction of the last
+    call (`core.masks.masks_to_thetaobbs`, timed apart, at the
+    threshold 0.5 and at the median of the maps' values) and the
+    detections and non-empty OBBs.  Returns the phase's fields."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.apis.inference import to_numpy
+    from aidet_tpu_torch.core.masks import masks_to_thetaobbs
+    sizes = CENTERMAP_SMALL if small else CENTERMAP
+    on_card = torch.device(device).type == "cuda"
+    b, img = sizes["batch"], sizes["img"]
+    with tf32_defaults():
+        model, cfg = centermap_model(device, small, seed)
+        imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(seed))
+        imgs = imgs.to(device)
+        shapes = torch.full((b, 2), float(img), device=device)
+        k = model.test_cfg["rcnn"]["max_per_img"]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        times = []
+        for _ in range(sizes["calls"]):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.predict(imgs, shapes)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+    want = dict.fromkeys(HANDLES, 0)
+    want["roi_align"] = 4 * sizes["calls"] if on_card else 0
+    if launches != want:
+        raise AssertionError(f"centermap_predict: launches {launches} in "
+                             f"{sizes['calls']} calls, expected {want}")
+    if tuple(out["masks"].shape) != (b, k, 28, 28) or "rboxes" in out:
+        raise AssertionError("centermap_predict: masks "
+                             f"{tuple(out['masks'].shape)}, keys {set(out)}")
+    for key in ("boxes", "scores", "masks"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"centermap_predict: {key} not finite")
+    host = to_numpy(out)
+
+    def obb_stage(thr):
+        t0 = time.perf_counter()
+        obbs = np.stack([masks_to_thetaobbs(host["masks"][i],
+                                            host["boxes"][i],
+                                            host["valid"][i], thr)
+                         for i in range(b)])
+        if not np.isfinite(obbs).all():
+            raise AssertionError("centermap_predict: OBBs not finite")
+        return obbs, (time.perf_counter() - t0) * 1e3 / b
+
+    obbs, obb_ms = obb_stage(0.5)
+    # random weights leave most maps under the 0.5 threshold, which
+    # skips the label and the hull; at the median of the valid maps'
+    # values about half of each map passes: an assumed foreground
+    # share, not a user's (centermap_train times the stage on the gt
+    # targets' own maps)
+    median = float(np.median(host["masks"][host["valid"]]))
+    busy, busy_ms = obb_stage(median)
+    busy_masks = int((busy[..., 2:4] > 0).any(-1).sum())
+    steady = times[1:] or times
+    ms = sum(steady) / len(steady)
+    return dict(
+        config=CENTERMAP_CONFIG + (" (small architecture)" if small else ""),
+        img=img, batch=b, calls=sizes["calls"], max_per_img=k,
+        dtype="float32 parameters and compute (the config names none); "
+        "TF32 in cuDNN's convolutions (PyTorch's default)",
+        first_call_ms=times[0], call_ms=times, ms_per_call=ms,
+        images_per_s=b * 1e3 / ms, launches=launches,
+        k1_launches_per_call=launches["roi_align"] / sizes["calls"],
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else None),
+        n_valid=int(host["valid"].sum()),
+        nonempty_obbs=int((obbs[..., 2:4] > 0).any(-1).sum()),
+        host_obb_ms_per_image=obb_ms, median_thr=median,
+        nonempty_obbs_at_median_thr=busy_masks,
+        host_obb_ms_per_image_at_median_thr=busy_ms,
+        host_obb_ms_per_nonempty_mask_at_median_thr=(
+            busy_ms * b / max(busy_masks, 1)),
+        foreground_share_at_median_thr=float(
+            (host["masks"][host["valid"]] > median).mean()))
+
+
+def centermap_batches(cfg, root, sizes, seed):
+    """``sizes["steps"] + 1`` batches of ``sizes["batch"]`` made by the
+    port's `TrainPipeline` (the config's train_pipeline with uint8
+    transfer, `device_normalize`, the port's script's default) from
+    seeded synthetic PNG patches (`write_patch_set`) read back by
+    `DOTADataset`; and the pipeline's host ms per image for each target
+    kind, each timed as the pipeline with that kind alone, less the
+    pipeline without any."""
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
+    from aidet_tpu_torch.data.pipeline import TrainPipeline, collate_batch
+    n = sizes["batch"] * (sizes["steps"] + 1)
+    ann, prefix, _ = write_patch_set(root, 0, n, sizes["img"],
+                                     sizes["objects"], seed)
+    dataset = build_dataset(dict(cfg["data"]["train"], ann_file=ann,
+                                 img_prefix=prefix))
+    inputs = [(imread(dataset.img_path(i)), dataset.parse_anns(i))
+              for i in range(n)]
+    pipe_cfg = dict(cfg["train_pipeline"], device_normalize=True, seed=seed)
+    kinds = dict(mask=dict(with_mask=True), mask_weight=dict(
+        with_mask_weight=True), semantic=dict(with_semantic=True),
+        heatmap_weight=dict(with_heatmap_weight=True))
+    off = {k: False for k in ("with_mask", "with_mask_weight",
+                              "with_semantic", "with_heatmap_weight")}
+
+    def ms_per_image(extra):
+        pipe = TrainPipeline(**{**pipe_cfg, **off, **extra})
+        t0 = time.perf_counter()
+        for img, anns in inputs:
+            pipe(img, anns)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    base = ms_per_image({})
+    target_ms = {k: ms_per_image(v) - base for k, v in kinds.items()}
+    pipe = TrainPipeline(**pipe_cfg)
+    t0 = time.perf_counter()
+    samples = [pipe(img, anns) for img, anns in inputs]
+    full_ms = (time.perf_counter() - t0) * 1e3 / n
+    b = sizes["batch"]
+    batches = [collate_batch(samples[i:i + b]) for i in range(0, n, b)]
+    return batches, dict(base_ms_per_image=base,
+                         target_ms_per_image=target_ms,
+                         pipeline_ms_per_image=full_ms,
+                         obb_fit_on_gt_centermaps=gt_centermap_obb_fit(
+                             samples, sizes["img"]))
+
+
+def gt_centermap_obb_fit(samples, img):
+    """The host's mask-to-OBB fit (`masks_to_thetaobbs` at the 0.5
+    threshold of the code and the reference) on maps that a head which
+    had learnt its targets would give: each gt's own CenterMap target
+    cropped at its box to 28x28 (`mask_target`, the train targets'
+    crop).  Random weights give no such maps, so this is the stage's
+    cost on the foreground share of real targets: ms per image and per
+    non-empty mask, masks, and the share of crop pixels over 0.5."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.core.masks import masks_to_thetaobbs
+    from aidet_tpu_torch.core.sample import FixedSample
+    from aidet_tpu_torch.core.targets import mask_target
+    crops = []
+    for smp in samples:
+        masks = torch.from_numpy(smp["gt_masks"]).float()[None] / 255.0
+        boxes = torch.from_numpy(smp["gt_boxes"]).float()[None]
+        valid = torch.from_numpy(smp["gt_valid"])[None]
+        g = masks.shape[1]
+        inds = torch.arange(g)[None]
+        sample = FixedSample(inds, valid, valid, inds)
+        crops.append(mask_target(sample, boxes * (masks.shape[-1] / img),
+                                 masks, 28)[0].numpy())
+    t0 = time.perf_counter()
+    obbs = [masks_to_thetaobbs(c, smp["gt_boxes"], smp["gt_valid"], 0.5)
+            for c, smp in zip(crops, samples)]
+    ms = (time.perf_counter() - t0) * 1e3
+    nonempty = sum(int((o[:, 2:4] > 0).any(-1).sum()) for o in obbs)
+    fg = np.concatenate([c[smp["gt_valid"]] > 0.5
+                         for c, smp in zip(crops, samples)])
+    return dict(ms_per_image=ms / len(samples),
+                ms_per_nonempty_mask=ms / max(nonempty, 1),
+                masks=int(sum(smp["gt_valid"].sum() for smp in samples)),
+                nonempty_masks=nonempty,
+                foreground_share=float(fg.mean()) if fg.size else 0.0)
+
+
+def run_centermap_train(device="cuda", small=False, seed=0):
+    """CenterMap-Net's train step (`centermap_model`, the trainer's
+    build: float32 parameters and compute, the config's train_cfg and
+    optimizer, with the train phases' schedule) under `tf32_defaults`, on `centermap_batches`: 1 warm-up
+    step, then ``steps`` timed ones; every loss finite (loss_mask and
+    loss_seg among them), the heads' parameters moved, ms per step, K2's
+    launches (4 forward and 4 backward a step on the card: 7x7 and
+    14x14, each multi-level and on the semantic map; none on the CPU),
+    peak memory, and the pipeline's host ms.  Returns the phase's
+    fields."""
+    import tempfile
+
+    import torch
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    sizes = CENTERMAP_SMALL if small else CENTERMAP
+    on_card = torch.device(device).type == "cuda"
+    with tf32_defaults():
+        net, cfg = centermap_model(device, small, seed, train=True)
+        with tempfile.TemporaryDirectory() as root:
+            batches, host = centermap_batches(cfg, root, sizes, seed)
+        data = [{k: (torch.from_numpy(v).long() if v.dtype.kind == "i"
+                     else torch.from_numpy(v)).to(device)
+                 for k, v in bt.items()} for bt in batches]
+        params = list(net.parameters())
+        before = [p.detach().clone() for p in params]
+        # the config's optimizer is build_optimizer's defaults
+        optimizer = build_optimizer(build_lr_schedule(
+            base_lr=cfg["optimizer"]["lr"]))
+        state = create_train_state(net, optimizer)
+        step = make_train_step(net, optimizer)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data[0], gen)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launch_counts(reset=True)
+        times, steps = [], []
+        for batch in data[1:]:
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            steps.append({k: float(v) for k, v in metrics.items()})
+        launches = launch_counts()
+    n = len(times)
+    bad = [(i, k) for i, m in enumerate(steps) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad or not {"loss_mask", "loss_seg"} <= set(steps[0]):
+        raise AssertionError(f"centermap_train: losses {steps[-1]} "
+                             f"(not finite: {bad})")
+    want = dict.fromkeys(HANDLES, 0)
+    if on_card:
+        want.update(roi_align_train_forward=4 * n, roi_align_backward=4 * n)
+    if launches != want:
+        raise AssertionError(f"centermap_train: launches {launches} in {n} "
+                             f"steps, expected {want}")
+    names = [nm for nm, _ in net.named_parameters()]
+    still = [nm for nm, a, p in zip(names, before, params)
+             if torch.equal(a, p.detach()) and nm.split(".")[0].endswith(
+                 "_head")]
+    if still:
+        raise AssertionError(f"centermap_train: heads did not move: {still}")
+    ms = sum(times) / n
+    return dict(
+        config=CENTERMAP_CONFIG + (" (small architecture)" if small else ""),
+        img=sizes["img"], batch=sizes["batch"], steps=n,
+        objects=sizes["objects"],
+        dtype="float32 parameters and compute (the config names none); "
+        "TF32 in cuDNN's convolutions (PyTorch's default)",
+        losses=steps, first_step_ms=first_ms, step_ms=times,
+        ms_per_step=ms, images_per_s=sizes["batch"] * 1e3 / ms,
+        launches=launches,
+        k2_launches_per_step=dict(
+            forward=launches["roi_align_train_forward"] / n,
+            backward=launches["roi_align_backward"] / n),
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else None),
+        pipeline=host)
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -2080,11 +2590,23 @@ def main() -> int:
           **run_scene_reference())
     phase("scene", model="flagship R50-FPN", card=info["nvidia_smi"],
           **run_scene())
+    runs["loop"] = run_loop()
     phase("loop", model="RBBoxRCNN R50-FPN", card=info["nvidia_smi"],
-          **run_loop())
+          **runs["loop"])
+    for kind in ("centermap", "maskobb"):
+        phase(f"{kind}_reference", **run_mask_reference(kind=kind))
+    runs["centermap_predict"] = run_centermap_predict()
+    phase("centermap_predict", model="CenterMap-Net R101-FPN",
+          card=info["nvidia_smi"], **runs["centermap_predict"])
+    runs["centermap_train"] = run_centermap_train()
+    phase("centermap_train", model="CenterMap-Net R101-FPN",
+          card=info["nvidia_smi"], **runs["centermap_train"])
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=runs[path]["launches"][name], **measured[name])
+        launches=runs[path]["launches"][name],
+        launches_by_path={p: r["launches"][name] for p, r in runs.items()
+                          if "launches" in r},
+        **measured[name])
         for name, source, replaces, path in KERNELS]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -9,7 +9,11 @@ on the CPU (small models, plain versions, no kernel launch) to their
 ends, writes the DOTA eval's CSV export without pandas and matplotlib,
 runs one `train_detector` step and one `run_inference` batch over two
 PNG patches written by `imwrite`, and rehearses chip_smoke's loop
-phase.  pandas and matplotlib may be
+phase; a second subprocess, with the same imports blocked, rehearses
+the mask family's phases (centermap_reference and maskobb_reference
+CPU against CPU, centermap_predict and centermap_train at the small
+architecture: the targets of `TrainPipeline`, the mask-to-OBB fit and
+the losses).  pandas and matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
 tools/torch_train.py, tools/torch_test.py and tools/torch_dota_eval.py.
@@ -106,6 +110,24 @@ print("ISOLATED", len(mods), out["n_valid"], train["params_moved"])
 """
 
 
+RUN_MASK_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] + """
+import chip_smoke
+for kind in ("centermap", "maskobb"):
+    ref = chip_smoke.run_mask_reference(device="cpu", kind=kind)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+    assert "loss_mask" in ref["losses_cpu"], ref
+pred = chip_smoke.run_centermap_predict(device="cpu", small=True)
+assert set(pred["launches"].values()) == {0} and pred["n_valid"] > 0, pred
+assert pred["nonempty_obbs_at_median_thr"] > 0, pred
+train = chip_smoke.run_centermap_train(device="cpu", small=True)
+assert set(train["launches"].values()) == {0}, train
+assert {"loss_mask", "loss_seg"} <= set(train["losses"][0]), train
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("MASK PHASES", pred["n_valid"], len(train["losses"]))
+"""
+
+
 def _env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -120,6 +142,14 @@ def test_port_runs_with_reference_imports_blocked():
     line = proc.stdout.strip().splitlines()[-1].split()
     assert line[0] == "ISOLATED" and int(line[1]) >= 15, proc.stdout
     assert int(line[3]) > 0, proc.stdout
+
+
+def test_mask_phases_run_with_reference_imports_blocked():
+    proc = subprocess.run([sys.executable, "-c", RUN_MASK_PHASES], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("MASK PHASES")
 
 
 def _imports(path):

@@ -7,13 +7,13 @@ tools/dota/dota_eval.py).
 
 RESULTS.pkl is tools/torch_test.py's (or tools/test.py's) ``--out``:
 {"results": per-patch dicts, "names": patch file names}.  The patch
-detections (obb: the rboxes' quads through the port's codecs; hbb: the
-boxes) are merged into scenes and scored with the VOC-07 DOTA AP
+detections (obb: the rboxes' quads through the port's codecs, or the
+min-area rectangles of the mask family's masks, `core.masks.mask_quads`;
+hbb: the boxes) are merged into scenes and scored with the VOC-07 DOTA AP
 against the scene-level ground truth json {scene: {boxes, labels,
 difficult}}; each class's AP and the mAP are printed, and ``--export``
-writes them as CSV.  Labels may be int32 or int64.  Results of the mask
-family (the reference's ``masks`` branch) are not yet ported.  It runs
-on the host alone.
+writes them as CSV.  Labels may be int32 or int64.  It runs on the host
+alone.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ def main():
 
     from aidet_tpu_torch.core.eval.class_names import DOTA_CLASSES
     from aidet_tpu_torch.core.eval.dota import dota_eval, export_dota_results
+    from aidet_tpu_torch.core.masks import mask_quads
     from aidet_tpu_torch.data.dota import merge_patches_to_scenes
     from aidet_tpu_torch.data.np_rboxes import rbox_quads
 
@@ -55,9 +56,7 @@ def main():
         if args.task == "obb" and "rboxes" in r:
             boxes = rbox_quads(np.asarray(r["rboxes"]), args.encode)
         elif args.task == "obb" and "masks" in r:
-            raise NotImplementedError(
-                "mask results (min-area rectangles of the predicted masks) "
-                "are not yet ported to aidet_tpu_torch")
+            boxes = mask_quads(r["masks"], r["boxes"], r["valid"])
         else:
             boxes = np.asarray(r["boxes"])
         dets.append(dict(boxes=boxes, scores=r["scores"],

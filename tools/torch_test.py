@@ -11,8 +11,10 @@ checkpoint directory of tools/torch_train.py: its latest model_N; or a
 saved state_dict), runs `apis.test.run_inference` over the config's
 ``data.test`` at ``--batch-size`` through its ``test_pipeline``, saves
 {"results", "names"} to ``--out``, then merges each ``--eval`` task's
-patch detections into scenes (obb: the rboxes' quads; hbb: the boxes)
-and writes DOTA submission txt under ``--submit-dir/<task>``.  It runs
+patch detections into scenes (obb: the rboxes' quads, or for the mask
+family (MaskOBB, CenterMapOBB, CenterMap-Net) the min-area rectangles
+of the predicted masks, `core.masks.mask_quads`; hbb: the boxes) and
+writes DOTA submission txt under ``--submit-dir/<task>``.  It runs
 on the CUDA card unless ``--device cpu``, and raises when there is
 none.  The reference's ``--tta`` (apis/tta.py), ``--precompile`` and
 ``--n-devices`` are not ported.
@@ -52,6 +54,7 @@ def main():
                          "cpu to test on the CPU")
     from aidet_tpu_torch.apis.inference import init_detector
     from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.core.masks import mask_quads
     from aidet_tpu_torch.data.builder import build_dataset
     from aidet_tpu_torch.data.np_rboxes import rbox_quads
     from aidet_tpu_torch.utils.logging import get_root_logger
@@ -72,12 +75,16 @@ def main():
         # a refinement head's predict returns refined thetaobbs whatever
         # the first stage's encode
         encode = ("thetaobb" if model.rbbox_refine_head is not None
-                  else model.rbbox_head.encode)
+                  else getattr(model.rbbox_head, "encode", None))
         for task in args.eval:
             dets = []
             for r in results:
-                boxes = (rbox_quads(np.asarray(r["rboxes"]), encode)
-                         if task == "obb" else np.asarray(r["boxes"]))
+                if task == "obb" and "rboxes" in r:
+                    boxes = rbox_quads(np.asarray(r["rboxes"]), encode)
+                elif task == "obb" and "masks" in r:
+                    boxes = mask_quads(r["masks"], r["boxes"], r["valid"])
+                else:
+                    boxes = np.asarray(r["boxes"])
                 dets.append(dict(boxes=boxes, scores=r["scores"],
                                  labels=r["labels"], valid=r["valid"]))
             merged = dataset.merge_patches_to_scenes(dets, names, task=task)
