@@ -18,7 +18,10 @@ of the mapping in the reference's `tools/torch2jax.py`:
 - top-level modules _backbone / _neck / _rpn / _bbox_head / _rbbox_head
   / _rbbox_refine_head / _mask_head / _semantic_head -> backbone / neck
   / rpn_head / bbox_head / rbbox_head / rbbox_refine_head / mask_head /
-  semantic_head; the inner names are the same on both sides.
+  semantic_head, and a single-stage detector's dense head _head ->
+  bbox_head; the inner names are the same on both sides (RetinaHead's
+  cls_conv{i}, reg_conv{i}, retina_cls, retina_reg; FPN's lateral{i},
+  fpn{i} over the used levels and extra{i}).
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
@@ -41,7 +44,8 @@ import torch
 TOP_LEVEL = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn_head",
              "_bbox_head": "bbox_head", "_rbbox_head": "rbbox_head",
              "_rbbox_refine_head": "rbbox_refine_head",
-             "_mask_head": "mask_head", "_semantic_head": "semantic_head"}
+             "_mask_head": "mask_head", "_semantic_head": "semantic_head",
+             "_head": "bbox_head"}
 # the flax ConvTranspose layers of the ported modules, by name
 CONV_TRANSPOSE = {"upsample"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",

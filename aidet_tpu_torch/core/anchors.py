@@ -1,7 +1,10 @@
-"""Grid anchors with mmdet-v1 semantics, and the RPN's anchor targets.
+"""Grid anchors with mmdet-v1 semantics, and the dense heads' anchor
+targets.
 
 Port of `AnchorGenerator`, `build_pyramid_anchors`, `AnchorTargets`
-and `anchor_target` from `aidet_tpu/core/anchors.py`.  The anchors of one level are ordered
+and `anchor_target` from `aidet_tpu/core/anchors.py`: the RPN's
+(random sampling) and the single-stage heads' (every anchor weighed,
+box or rotated-codec regression targets).  The anchors of one level are ordered
 row-major over the grid with the anchor index fastest, i.e. the
 (h, w, anchor) order of an NHWC head output flattened by
 `models.heads.anchor_head.flatten_level_outputs`.
@@ -16,7 +19,8 @@ import torch
 
 from .assign import max_iou_assign
 from .boxes import bbox2delta
-from .sample import random_sample_masks
+from .rboxes import RBBOX_CODECS
+from .sample import pseudo_sample_masks, random_sample_masks
 
 
 class AnchorGenerator:
@@ -59,16 +63,16 @@ class AnchorGenerator:
 
 def build_pyramid_anchors(img_size: int, strides: Sequence[int],
                           scales=(8,), ratios=(0.5, 1.0, 2.0),
-                          device="cpu"):
+                          device="cpu", base_sizes=None):
     """Flat anchors for all pyramid levels of a square input, with
-    base size = stride per level.
+    base size ``base_sizes`` per level (default: the stride).
 
     Returns (anchors [A_total, 4] float32 tensor on ``device``,
     per-level anchor counts).
     """
     anchors, sizes = [], []
-    for stride in strides:
-        gen = AnchorGenerator(stride, scales, ratios)
+    for stride, base in zip(strides, base_sizes or strides):
+        gen = AnchorGenerator(base, scales, ratios)
         fs = img_size // stride
         a = gen.grid_anchors((fs, fs), stride)
         anchors.append(a)
@@ -81,8 +85,8 @@ class AnchorTargets(NamedTuple):
     """Anchor targets of a batch, [B, A, ...]."""
     labels: torch.Tensor         # [B, A] int32 (0 = bg, 1..C = fg class)
     label_weights: torch.Tensor  # [B, A]
-    bbox_targets: torch.Tensor   # [B, A, 4]
-    bbox_weights: torch.Tensor   # [B, A, 4]
+    bbox_targets: torch.Tensor   # [B, A, D] (D = 4, or the codec's)
+    bbox_weights: torch.Tensor   # [B, A, D]
     num_total_pos: torch.Tensor  # scalar
     num_total_neg: torch.Tensor  # scalar
 
@@ -93,14 +97,22 @@ def anchor_target(anchors, gt_boxes, gt_valid, img_shapes,
                   target_stds=(1., 1., 1., 1.), allowed_border=0.0,
                   pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3,
                   num_samples=256, pos_fraction=0.5, neg_pos_ub=-1.0,
-                  pos_weight=-1.0) -> AnchorTargets:
-    """Anchor targets of RPN-style heads: the inside-border filter
-    (when allowed_border >= 0), MaxIoU assignment, random sampling,
-    delta regression targets on the sampled positives, and per-image
+                  pos_weight=-1.0, sampling=True, gt_rboxes=None,
+                  rbox_encode=None) -> AnchorTargets:
+    """Anchor targets of dense heads: the inside-border filter (when
+    allowed_border >= 0), MaxIoU assignment, random sampling (or with
+    ``sampling=False`` every positive and negative anchor, the
+    single-stage heads'; ``generator`` is then not drawn from), delta
+    regression targets on the sampled positives, and per-image
     max(count, 1) totals.
 
     anchors [A, 4]; gt_boxes [B, G, 4]; gt_valid [B, G]; img_shapes
     [B, 2] (h, w); gt_labels [B, G] 1-based, or None for a binary RPN.
+    gt_rboxes [B, G, D] with ``rbox_encode`` (a codec of
+    `RBBOX_CODECS`): the rotated single-stage heads' targets, the
+    codec's deltas of the matched gt rbox against the axis-aligned
+    anchor (the assignment still uses the gt boxes); target_means and
+    target_stds then have the codec's width.
     """
     b = gt_boxes.shape[0]
     if allowed_border >= 0:
@@ -117,12 +129,24 @@ def anchor_target(anchors, gt_boxes, gt_valid, img_shapes,
     res = max_iou_assign(batch_anchors, gt_boxes, gt_valid, gt_labels,
                          pos_iou_thr=pos_iou_thr, neg_iou_thr=neg_iou_thr,
                          min_pos_iou=min_pos_iou, box_valid=inside)
-    sm = random_sample_masks(res.gt_inds, num_samples, pos_fraction,
-                             generator, neg_pos_ub)
+    if sampling:
+        sm = random_sample_masks(res.gt_inds, num_samples, pos_fraction,
+                                 generator, neg_pos_ub)
+    else:
+        sm = pseudo_sample_masks(res.gt_inds)
 
     safe_gt = (res.gt_inds.long() - 1).clamp(0, gt_boxes.shape[1] - 1)
-    matched = torch.gather(gt_boxes, 1, safe_gt[..., None].expand(-1, -1, 4))
-    deltas = bbox2delta(batch_anchors, matched, target_means, target_stds)
+    if rbox_encode is not None:
+        d = gt_rboxes.shape[-1]
+        matched = torch.gather(gt_rboxes, 1,
+                               safe_gt[..., None].expand(-1, -1, d))
+        deltas = RBBOX_CODECS[rbox_encode][1](batch_anchors, matched,
+                                              target_means, target_stds)
+    else:
+        matched = torch.gather(gt_boxes, 1,
+                               safe_gt[..., None].expand(-1, -1, 4))
+        deltas = bbox2delta(batch_anchors, matched, target_means,
+                            target_stds)
     posf = sm.pos.float()
     pw = 1.0 if pos_weight <= 0 else pos_weight
     return AnchorTargets(

@@ -1,15 +1,20 @@
 """Oriented box codecs.
 
-Port of the thetaobb, pointobb and rtheta parts of
-`aidet_tpu/core/rboxes.py`: thetaobb2pointobb, pointobb2thetaobb, and
-the delta codecs thetaobb2delta / delta2thetaobb, pointobb2delta /
-delta2pointobb (HBB proposals) and rtheta2delta / delta2rtheta
-(rotated proposals, the refinement stage of RBBoxRCNNRRoI).  A thetaobb
-is (cx, cy, w, h, theta) with theta in radians in [-pi/2, 0) (the
-legacy cv2.minAreaRect convention); a pointobb its 4 corners [..., 8].
-The HBB codecs measure proposals with the legacy +1 width/height, and
-thetaobb encode adds +1 to the gt w/h, so a decode of an encode returns
-w+1 / h+1 by design.
+Port of `aidet_tpu/core/rboxes.py`'s conversions (thetaobb2pointobb,
+pointobb2thetaobb, pointobb2bbox, pointobb_best_point_sort, the hobb
+family: thetaobb2hobb, hobb2pointobb, hobb2thetaobb, pointobb2hobb,
+hobb_rolls, pointobb_flip, hobb_flip, hobb_rescale) and its delta
+codecs thetaobb2delta / delta2thetaobb, pointobb2delta /
+delta2pointobb, hobb2delta / delta2hobb (HBB proposals) and
+rtheta2delta / delta2rtheta (rotated proposals, the refinement stage
+of RBBoxRCNNRRoI).  A thetaobb is (cx, cy, w, h, theta) with theta in
+radians in [-pi/2, 0) (the legacy cv2.minAreaRect convention); a
+pointobb its 4 corners [..., 8]; a hobb (x1, y1, x2, y2, h) its first
+edge, after the best-point sort, and the distance from the first
+corner to the fourth.  The HBB codecs measure proposals with the
+legacy +1 width/height, and thetaobb encode adds +1 to the gt w/h (hobb
+encode to the gt h), so a decode of an encode returns w+1 / h+1 by
+design.
 """
 
 from __future__ import annotations
@@ -76,6 +81,92 @@ def pointobb2thetaobb(pointobb: torch.Tensor) -> torch.Tensor:
     cx = uc * ct - vc * st
     cy = uc * st + vc * ct
     return torch.stack([cx, cy, w, h, theta], dim=-1)
+
+
+def pointobb2bbox(pointobb: torch.Tensor) -> torch.Tensor:
+    """4 corners [..., 8] -> their axis-aligned hull [..., 4]."""
+    xs, ys = pointobb[..., 0::2], pointobb[..., 1::2]
+    return torch.stack([xs.amin(-1), ys.amin(-1), xs.amax(-1),
+                        ys.amax(-1)], dim=-1)
+
+
+def pointobb_best_point_sort(pointobb: torch.Tensor) -> torch.Tensor:
+    """The cyclic roll of the corners [..., 8] nearest (in summed
+    squared distance) to the axis-aligned hull's (tl, tr, br, bl); the
+    first of equally near rolls wins, as the reference's argmin."""
+    xmin, ymin, xmax, ymax = pointobb2bbox(pointobb).unbind(-1)
+    ref = torch.stack([xmin, ymin, xmax, ymin, xmax, ymax, xmin, ymax],
+                      dim=-1)
+    rolls = torch.stack([torch.roll(pointobb, 2 * s, dims=-1)
+                         for s in range(4)], dim=-2)        # [..., 4, 8]
+    best = ((rolls - ref[..., None, :]) ** 2).sum(-1).argmin(-1)
+    return torch.gather(rolls, -2, best[..., None, None].expand(
+        best.shape + (1, 8)))[..., 0, :]
+
+
+def _first_edge(p):
+    """A best-sorted pointobb [..., 8] as a hobb: its first edge and the
+    distance from corner 1 to corner 4."""
+    h = torch.sqrt((p[..., 6] - p[..., 0]) ** 2 + (p[..., 7] - p[..., 1]) ** 2)
+    return torch.stack([p[..., 0], p[..., 1], p[..., 2], p[..., 3], h], -1)
+
+
+def thetaobb2hobb(thetaobb: torch.Tensor) -> torch.Tensor:
+    """(cx, cy, w, h, theta) -> (x1, y1, x2, y2, h)."""
+    return _first_edge(pointobb_best_point_sort(thetaobb2pointobb(thetaobb)))
+
+
+def hobb2pointobb(hobb: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2, h) -> 4 corners: the fourth lies h from the
+    first, perpendicular to the first edge (the reference's, without
+    its source's int() of the output).  Degenerate where the first two
+    corners coincide."""
+    x1, y1, x2, y2, h = hobb.unbind(-1)
+    ang = HALF_PI - torch.atan2(y2 - y1, x2 - x1)
+    dx = h * torch.cos(ang)
+    dy = h * torch.sin(ang)
+    return torch.stack([x1, y1, x2, y2, x2 - dx, y2 + dy, x1 - dx, y1 + dy],
+                       dim=-1)
+
+
+def hobb2thetaobb(hobb: torch.Tensor) -> torch.Tensor:
+    return pointobb2thetaobb(hobb2pointobb(hobb))
+
+
+def pointobb2hobb(pointobb: torch.Tensor) -> torch.Tensor:
+    return thetaobb2hobb(pointobb2thetaobb(pointobb))
+
+
+def hobb_rolls(hobb: torch.Tensor) -> torch.Tensor:
+    """The 4 cyclic first-edge representations of each hobb [..., 5] ->
+    [..., 4, 5], slot 0 the input itself.  All decode to the same
+    rectangle, so a sort-robust loss may regress to the nearest."""
+    p = hobb2pointobb(hobb)
+    rolls = torch.stack([torch.roll(p, -2 * s, dims=-1) for s in range(4)],
+                        dim=-2)                             # [..., 4, 8]
+    return _first_edge(rolls)
+
+
+def pointobb_flip(pointobb: torch.Tensor, img_shape) -> torch.Tensor:
+    """Horizontal flip in an image of ``img_shape`` (h, w): x mirrored
+    to w - x - 1, corners 2 and 4 swapped to keep the winding, then the
+    best-point sort."""
+    p = pointobb.reshape(pointobb.shape[:-1] + (4, 2))
+    p = torch.stack([img_shape[1] - p[..., 0] - 1, p[..., 1]], dim=-1)
+    p = p[..., [0, 3, 2, 1], :].reshape(pointobb.shape)
+    return pointobb_best_point_sort(p)
+
+
+def hobb_flip(hobb: torch.Tensor, img_shape) -> torch.Tensor:
+    """Horizontal flip of hobbs through their corners."""
+    return thetaobb2hobb(pointobb2thetaobb(pointobb_flip(
+        hobb2pointobb(hobb), img_shape)))
+
+
+def hobb_rescale(hobb: torch.Tensor, scale_factor, reverse=False):
+    """Every hobb coordinate, h included, times the scale factor (over
+    it with ``reverse``)."""
+    return hobb * (1.0 / scale_factor if reverse else scale_factor)
 
 
 def _proposal_geometry(proposals):
@@ -156,6 +247,35 @@ def delta2pointobb(rois, deltas, means=(0.,) * 8, stds=(1.,) * 8,
     return (d * denom[..., None, :] + corners[..., None, :]).reshape(shape)
 
 
+def hobb2delta(proposals, gt, means=(0.,) * 5, stds=(1.,) * 5):
+    """Encode hobb gt [..., 5] against HBB proposals [..., 4]: the
+    first edge's ends as offsets from the proposal's top-left (x1, y1)
+    and top-right (x2, y1) corners over its w / h, and the gt's h + 1
+    relative to the proposal's h."""
+    _, _, pw, ph = _proposal_geometry(proposals)
+    px1, py1, px2 = proposals[..., 0], proposals[..., 1], proposals[..., 2]
+    deltas = torch.stack([(gt[..., 0] - px1) / pw, (gt[..., 1] - py1) / ph,
+                          (gt[..., 2] - px2) / pw, (gt[..., 3] - py1) / ph,
+                          (gt[..., 4] + 1.0 - ph) / ph], dim=-1)
+    return _normalize(deltas, means, stds)
+
+
+def delta2hobb(rois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
+               wh_ratio_clip=16.0 / 1000.0):
+    """Decode deltas [..., 5*K] onto HBB rois [..., 4]: hobbs [..., 5*K],
+    the h delta clipped to |log(wh_ratio_clip)|."""
+    shape = deltas.shape
+    dx1, dy1, dx2, dy2, dh = _denormalize_grouped(deltas, means, stds,
+                                                  5).unbind(-1)
+    max_ratio = abs(math.log(wh_ratio_clip))
+    dh = dh.clamp(-max_ratio, max_ratio)
+    _, _, pw, ph = (v[..., None] for v in _proposal_geometry(rois))
+    px1, py1, px2 = (rois[..., i][..., None] for i in range(3))
+    return torch.stack([pw * dx1 + px1, ph * dy1 + py1, pw * dx2 + px2,
+                        ph * dy2 + py1, ph * dh + ph],
+                       dim=-1).reshape(shape)
+
+
 def rtheta2delta(rrois, gt, means=(0.,) * 5, stds=(1.,) * 5):
     """Encode thetaobb gt [..., 5] against rotated proposals [..., 5]:
     centre offsets rotated into the proposal's frame over its (w, h),
@@ -194,8 +314,14 @@ def delta2rtheta(rrois, deltas, means=(0.,) * 5, stds=(1.,) * 5,
                        dim=-1).reshape(shape)
 
 
-# the ported codecs (the reference's RBBOX_CODECS): name -> (regression
-# dims, encode, decode); hobb is not ported
-RBBOX_CODECS = {"thetaobb": (5, thetaobb2delta, delta2thetaobb),
-                "pointobb": (8, pointobb2delta, delta2pointobb),
-                "rtheta": (5, rtheta2delta, delta2rtheta)}
+def _same(x):
+    return x
+
+
+# the reference's RBBOX_CODECS: name -> (regression dims, encode,
+# decode, to the 4 corners); rtheta encodes against rotated proposals
+RBBOX_CODECS = {
+    "thetaobb": (5, thetaobb2delta, delta2thetaobb, thetaobb2pointobb),
+    "pointobb": (8, pointobb2delta, delta2pointobb, _same),
+    "hobb": (5, hobb2delta, delta2hobb, hobb2pointobb),
+    "rtheta": (5, rtheta2delta, delta2rtheta, thetaobb2pointobb)}

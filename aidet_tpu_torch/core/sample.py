@@ -1,7 +1,8 @@
 """Fixed-size random sampling over padded candidate sets.
 
-Port of `random_topk_mask`, `random_sample_masks`, `FixedSample` and
-`sample_fixed` from `aidet_tpu/core/sample.py`.  Anchor heads get
+Port of `random_topk_mask`, `random_sample_masks`,
+`pseudo_sample_masks`, `FixedSample` and `sample_fixed` from
+`aidet_tpu/core/sample.py`.  Anchor heads get
 boolean masks, RoI heads fixed-length index arrays with validity
 masks, so shapes stay fixed.  Leading batch dimensions are written out
 ([..., N]).
@@ -70,6 +71,15 @@ def random_sample_masks(assigned, num: int, pos_fraction: float,
     neg = random_topk_mask(assigned == 0,
                            _num_neg(num, num_pos, neg_pos_ub), generator)
     return SampleMasks(pos, neg, num_pos, neg.sum(-1))
+
+
+def pseudo_sample_masks(assigned) -> SampleMasks:
+    """Every positive (assigned > 0) and every negative (assigned == 0)
+    of ``assigned`` [..., N], as the reference's PseudoSampler: the
+    single-stage heads weigh all anchors."""
+    pos = assigned > 0
+    neg = assigned == 0
+    return SampleMasks(pos, neg, pos.sum(-1), neg.sum(-1))
 
 
 class FixedSample(NamedTuple):

@@ -1,6 +1,6 @@
 """Second-stage (RoI head) targets over fixed-size samples.
 
-Port of `bbox_target`, `rbbox_target` (thetaobb, pointobb) and
+Port of `bbox_target`, `rbbox_target` (thetaobb, pointobb, hobb) and
 `mask_target` from `aidet_tpu/core/targets.py`, over a batch: the
 sample's fields are [B, R], the rois [B, R, 4] and the gts
 [B, G, ...].
@@ -56,16 +56,15 @@ def rbbox_target(sample: FixedSample, rois, gt_rboxes, gt_labels,
                  encode="thetaobb", target_means=None, target_stds=None,
                  pos_weight=-1.0) -> RoiTargets:
     """Rotated-box delta targets against the gt rboxes [B, G, D] in
-    the ``encode`` format (thetaobb or pointobb; hobb is not
-    ported)."""
+    the ``encode`` format (thetaobb, pointobb or hobb)."""
     if encode == "rtheta":
         raise ValueError(
             "rbbox_target encodes against HBB rois; the 'rtheta' codec "
             "needs rotated proposals (rtheta2delta)")
     if encode not in RBBOX_CODECS:
-        raise NotImplementedError(f"rbbox encode {encode!r} is not "
-                                  "ported; thetaobb and pointobb are")
-    dim, encode_fn, _ = RBBOX_CODECS[encode]
+        raise ValueError(f"rbbox encode {encode!r}: one of "
+                         f"{sorted(RBBOX_CODECS)}")
+    dim, encode_fn, _, _ = RBBOX_CODECS[encode]
     means = target_means or (0.,) * dim
     stds = target_stds or (1.,) * dim
     return _targets(sample, gt_rboxes, gt_labels,

@@ -93,16 +93,29 @@ def thetaobb2pointobb(thetaobb: np.ndarray) -> np.ndarray:
                      2 * cx - x1, 2 * cy - y1], axis=-1)
 
 
+def hobb2pointobb(hobb: np.ndarray) -> np.ndarray:
+    """(x1, y1, x2, y2, h) [..., 5] -> 4 corners [..., 8]: the fourth
+    corner h from the first, perpendicular to the first edge (numpy
+    twin of core/rboxes.hobb2pointobb)."""
+    x1, y1, x2, y2, h = (hobb[..., i] for i in range(5))
+    ang = np.pi / 2 - np.arctan2(y2 - y1, x2 - x1)
+    dx, dy = h * np.cos(ang), h * np.sin(ang)
+    return np.stack([x1, y1, x2, y2, x2 - dx, y2 + dy, x1 - dx, y1 + dy],
+                    axis=-1)
+
+
 def rbox_quads(rboxes: np.ndarray, encode: str) -> np.ndarray:
     """Rboxes of a head's ``encode`` as quads [..., 8] (the quad codec
     of the reference's `RBBOX_CODECS`): thetaobbs through their corners,
-    pointobbs as they are."""
+    hobbs through their first edge and height, pointobbs as they
+    are."""
     if encode == "thetaobb":
         return thetaobb2pointobb(rboxes)
+    if encode == "hobb":
+        return hobb2pointobb(rboxes)
     if encode == "pointobb":
         return rboxes
-    raise NotImplementedError(f"rbox encode {encode!r} as quads is not yet "
-                              "ported to aidet_tpu_torch")
+    raise ValueError(f"rbox encode {encode!r}: thetaobb, hobb or pointobb")
 
 
 def thetaobb2hobb(thetaobb: np.ndarray) -> np.ndarray:

@@ -11,11 +11,13 @@ has no OpenCV, so the port computes the same functions in numpy:
   then the scanline fill of `FillEdgeCollection` over the edges in
   16-bit fixed point (truncating division as C++'s), each row filled
   from the first pixel at or right of the left edge to the last at or
-  left of the right edge.  Polygons inside the image fill OpenCV's
-  pixels exactly; where a polygon leaves the image OpenCV clips its
-  edges first and a few border-row pixels may differ
-  (tests/test_torch_port_mask_targets.py holds both to OpenCV 5.0 and
-  states the bound).
+  left of the right edge.  An edge that leaves the image is rebuilt
+  from its clipped end points as `CollectPolyEdges` does (`_edges`),
+  so polygons across the border fill OpenCV's pixels too
+  (tests/test_torch_port_mask_targets.py holds the fill to OpenCV 5.0
+  exactly: polygons inside the image, and seeded rotated rectangles
+  and random polygons that leave it, with centres inside or outside
+  the image).
 - `perspective_transform`: `cv2.getPerspectiveTransform`, the 8x8
   linear system of the four point pairs solved in float64.
 - `warp_perspective`: `cv2.warpPerspective` with INTER_LINEAR and a
@@ -109,16 +111,34 @@ def _line(img, p1, p2, value):
 def _edges(img, pts, value):
     """The edges of OpenCV's `CollectPolyEdges` (shift 0, no offset,
     8-connected): draws each edge's line and returns the non-horizontal
-    edges as [y0, y1, x (16.16 fixed point at y0), dx per row]."""
+    edges as [y0, y1, x (16.16 fixed point at y0), dx per row].
+
+    An edge with an end point outside the image takes its x from the
+    end points `clip_line` returns, and their y too where those differ
+    (else its own y, so a clip to one point makes the edge vertical);
+    it keeps its own y range, and its x at its first row is
+    extrapolated from the clipped point along the slope of the two."""
+    h, w = img.shape[:2]
     edges = []
     n = len(pts)
-    x0, y0 = int(pts[n - 1][0]) << XY_SHIFT, int(pts[n - 1][1])
+    x0, y0 = int(pts[n - 1][0]), int(pts[n - 1][1])
     for i in range(n):
-        x1, y1 = int(pts[i][0]) << XY_SHIFT, int(pts[i][1])
-        _line(img, (x0 >> XY_SHIFT, y0), (x1 >> XY_SHIFT, y1), value)
+        x1, y1 = int(pts[i][0]), int(pts[i][1])
+        _line(img, (x0, y0), (x1, y1), value)
         if y0 != y1:
-            edx = _tdiv(x1 - x0, y1 - y0)
-            edges.append([y0, y1, x0, edx] if y0 < y1 else [y1, y0, x1, edx])
+            c0, c1 = (x0, y0), (x1, y1)
+            if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
+                    and 0 <= y1 < h):
+                _, t0, t1 = clip_line(w, h, c0, c1)
+                c0, c1 = ((t0, t1) if t0[1] != t1[1]
+                          else ((t0[0], y0), (t1[0], y1)))
+            edx = _tdiv((c1[0] - c0[0]) << XY_SHIFT, c1[1] - c0[1])
+            if y0 < y1:
+                edges.append([y0, y1, (c0[0] << XY_SHIFT)
+                              + (y0 - c0[1]) * edx, edx])
+            else:
+                edges.append([y1, y0, (c1[0] << XY_SHIFT)
+                              + (y1 - c1[1]) * edx, edx])
         x0, y0 = x1, y1
     return edges
 

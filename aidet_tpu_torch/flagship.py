@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core.rboxes import thetaobb2pointobb
+from .core.rboxes import thetaobb2hobb, thetaobb2pointobb
 from .models.backbones.resnet import ResNet
 from .models.detectors.two_stage import TwoStageDetector, _merge
 from .models.heads.bbox_head import RBBoxHead, SharedFCBBoxHead
@@ -46,7 +46,8 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     """Conv, transposed-conv and linear weights ~ N(0, 1 / fan_in) (a
     LeCun-normal draw, as the reference's default initializer; a
     transposed conv's [in, out, kh, kw] weight has fan_in in * kh * kw,
-    as flax counts it), biases 0; frozen-BN statistics stay the
+    as flax counts it), biases 0, then each module's ``init_prior``
+    (RetinaHead's classification prior); frozen-BN statistics stay the
     identity."""
     with torch.no_grad():
         for m in model.modules():
@@ -58,6 +59,9 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                 m.weight.copy_(w / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
+        for m in model.modules():
+            if hasattr(m, "init_prior"):
+                m.init_prior()
     return model
 
 
@@ -149,7 +153,8 @@ def synthetic_train_batch(batch, img, max_gt, seed, device,
     reference bench's (bench.py measure_train): normalized float images
     and ``max_gt`` valid gts per image, boxes of 1/64 to 5/32 of the
     image with matching rotated boxes in the rbbox head's ``encode``
-    (thetaobbs, or their corners for "pointobb"), labels 1..15."""
+    (thetaobbs, their corners for "pointobb", their first edges and
+    heights for "hobb"), labels 1..15."""
     rs = np.random.RandomState(seed)
     xy = rs.uniform(img / 32, img * 0.8, (batch, max_gt, 2))
     wh = rs.uniform(img / 64, img * 5 / 32, (batch, max_gt, 2))
@@ -167,6 +172,8 @@ def synthetic_train_batch(batch, img, max_gt, seed, device,
         out[k] = (t.float() if t.is_floating_point() else t).to(device)
     if encode == "pointobb":
         out["gt_rboxes"] = thetaobb2pointobb(out["gt_rboxes"])
+    elif encode == "hobb":
+        out["gt_rboxes"] = thetaobb2hobb(out["gt_rboxes"])
     elif encode != "thetaobb":
-        raise ValueError(f"encode {encode!r}: thetaobb or pointobb")
+        raise ValueError(f"encode {encode!r}: thetaobb, pointobb or hobb")
     return out

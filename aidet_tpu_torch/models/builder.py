@@ -27,11 +27,14 @@ import torch
 from ..flagship import finish
 from ..utils.registry import build_from_cfg
 from .backbones.resnet import ARCH_SETTINGS, ResNet
+from .detectors.single_stage import SingleStageDetector
 from .detectors.two_stage import TwoStageDetector
 from .heads.bbox_head import RBBoxHead, SharedFCBBoxHead
 from .heads.mask_head import CenterMapHead, FCNMaskHead
+from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .heads.semantic_head import WPSGAHead
+from .losses import FocalLoss, SmoothL1Loss
 from .necks.fpn import FPN
 from .registry import BACKBONES, DETECTORS, HEADS, NECKS
 
@@ -93,13 +96,15 @@ def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
 
 @NECKS.register(name="FPN")
 def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
+         start_level=0, end_level=-1, add_extra_convs=False,
+         extra_convs_on_inputs=True, relu_before_extra_convs=False,
          dtype=None, **options):
-    _only_defaults("FPN", options, dict(
-        start_level=0, end_level=-1, add_extra_convs=False,
-        extra_convs_on_inputs=True, relu_before_extra_convs=False,
-        norm_cfg=None))
+    _only_defaults("FPN", options, dict(norm_cfg=None))
     return FPN(in_channels=tuple(in_channels), out_channels=out_channels,
-               num_outs=num_outs)
+               num_outs=num_outs, start_level=start_level,
+               end_level=end_level, add_extra_convs=add_extra_convs,
+               extra_convs_on_inputs=extra_convs_on_inputs,
+               relu_before_extra_convs=relu_before_extra_convs)
 
 
 @HEADS.register(name="RPNHead")
@@ -165,6 +170,17 @@ def _wpsga_head(in_channels=256, channels=128, num_levels=4, num_classes=16,
                      use_focal=use_focal, focal_gamma=focal_gamma)
 
 
+@HEADS.register(name="RetinaHead")
+def _retina_head(num_classes=16, in_channels=256, feat_channels=256,
+                 stacked_convs=4, num_anchors=9, prior_prob=0.01, reg_dim=4,
+                 dtype=None, **options):
+    _only_defaults("RetinaHead", options, {})
+    return RetinaHead(num_classes=num_classes, in_channels=in_channels,
+                      feat_channels=feat_channels,
+                      stacked_convs=stacked_convs, num_anchors=num_anchors,
+                      prior_prob=prior_prob, reg_dim=reg_dim)
+
+
 # the reference TwoStageDetector's fields that the port's detector
 # implements only at their defaults (roi_align_impl picks among
 # implementations of one function: the port has its own)
@@ -172,14 +188,23 @@ DETECTOR_DEFAULTS = dict(
     shared_head=None, mask_iou_head=None, grid_head=None,
     grid_roi_size=14, semantic_fusion="add", semantic_level=0,
     strides=TwoStageDetector.strides, anchor_scales=(8,),
-    anchor_ratios=(0.5, 1.0, 2.0), hobb_robust_loss=False,
+    anchor_ratios=(0.5, 1.0, 2.0),
     ga_target_stds=(0.07, 0.07, 0.14, 0.14), ga_loc_filter_thr=0.01,
     img_norm=None)
 
 
-def _sub_dtypes(cfgs):
-    return {torch_dtype(c["dtype"]) for c in cfgs
+def _compute_dtype(type_name, dtype, cfgs: dict):
+    """The detector's dtype, else its sub-modules' (they must agree),
+    else float32."""
+    dtype = torch_dtype(dtype)
+    if dtype is not None:
+        return dtype
+    subs = {torch_dtype(c["dtype"]) for c in cfgs.values()
             if c and c.get("dtype") is not None}
+    if len(subs) > 1:
+        raise NotImplementedError(f"{type_name}: sub-modules in several "
+                                  f"dtypes {subs} are {NOT_PORTED}")
+    return subs.pop() if subs else torch.float32
 
 
 def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
@@ -187,7 +212,7 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
                mask_head=None, semantic_head=None, mask_loss_type="bce",
                train_cfg=None, test_cfg=None, img_size=1024,
                rbbox_encode="thetaobb", roi_align_impl="auto", dtype=None,
-               **options):
+               hobb_robust_loss=False, **options):
     """A `TwoStageDetector` from the reference's detector keywords, with
     its defaults for the sub-modules a config leaves out
     (two_stage.py:126-177); its ``compute_dtype`` is the config's
@@ -216,14 +241,7 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
         cfgs["rbbox_refine_head"] = dict(rbbox_refine_head)
         cfgs["rbbox_refine_head"].setdefault("type", "RBBoxHead")
         cfgs["rbbox_refine_head"].setdefault("encode", "rtheta")
-    dtype = torch_dtype(dtype)
-    if dtype is None:
-        subs = _sub_dtypes(cfgs.values())
-        if len(subs) > 1:
-            raise NotImplementedError(f"{type_name}: sub-modules in "
-                                      f"several dtypes {subs} are "
-                                      f"{NOT_PORTED}")
-        dtype = subs.pop() if subs else torch.float32
+    dtype = _compute_dtype(type_name, dtype, cfgs)
     mods = {k: build_backbone(c) if k == "backbone"
             else build_neck(c) if k == "neck" else build_head(c)
             for k, c in cfgs.items()}
@@ -238,7 +256,8 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
         test_cfg=test_cfg, compute_dtype=dtype,
         rbbox_refine_head=mods.get("rbbox_refine_head"),
         mask_head=mods.get("mask_head"), mask_loss_type=mask_loss_type,
-        semantic_head=mods.get("semantic_head"))
+        semantic_head=mods.get("semantic_head"),
+        hobb_robust_loss=hobb_robust_loss)
     return model
 
 
@@ -256,12 +275,12 @@ def _rbbox_rcnn_rroi(rbbox_head=None, rbbox_refine_head=None, **kwargs):
         or dict(type="RBBoxHead", encode="rtheta"), **kwargs)
 
 
-def _preset(type_name, **preset):
-    """A detector type whose keywords default to ``preset`` (a config's
-    keyword replaces the preset's entry, as the reference's
-    `_two_stage_factory`)."""
+def _preset(type_name, build=None, **preset):
+    """A detector type built by ``build`` (default `_two_stage`) whose
+    keywords default to ``preset`` (a config's keyword replaces the
+    preset's entry, as the reference's `_two_stage_factory`)."""
     def factory(**kwargs):
-        return _two_stage(type_name, **dict(preset, **kwargs))
+        return (build or _two_stage)(type_name, **dict(preset, **kwargs))
     DETECTORS.register(factory, name=type_name)
     return factory
 
@@ -275,6 +294,61 @@ _preset("CenterMapOBB", mask_head=dict(type="CenterMapHead"),
 _preset("CenterMapNet", mask_head=dict(type="CenterMapHead"),
         mask_loss_type="centermap",
         semantic_head=dict(type="WPSGAHead", channels=256))
+
+
+def _loss(cfg: dict, ported: dict):
+    """A single-stage detector's loss from its config dict, of the types
+    in ``ported``."""
+    cfg = dict(cfg)
+    t = cfg.pop("type")
+    if t not in ported:
+        raise NotImplementedError(f"single-stage loss {t!r} is {NOT_PORTED}; "
+                                  f"{sorted(ported)} are")
+    return ported[t](**cfg)
+
+
+def _single_stage(type_name, backbone=None, neck=None, bbox_head=None,
+                  train_cfg=None, test_cfg=None, img_size=1024,
+                  strides=(8, 16, 32, 64, 128),
+                  anchor_scales=(4, 5.0396842, 6.3496042),
+                  anchor_ratios=(0.5, 1.0, 2.0),
+                  target_means=(0., 0., 0., 0.),
+                  target_stds=(1., 1., 1., 1.), with_rbox=False,
+                  rbox_encode="thetaobb", rnms_thr=0.1, loss_cls=None,
+                  loss_bbox=None, dtype=None, **options):
+    """A `SingleStageDetector` from the reference's keywords, with its
+    defaults for the sub-modules a config leaves out
+    (single_stage.py:70-79): ResNet-50, FPN P3-P7 with extra convs, a
+    16-class RetinaHead with one anchor per scale and ratio; the losses
+    default to the detector's (the focal loss, smooth L1 at beta 0.11)."""
+    _only_defaults(type_name, options, dict(loss_type="standard",
+                                            free_anchor_cfg=None,
+                                            img_norm=None))
+    num_anchors = len(anchor_scales) * len(anchor_ratios)
+    cfgs = dict(
+        backbone=backbone or dict(type="ResNet", depth=50),
+        neck=neck or dict(type="FPN", num_outs=5, start_level=1,
+                          add_extra_convs=True),
+        bbox_head=bbox_head or dict(type="RetinaHead", num_classes=16,
+                                    num_anchors=num_anchors))
+    dtype = _compute_dtype(type_name, dtype, cfgs)
+    return SingleStageDetector(
+        build_backbone(cfgs["backbone"]), build_neck(cfgs["neck"]),
+        build_head(cfgs["bbox_head"]), img_size=img_size, strides=strides,
+        anchor_scales=anchor_scales, anchor_ratios=anchor_ratios,
+        target_means=target_means, target_stds=target_stds,
+        train_cfg=train_cfg, test_cfg=test_cfg, with_rbox=with_rbox,
+        rbox_encode=rbox_encode, rnms_thr=rnms_thr,
+        cls_loss=loss_cls and _loss(loss_cls, dict(FocalLoss=FocalLoss)),
+        bbox_loss=loss_bbox and _loss(loss_bbox,
+                                      dict(SmoothL1Loss=SmoothL1Loss)),
+        compute_dtype=dtype)
+
+
+_preset("SingleStageDetector", build=_single_stage)
+_preset("RetinaNet", build=_single_stage)
+# the rotated RetinaNet: the head regresses rbox_encode's deltas
+_preset("RetinaNetOBB", build=_single_stage, with_rbox=True)
 
 
 def build(cfg, registry, default_args=None):
@@ -296,7 +370,7 @@ def build_head(cfg):
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, device="cuda",
-                   seed: int = 0, train: bool = False) -> TwoStageDetector:
+                   seed: int = 0, train: bool = False):
     """The detector of ``cfg`` on ``device`` in eval mode, with random
     weights from ``torch.Generator().manual_seed(seed)``, every
     parameter in the config's dtype (see the module docstring), or with

@@ -45,8 +45,8 @@ from torch.profiler import record_function
 
 from ...core.anchors import build_pyramid_anchors
 from ...core.assign import max_iou_assign
-from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, pointobb2thetaobb,
-                            rtheta2delta)
+from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, hobb2thetaobb,
+                            hobb_rolls, pointobb2thetaobb, rtheta2delta)
 from ...core.sample import sample_fixed
 from ...core.targets import bbox_target, mask_target, rbbox_target
 from ...ops.nms import (multiclass_nms, nms_cfg_kwargs,
@@ -87,6 +87,16 @@ RCNN_TARGET_STDS = (0.1, 0.1, 0.2, 0.2)
 MASK_ROI_SIZE = 14
 
 
+def _as_thetaobb(rb, encode):
+    """First-stage rboxes in ``encode`` as thetaobbs (for the rotated
+    crop and the rtheta codec)."""
+    if encode == "pointobb":
+        return pointobb2thetaobb(rb)
+    if encode == "hobb":
+        return hobb2thetaobb(rb)
+    return rb
+
+
 def _merge(default: dict, override) -> dict:
     out = {k: dict(v) if isinstance(v, Mapping) else v
            for k, v in default.items()}
@@ -110,7 +120,10 @@ class TwoStageDetector(nn.Module):
     """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head, and
     with ``rbbox_refine_head`` (an rtheta `RBBoxHead`) RBBoxRCNNRRoI.
     The first-stage rbbox codec (the reference's ``rbbox_encode``) is
-    the rbbox head's ``encode``: thetaobb or pointobb.  Without an rbbox
+    the rbbox head's ``encode``: thetaobb, pointobb or hobb; with
+    ``hobb_robust_loss`` a hobb head's regression loss is the smallest
+    over the 4 rolls of each gt (`core.rboxes.hobb_rolls`), predict
+    unchanged.  Without an rbbox
     head and with a ``mask_head`` (an `FCNMaskHead` trained with BCE,
     ``mask_loss_type="bce"``, or a `CenterMapHead` trained with the
     CenterMap loss, "centermap") it is MaskOBB or CenterMapOBB, whose
@@ -134,7 +147,8 @@ class TwoStageDetector(nn.Module):
     def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head,
                  img_size=1024, train_cfg=None, test_cfg=None,
                  compute_dtype=None, rbbox_refine_head=None, mask_head=None,
-                 mask_loss_type="bce", semantic_head=None):
+                 mask_loss_type="bce", semantic_head=None,
+                 hobb_robust_loss=False):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -152,6 +166,7 @@ class TwoStageDetector(nn.Module):
         if mask_loss_type not in ("bce", "centermap"):
             raise ValueError(f"mask_loss_type {mask_loss_type!r}: 'bce' or "
                              "'centermap'")
+        self.hobb_robust_loss = hobb_robust_loss
         self.mask_head = mask_head
         self.mask_loss_type = mask_loss_type
         self.semantic_head = semantic_head
@@ -181,6 +196,15 @@ class TwoStageDetector(nn.Module):
     @property
     def dtype(self):
         return self.bbox_head.fc_cls.weight.dtype
+
+    @property
+    def result_encode(self):
+        """The encode of predict's ``rboxes`` (a refinement head's are
+        thetaobbs whatever the first stage's), or None without them."""
+        if self.rbbox_head is None:
+            return None
+        return ("thetaobb" if self.rbbox_refine_head is not None
+                else self.rbbox_head.encode)
 
     def extract_feat(self, imgs):
         with record_function("backbone"):
@@ -363,10 +387,7 @@ class TwoStageDetector(nn.Module):
         dtype (kernel K4 on the card), the refinement head's rtheta
         deltas of each detection's class (group labels + 1) applied to
         them, invalid rows zero."""
-        rb = rboxes
-        if self.rbbox_head.encode == "pointobb":
-            rb = pointobb2thetaobb(rb)
-        rb = self._clip_rboxes(rb)
+        rb = self._clip_rboxes(_as_thetaobb(rboxes, self.rbbox_head.encode))
         head = self.rbbox_refine_head
         b, k = rb.shape[:2]
         with record_function("rroi_align"):
@@ -401,8 +422,8 @@ class TwoStageDetector(nn.Module):
         imgs [B, S, S, 3] (uint8 BGR or normalized floats); gt_boxes
         [B, G, 4]; gt_valid [B, G]; gt_labels [B, G] (1-based);
         img_shapes [B, 2] (h, w); gt_rboxes [B, G, D] in the rbbox
-        head's encode: thetaobbs [B, G, 5] or pointobbs [B, G, 8]
-        (read only with an rbbox head); gt_masks [B, G, Hm, Wm] (binary
+        head's encode: thetaobbs [B, G, 5], pointobbs [B, G, 8] or hobbs
+        [B, G, 5] (read only with an rbbox head); gt_masks [B, G, Hm, Wm] (binary
         masks for the BCE head, soft centermaps for the CenterMap head)
         and gt_mask_weights [B, G, Hm, Wm] (CenterMap only, optional),
         over the whole padded image at Hm / S of its scale; gt_semantic
@@ -525,12 +546,22 @@ class TwoStageDetector(nn.Module):
         if self.rbbox_head is not None:
             with amp, record_function("roi_heads"):
                 rcls, rreg = self.rbbox_head(crops)
+            enc = self.rbbox_head.encode
             rtgt = flat(rbbox_target(sample, rois, gt_rboxes.float(),
-                                     gt_labels, self.rbbox_head.encode,
+                                     gt_labels, enc,
                                      pos_weight=rc["pos_weight"]))
+            alt = None
+            if self.hobb_robust_loss and enc == "hobb":
+                # targets for the 4 first-edge rolls of each gt
+                rolled = hobb_rolls(gt_rboxes.float())      # [B, G, 4, 5]
+                alt = torch.stack([rbbox_target(
+                    sample, rois, rolled[:, :, k], gt_labels, enc,
+                    pos_weight=rc["pos_weight"]).bbox_targets.reshape(
+                        b * r, -1) for k in range(4)])
             losses["loss_rbbox_cls"], losses["loss_rbbox"] = bbox_head_loss(
                 rcls.float(), rreg.float(), rtgt, self.rcnn_cls_loss,
-                self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg)
+                self.rcnn_bbox_loss, box_dim=self.rbbox_head.out_dim_reg,
+                alt_bbox_targets=alt)
             if self.rbbox_refine_head is not None:
                 with record_function("rroi_refine"):
                     losses.update(self._refine_loss(
@@ -614,9 +645,8 @@ class TwoStageDetector(nn.Module):
         cls = lbl.clamp(0, grp.shape[2] - 1)
         sel = torch.gather(grp, 2, cls[..., None, None].expand(
             b, r, 1, first.out_dim_reg))[:, :, 0]
-        dec = RBBOX_CODECS[first.encode][2](rois, sel)
-        if first.encode == "pointobb":
-            dec = pointobb2thetaobb(dec)
+        dec = _as_thetaobb(RBBOX_CODECS[first.encode][2](rois, sel),
+                           first.encode)
         stage1 = self._clip_rboxes(dec[:, :p_max].detach())
 
         with record_function("rroi_align"):
@@ -630,10 +660,9 @@ class TwoStageDetector(nn.Module):
 
         pos = sample.is_pos[:, :p_max]
         gt_inds = sample.gt_inds[:, :p_max].clamp(0, g - 1)
-        gtm = torch.gather(gt_rboxes, 1, gt_inds[..., None].expand(
-            -1, -1, gt_rboxes.shape[-1]))
-        if first.encode == "pointobb":
-            gtm = pointobb2thetaobb(gtm)
+        gtm = _as_thetaobb(torch.gather(gt_rboxes, 1, gt_inds[..., None]
+                                        .expand(-1, -1, gt_rboxes.shape[-1])),
+                           first.encode)
         target = rtheta2delta(stage1, gtm).reshape(b * p_max, -1)
         is_pos = pos.reshape(-1).float()
         lbl_pos = lbl[:, :p_max].reshape(-1)

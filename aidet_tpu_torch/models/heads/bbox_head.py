@@ -46,8 +46,8 @@ class SharedFCBBoxHead(nn.Module):
 
 class RBBoxHead(SharedFCBBoxHead):
     """Rotated-box head: the same FC trunk with per-class rotated
-    regression of ``RBBOX_CODECS[encode]``'s width: 5 for thetaobb and
-    rtheta (the refinement head on rotated crops), 8 for pointobb.  The
+    regression of ``RBBOX_CODECS[encode]``'s width: 5 for thetaobb, hobb
+    and rtheta (the refinement head on rotated crops), 8 for pointobb.  The
     reference's class-agnostic option is not ported: no configuration
     of the ported paths sets it."""
 
@@ -63,15 +63,18 @@ class RBBoxHead(SharedFCBBoxHead):
 
 
 def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
-                   box_dim: int = 4):
+                   box_dim: int = 4, alt_bbox_targets=None):
     """Second-stage loss over the sampled rois of a batch: CE over all
     of them and smooth L1 on the class-specific slice of the
     regression, both averaged by the count of valid samples (the
     label-weight sum, at least 1).
 
     cls_score [N, C], bbox_pred [N, C * box_dim]; ``targets`` a
-    `core.targets.RoiTargets` with leading dim N.  The sort-robust
-    hobb variant (``alt_bbox_targets``) is not ported.
+    `core.targets.RoiTargets` with leading dim N.  ``alt_bbox_targets``
+    [K, N, box_dim]: equivalent targets (the 4 rolls of a hobb, which
+    decode to one rectangle); the regression loss is then each
+    sample's smallest summed loss over them, on the positives (the
+    reference's sort-robust hobb loss).
     """
     avg = targets.label_weights.sum().clamp(min=1.0)
     loss_cls = cls_loss(cls_score, targets.labels,
@@ -80,8 +83,14 @@ def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
     idx = targets.labels.long().clamp(0, per.shape[1] - 1)
     pred = torch.gather(per, 1, idx[:, None, None].expand(
         -1, 1, box_dim))[:, 0]
-    loss_bbox = bbox_loss(pred, targets.bbox_targets,
-                          weight=targets.bbox_weights, avg_factor=avg)
+    if alt_bbox_targets is None:
+        loss_bbox = bbox_loss(pred, targets.bbox_targets,
+                              weight=targets.bbox_weights, avg_factor=avg)
+    else:
+        elem = bbox_loss(pred.expand_as(alt_bbox_targets), alt_bbox_targets,
+                         reduction_override="none")        # [K, N, D]
+        best = elem.sum(-1).amin(0)
+        loss_bbox = (best * targets.bbox_weights[..., 0]).sum() / avg
     return loss_cls, loss_bbox
 
 
@@ -113,10 +122,10 @@ def bbox_head_decode(rois, cls_score, bbox_pred,
 def rbbox_head_decode(rois, cls_score, rbbox_pred, encode="thetaobb",
                       target_means=None, target_stds=None):
     """Per-class rotated boxes [..., C*D] in the ``encode`` format (D =
-    5 for thetaobb and rtheta, 8 for pointobb; rtheta decodes onto
+    5 for thetaobb, hobb and rtheta, 8 for pointobb; rtheta decodes onto
     rotated rois [..., 5], the others onto HBB rois [..., 4]) and
     softmax scores in cls_score's dtype."""
-    dim, _, decode = RBBOX_CODECS[encode]
+    dim, _, decode, _ = RBBOX_CODECS[encode]
     target_means = target_means or (0.,) * dim
     target_stds = target_stds or (1.,) * dim
     scores = softmax(cls_score)

@@ -1,12 +1,12 @@
 """Losses of the train step: softmax and sigmoid cross entropy, smooth
-L1, the mask heads' class-sliced losses, and their weighting and
-reduction.
+L1, the sigmoid focal loss, the mask heads' class-sliced losses, and
+their weighting and reduction.
 
 Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 `cross_entropy_loss.py` (`cross_entropy`, `binary_cross_entropy`,
 `mask_cross_entropy`, `CrossEntropyLoss`), `smooth_l1_loss.py`
-(`smooth_l1_loss`, `SmoothL1Loss`) and `centermap_loss.py`
-(`CenterMapLoss`).  Labels follow the reference: 0 is background,
+(`smooth_l1_loss`, `SmoothL1Loss`), `focal_loss.py` (`FocalLoss`) and
+`centermap_loss.py` (`CenterMapLoss`).  Labels follow the reference: 0 is background,
 1..C the classes; softmax logits carry C + 1 channels, sigmoid and
 mask logits C.  `CrossEntropyLoss(use_mask=True)` is not ported: the
 detector calls `mask_cross_entropy` itself, as the reference's does.
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.focal_loss import sigmoid_focal_loss
 
 
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -150,3 +152,27 @@ class SmoothL1Loss:
         return self.loss_weight * smooth_l1_loss(
             pred, target, weight, beta=self.beta, reduction=reduction,
             avg_factor=avg_factor)
+
+
+class FocalLoss:
+    """Sigmoid focal loss (`ops.focal_loss.sigmoid_focal_loss`) over
+    [..., C] logits, labels 1..C at channel c - 1; a ``weight`` of one
+    dim less than the loss (per anchor) broadcasts over the classes."""
+
+    def __init__(self, use_sigmoid=True, gamma=2.0, alpha=0.25,
+                 reduction="mean", loss_weight=1.0):
+        if not use_sigmoid:
+            raise ValueError("FocalLoss is the sigmoid focal loss")
+        self.gamma = gamma
+        self.alpha = alpha
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        loss = sigmoid_focal_loss(pred, target, self.gamma, self.alpha)
+        if weight is not None and weight.dim() != loss.dim():
+            weight = weight[..., None]
+        return self.loss_weight * weight_reduce_loss(
+            loss, weight, reduction, avg_factor)

@@ -1,13 +1,15 @@
-"""Fixed-shape hard NMS and the multiclass orchestration of the
-detector heads.
+"""Fixed-shape hard NMS, rotated (polygon) NMS and the multiclass
+orchestration of the detector heads.
 
 Port of `aidet_tpu/ops/nms.py` (`_suppression_matrix`,
-`_greedy_keep_presupp`, `nms`, `multiclass_nms`, `NMSResult`,
-`select_parallel_rboxes`, `nms_cfg_kwargs`), in plain PyTorch: the
-reference writes these as XLA code, not as Pallas kernels.  Every function takes any number of
+`_greedy_keep_presupp`, `nms`, `rnms`, `multiclass_nms` with its
+``box_dim=8`` rotated branch, `NMSResult`, `select_parallel_rboxes`,
+`nms_cfg_kwargs`), in plain PyTorch: the reference writes these as XLA
+code, not as Pallas kernels.  Every function takes any number of
 leading batch dimensions, so all (image, level) or (image, class)
-problems of a call are solved together.  Outputs are padded to a fixed
-size with a validity mask, as in the reference.
+problems of a call are solved together, on the tensors' device.
+Outputs are padded to a fixed size with a validity mask, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..core.riou import quad_overlaps
 
 NEG_INF = -1e10
 
@@ -99,6 +103,29 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.5,
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
 
+def rnms(quads: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.1,
+         valid: torch.Tensor | None = None, presorted: bool = False):
+    """Greedy NMS on quads [..., N, 8] by polygon IoU
+    (`core.riou.quad_overlaps`): a quad is suppressed by a kept quad of
+    higher rank whose IoU with it exceeds ``iou_thr``.  ``presorted`` as
+    in `nms`; otherwise the quads are ranked by a stable descending sort
+    of the scores (invalid last).  Returns the keep mask [..., N]."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    if presorted:
+        return _greedy_keep_presupp(quad_overlaps(quads, quads) > iou_thr,
+                                    valid)
+    order = torch.argsort(-torch.where(valid, scores,
+                                       scores.new_tensor(NEG_INF)),
+                          dim=-1, stable=True)
+    quads_s = torch.gather(quads, -2, order[..., None].expand(quads.shape))
+    keep_sorted = _greedy_keep_presupp(
+        quad_overlaps(quads_s, quads_s) > iou_thr,
+        torch.gather(valid, -1, order))
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
 class NMSResult(NamedTuple):
     """Fixed-size multiclass NMS output (last dim ``max_num``)."""
     boxes: torch.Tensor    # [..., K, D]
@@ -146,11 +173,13 @@ def nms_cfg_kwargs(cfg: dict) -> dict:
 def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
                    iou_thr: float = 0.5, max_num: int = 100,
                    valid: torch.Tensor | None = None,
-                   pre_nms_top_k: int = 256) -> NMSResult:
+                   pre_nms_top_k: int = 256, box_dim: int = 4) -> NMSResult:
     """Per-class NMS over padded candidates, fixed-size top-K output.
 
     Args:
-      multi_bboxes: [(B,) N, G*4] (group 0 = background) or [(B,) N, 4].
+      multi_bboxes: [(B,) N, G*D] (group 0 = background) or [(B,) N, D]
+        with D = ``box_dim``: 4 for boxes (`nms`), 8 for quads, which
+        are suppressed by polygon IoU (`rnms`).
       multi_scores: [(B,) N, C+1], background in column 0.
       valid: [(B,) N] candidate validity.
       pre_nms_top_k: each class's NMS runs on its top max(k, max_num)
@@ -169,7 +198,10 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
         valid = torch.ones(b, n, dtype=torch.bool, device=dev)
 
     scores_t = multi_scores[..., 1:].transpose(1, 2)       # [B, C, N]
-    boxes_t = _per_class_boxes(multi_bboxes, num_classes, 4)
+    if box_dim not in (4, 8):
+        raise ValueError(f"box_dim {box_dim}: 4 (boxes) or 8 (quads)")
+    suppress = nms if box_dim == 4 else rnms
+    boxes_t = _per_class_boxes(multi_bboxes, num_classes, box_dim)
     cls_valid = valid[:, None, :] & (scores_t > score_thr)
     neg = scores_t.new_tensor(NEG_INF)
 
@@ -177,13 +209,13 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
         k = min(max(pre_nms_top_k, max_num), n)
         top_s, top_i = topk(torch.where(cls_valid, scores_t, neg), k)
         boxes_k = torch.gather(
-            boxes_t, 2, top_i[..., None].expand(b, num_classes, k, 4))
-        keep_k = nms(boxes_k, top_s, iou_thr, top_s > NEG_INF / 2,
-                     presorted=True)
+            boxes_t, 2, top_i[..., None].expand(b, num_classes, k, box_dim))
+        keep_k = suppress(boxes_k, top_s, iou_thr, top_s > NEG_INF / 2,
+                          presorted=True)
         keep = torch.zeros_like(cls_valid).scatter(-1, top_i, keep_k)
         keep &= cls_valid
     else:
-        keep = nms(boxes_t, scores_t, iou_thr, cls_valid)
+        keep = suppress(boxes_t, scores_t, iou_thr, cls_valid)
 
     flat = torch.where(keep, scores_t, neg).reshape(b, num_classes * n)
     k = min(max_num, flat.shape[1])

@@ -153,9 +153,11 @@ def create_train_state(model: nn.Module, optimizer: SGD) -> TrainState:
 def make_train_step(model: nn.Module, optimizer: SGD):
     """step(state, batch, generator) -> (state, metrics).
 
-    ``batch`` holds `TwoStageDetector.loss`'s inputs (imgs, gt_boxes,
-    gt_valid, gt_labels, img_shapes, gt_rboxes); ``generator`` is the
-    sampling's generator, on the batch's device.  The state's model is
+    ``batch`` holds the detector's `loss` inputs (imgs, gt_boxes,
+    gt_valid, gt_labels, img_shapes, gt_rboxes, ...: a
+    `TwoStageDetector`'s or a `SingleStageDetector`'s, whose loss
+    samples nothing); ``generator`` is the sampling's generator, on the
+    batch's device.  The state's model is
     updated in place.  ``metrics``: each loss, their sum ``loss`` and
     ``grad_norm``, the global norm of the gradients before the clip,
     as detached float32 tensors.  The backward and the update are

@@ -1156,13 +1156,17 @@ def train_step_once(device, img, n_gt, train_cfg, seed=0, model="flagship"):
             [p.detach().cpu() for p in params])
 
 
-def compare_steps(name, got, ref, limits=None):
+def compare_steps(name, got, ref, limits=None, resolved_only=False):
     """Two train steps from the same weights (each `train_step_once`'s
     (metrics, before, after)): each metric's relative difference, the
     difference of the parameters' updates as a whole (relative L2 norm)
     and per leaf (over the leaf's largest update), held to ``limits``
-    (losses_rel, update_rel_l2, leaf_over_largest) if given.  Returns
-    them."""
+    (losses_rel, update_rel_l2, leaf_over_largest) if given.  With
+    ``resolved_only``, a leaf whose largest update is under
+    `UPDATE_RESOLUTION` float32 ulps of its largest weight is left out
+    of the per-leaf check and counted in ``leaves_below_resolution``:
+    there one ulp of a weight, a rounding on either side, is more than
+    1/128 of the update, near the 1e-2 limit.  Returns them."""
     import torch
     rel = {k: abs(got[0][k] - ref[0][k]) / max(abs(ref[0][k]), 1e-6)
            for k in ref[0]}
@@ -1171,7 +1175,7 @@ def compare_steps(name, got, ref, limits=None):
                           for k in ref[0]):
         raise AssertionError(f"{name}: {got[0]} against {ref[0]} "
                              f"(relative {rel})")
-    worst, diff2, ref2 = (0.0, 0), 0.0, 0.0
+    worst, diff2, ref2, below = (0.0, 0), 0.0, 0.0, 0
     for i, (gb, ga, rb, ra) in enumerate(zip(*got[1:], *ref[1:])):
         if not torch.equal(gb, rb):
             raise AssertionError(f"{name}: initial weights differ")
@@ -1179,7 +1183,12 @@ def compare_steps(name, got, ref, limits=None):
         d = (ga - gb) - d_ref
         diff2 += float(d.double().square().sum())
         ref2 += float(d_ref.double().square().sum())
-        err = float(d.abs().max()) / max(float(d_ref.abs().max()), 1e-30)
+        largest = float(d_ref.abs().max())
+        if resolved_only and largest < UPDATE_RESOLUTION * float(
+                torch.finfo(torch.float32).eps * rb.abs().max()):
+            below += 1
+            continue
+        err = float(d.abs().max()) / max(largest, 1e-30)
         worst = max(worst, (err, i))
     update_rel = math.sqrt(diff2 / ref2)
     if limits and (update_rel > limits["update_rel_l2"]
@@ -1188,9 +1197,12 @@ def compare_steps(name, got, ref, limits=None):
                              f"{update_rel} (relative L2), {worst[0]} of "
                              f"the largest in leaf {worst[1]} (limits "
                              f"{limits})")
-    return dict(max_rel_err=max(rel.values()), update_rel_l2=update_rel,
-                worst_leaf=worst[1], worst_leaf_err_over_largest=worst[0],
-                limits=limits)
+    out = dict(max_rel_err=max(rel.values()), update_rel_l2=update_rel,
+               worst_leaf=worst[1], worst_leaf_err_over_largest=worst[0],
+               limits=limits)
+    if resolved_only:
+        out["leaves_below_resolution"] = below
+    return out
 
 
 def plain_versions():
@@ -2524,6 +2536,339 @@ def run_centermap_train(device="cuda", small=False, seed=0):
         pipeline=host)
 
 
+# The single-stage and H-OBB detectors: RetinaNetOBB (BASELINE config
+# #2) and the H-OBB RBBoxRCNN (config #3's H-based head), each card
+# against CPU at the small architecture, then the config as written at
+# full width: 3 predict calls and 1 warm-up + 3 timed train steps, at
+# batch 2 of 1024^2 with 64 gts; the CPU rehearsal at the small
+# architecture on 256^2.  RetinaHead's classification prior (-log(99))
+# puts every random-weight score near 0.01, under score_thr 0.05, so
+# `retina_cls`'s bias is set to 0 in every phase: all 15 classes pass
+# and the rotated NMS does the full work of 15 x 256 candidates an image
+RETINA_OBB_CONFIG = "configs/dota_retinanet_theta_obb_r50_fpn_1x.py"
+H_OBB_CONFIG = "configs/dota_h_obb_r50_fpn_1x.py"
+DETECTORS = dict(img=1024, batch=2, calls=3, steps=3, max_gt=64)
+DETECTORS_SMALL = dict(img=128, batch=2, calls=1, steps=1, max_gt=16)
+# the small RetinaNetOBB has 5 classes: its rotated NMS (2 x 5 x 256^2
+# pairs a call) stays a few seconds in the CPU rehearsals
+SMALL_RETINA_OBB = dict(
+    type="RetinaNetOBB", backbone=dict(type="ResNet", depth=18),
+    neck=dict(type="FPN", in_channels=(64, 128, 256, 512), out_channels=64,
+              num_outs=5, start_level=1, add_extra_convs=True),
+    bbox_head=dict(type="RetinaHead", num_classes=6, in_channels=64,
+                   feat_channels=64, stacked_convs=4, num_anchors=9,
+                   reg_dim=5),
+    rbox_encode="thetaobb", img_size=256)
+SMALL_RETINA_TEST_CFG = dict(nms_pre=200, score_thr=0.05, rnms_thr=0.1,
+                             max_per_img=50)
+# predict on the card against the CPU (float32, TF32 off): the
+# reference phase's limits; the H-OBB's rboxes are hobbs, all five of
+# them in px (its "theta" limit is the h's), plus 1e-4 of their largest
+# coordinate (random weights decode hobbs thousands of pixels long)
+RETINA_REF_LIMITS = dict(boxes=1.0, rboxes=1.0, theta=1e-2, scores=1e-2)
+H_OBB_REF_LIMITS = dict(boxes=1.0, rboxes=1.0, rboxes_rel=1e-4, theta=1.0,
+                        scores=1e-2)
+DETECTOR_REF_TRAIN_LIMITS = dict(losses_rel=1e-3, update_rel_l2=1e-3,
+                                 leaf_over_largest=1e-2)
+# `compare_steps(resolved_only=True)`: the float32 ulps of a leaf's
+# largest weight its largest update must span for the per-leaf check.
+# At `retina_cls`'s bias 0 the focal loss's gradient norm (~8.7e3)
+# clips every other leaf's gradient by ~250x, and the small
+# RetinaNetOBB's P7 conv (neck.extra1) then moves by ~4 ulps: the card
+# and the CPU differed there by one ulp of one weight, 2.1e-2 of the
+# leaf's largest update, while the update as a whole differed by 4.3e-4
+# relative L2 (NVIDIA H100 80GB HBM3, 700.00 W)
+UPDATE_RESOLUTION = 128
+# the reference train steps run with cuDNN off: against the CPU's
+# float64 update, cuDNN's float32 (TF32 off) differed by up to 1.16e-2
+# of a leaf's largest update on a 15-class small RetinaNetOBB and
+# 5.8e-2 on this 5-class one, PyTorch's own CUDA convolutions by 1.0e-3
+# and 9.3e-4, the CPU's float32 by 1.1e-3 and 9.3e-4 (the card's
+# float64 by 6.4e-7; NVIDIA H100 80GB HBM3, 700.00 W,
+# tools/torch_grad_precision.py): the phase holds the port's
+# arithmetic, not cuDNN's choice of algorithm
+
+
+def small_h_obb(robust=False):
+    """The small architecture (`SMALL_MODEL`) with a hobb rbbox head."""
+    return dict(SMALL_MODEL, rbbox_encode="hobb", hobb_robust_loss=robust,
+                rbbox_head=dict(SMALL_MODEL["rbbox_head"], encode="hobb"))
+
+
+def detector(kind, device, small, train=False, robust=False, seed=0,
+             train_cfg=None, img=256):
+    """The small (for ``img``^2 images) or full RetinaNetOBB (``kind``
+    "retinanet_obb") or H-OBB RBBoxRCNN ("h_obb"; ``robust``:
+    hobb_robust_loss) from `build_detector` with seeded weights,
+    `retina_cls`'s bias 0; returns (model, the encode of its gt
+    rboxes)."""
+    import torch
+    from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.models.detectors.two_stage import _merge
+    from aidet_tpu_torch.utils.config import Config
+    if small:
+        cfg = (dict(model=SMALL_RETINA_OBB, test_cfg=SMALL_RETINA_TEST_CFG)
+               if kind == "retinanet_obb" else
+               dict(model=small_h_obb(robust), train_cfg=SMALL_TRAIN_CFG,
+                    test_cfg=SMALL_TEST_CFG))
+        cfg["model"] = dict(cfg["model"], img_size=img)
+    else:
+        cfg = Config.fromfile(RETINA_OBB_CONFIG if kind == "retinanet_obb"
+                              else H_OBB_CONFIG).to_dict()
+        cfg["model"] = dict(cfg["model"], hobb_robust_loss=robust) \
+            if kind == "h_obb" else cfg["model"]
+    model = build_detector(cfg["model"], train_cfg=_merge(
+        cfg.get("train_cfg") or {}, train_cfg), test_cfg=cfg.get("test_cfg"),
+        device=device, seed=seed, train=train)
+    if kind == "retinanet_obb":
+        with torch.no_grad():
+            model.bbox_head.retina_cls.bias.zero_()
+    return model, ("thetaobb" if kind == "retinanet_obb" else "hobb")
+
+
+def detector_step_once(kind, device, img, n_gt, train_cfg=None, robust=False,
+                       seed=0):
+    """One train step of the small ``kind`` detector on ``device``: as
+    `train_step_once`, its gts in the detector's encode."""
+    import torch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    net, encode = detector(kind, device, True, train=True, robust=robust,
+                           seed=seed, train_cfg=train_cfg, img=img)
+    params = list(net.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
+    state = create_train_state(net, optimizer)
+    step = make_train_step(net, optimizer)
+    batch = synthetic_train_batch(2, img, n_gt, seed, device, encode)
+    _, metrics = step(state, batch,
+                      torch.Generator(device=device).manual_seed(seed))
+    return ({k: float(v) for k, v in metrics.items()}, before,
+            [p.detach().cpu() for p in params])
+
+
+def run_detector_reference(device="cuda", kind="retinanet_obb", img=256):
+    """The small ``kind`` detector (float32, TF32 off) on ``device``
+    against the CPU with the same weights: predict on 2 seeded uint8
+    images (`match_detections`: every detection paired; a detection at
+    the max_per_img cut whose score ties the other run's last may be
+    another member of the tie), then one train step (`compare_steps`
+    with `DETECTOR_REF_TRAIN_LIMITS`, the per-leaf limit on the leaves
+    whose update float32 resolves, `UPDATE_RESOLUTION`), its
+    convolutions PyTorch's own CUDA kernels (cuDNN off, as the note at
+    `UPDATE_RESOLUTION` says); RetinaNetOBB
+    samples nothing, the
+    H-OBB model runs under a train_cfg that keeps every candidate, once
+    without and once with hobb_robust_loss.  Returns the phase's
+    fields."""
+    import torch
+    from aidet_tpu_torch.flagship import keep_every_candidate_cfg
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_gt = 8
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    got, ref = ({k: v.cpu() for k, v in detector(
+        kind, d, True, img=img)[0].predict(imgs.to(d), shapes.to(d)).items()}
+        for d in (device, "cpu"))
+    limits = RETINA_REF_LIMITS if kind == "retinanet_obb" \
+        else H_OBB_REF_LIMITS
+    errs = match_detections(got, ref, limits, cut_slack=True)
+    net = detector(kind, "cpu", True, img=img)[0]
+    names = [n for n, _ in net.named_parameters()]
+    cfg = None if kind == "retinanet_obb" else keep_every_candidate_cfg(
+        img, n_gt, net.train_cfg["rpn_proposal"]["max_num"])
+    train = {}
+    for robust in (False, True) if kind == "h_obb" else (False,):
+        with torch.backends.cudnn.flags(enabled=False):
+            steps = [detector_step_once(kind, d, img, n_gt, cfg, robust)
+                     for d in (device, "cpu")]
+        t = compare_steps(f"{kind}_reference", *steps,
+                          DETECTOR_REF_TRAIN_LIMITS, resolved_only=True)
+        t["worst_leaf"] = names[t["worst_leaf"]]
+        train["robust" if robust else "plain"] = dict(
+            losses_card=steps[0][0], losses_cpu=steps[1][0], **t)
+    return dict(img=img, tf32=False, n_valid=int(got["valid"].sum()),
+                max_abs_err=errs, limits=limits, gts=n_gt,
+                train_cudnn=False, train=train)
+
+
+def staged_retina_predict(model, imgs, shapes, sync):
+    """RetinaNetOBB's predict in its stages, each timed on the host clock
+    between ``sync`` calls: features (normalize, backbone, FPN), head,
+    top-k and decode, rotated multiclass NMS.  Returns (outputs, stage
+    ms, candidates entering each image's NMS: per class its valid
+    candidates up to the top-k of 256)."""
+    import torch
+    from aidet_tpu_torch.core.rboxes import RBBOX_CODECS, pointobb2bbox
+    from aidet_tpu_torch.models.heads import anchor_head as ah
+    ec = model.test_cfg
+    stages, t = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        sync()
+        now = time.perf_counter()
+        stages[name] = (now - t) * 1e3
+        t = now
+    with torch.no_grad():
+        feats = model.extract_feat(imgs)
+        lap("features")
+        cls_flat, reg_flat = model._head(feats)
+        lap("head")
+        dim, _, decode, to_quad = RBBOX_CODECS[model.rbox_encode]
+        a, d, s = ah.topk_per_level(cls_flat, reg_flat, model.anchors,
+                                    model.level_sizes, ec["nms_pre"])
+        rboxes = decode(a, d, model.target_means, model.target_stds)
+        quads = to_quad(rboxes)
+        lap("topk_decode")
+        res, rboxes = ah.rotated_detections(
+            rboxes, quads, s, ec["score_thr"], ec.get("rnms_thr",
+                                                      model.rnms_thr),
+            ec["max_per_img"])
+        lap("rotated_nms")
+    per_class = (s > ec["score_thr"]).sum(1)                  # [B, C]
+    cand = per_class.clamp(max=max(256, ec["max_per_img"])).sum(-1)
+    out = dict(boxes=pointobb2bbox(res.boxes), scores=res.scores,
+               labels=res.labels, valid=res.valid, rboxes=rboxes)
+    return out, stages, [int(c) for c in cand]
+
+
+def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
+                       seed=0):
+    """``kind``'s config as written (float32 with cuDNN's TF32, as
+    PyTorch's default; `retina_cls`'s bias 0), or with ``small`` its
+    small architecture: ``calls`` predict calls on 2 seeded uint8
+    images (ms per call, detections, peak memory; RetinaNetOBB's also
+    in stages, `staged_retina_predict`, held equal to predict), then 1
+    warm-up and ``steps`` timed train steps on `synthetic_train_batch`
+    with ``max_gt`` gts in the detector's encode (every loss finite, the
+    heads' parameters moved, ms per step, peak memory).  Launches, per
+    call and per step on the card: RetinaNetOBB none; the H-OBB model K1
+    once a call and K2 once forward and once backward a step.  Returns
+    {"predict": fields, "train": fields}."""
+    import torch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    sizes = DETECTORS_SMALL if small else DETECTORS
+    b, img = sizes["batch"], sizes["img"]
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    out = {}
+    with tf32_defaults():
+        model, encode = detector(kind, device, small, seed=seed, img=img)
+        imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(seed))
+        imgs = imgs.to(device)
+        shapes = torch.full((b, 2), float(img), device=device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        times = []
+        for _ in range(sizes["calls"]):
+            sync()
+            t0 = time.perf_counter()
+            pred = model.predict(imgs, shapes)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        fields = dict(calls=len(times), call_ms=times,
+                      ms_per_call=sum(times) / len(times),
+                      n_valid=int(pred["valid"].sum()),
+                      peak_memory_gib=(torch.cuda.max_memory_allocated()
+                                       / 2 ** 30 if on_card else None))
+        if kind == "retinanet_obb":
+            staged = [staged_retina_predict(model, imgs, shapes, sync)
+                      for _ in range(sizes["calls"])]
+            for key in pred:
+                if not torch.equal(staged[-1][0][key], pred[key]):
+                    raise AssertionError(f"{kind}: the staged predict's "
+                                         f"{key} differs from predict's")
+            fields.update(
+                stage_ms={k: [s[1][k] for s in staged]
+                          for k in staged[0][1]},
+                nms_candidates_per_image=staged[-1][2])
+        want = dict.fromkeys(HANDLES, 0)
+        if kind == "h_obb" and on_card:
+            want["roi_align"] = len(times)
+        if launches != want:
+            raise AssertionError(f"{kind} predict: launches {launches} in "
+                                 f"{len(times)} calls, expected {want}")
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in pred.values()) or fields["n_valid"] == 0:
+            raise AssertionError(f"{kind} predict: {fields}")
+        out["predict"] = dict(fields, launches=launches)
+        del model, pred
+
+        net = detector(kind, device, small, train=True, seed=seed,
+                       img=img)[0]
+        params = list(net.parameters())
+        before = [p.detach().clone() for p in params]
+        optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
+        state = create_train_state(net, optimizer)
+        step = make_train_step(net, optimizer)
+        data = synthetic_train_batch(b, img, sizes["max_gt"], seed, device,
+                                     encode)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data, gen)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launch_counts(reset=True)
+        times, losses = [], []
+        for _ in range(sizes["steps"]):
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, data, gen)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in metrics.items()})
+        launches = launch_counts()
+    n = len(times)
+    bad = [(i, k) for i, m in enumerate(losses) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{kind} train: not finite {bad}")
+    want = dict.fromkeys(HANDLES, 0)
+    if kind == "h_obb" and on_card:
+        want.update(roi_align_train_forward=n, roi_align_backward=n)
+    if launches != want:
+        raise AssertionError(f"{kind} train: launches {launches} in {n} "
+                             f"steps, expected {want}")
+    names = [nm for nm, _ in net.named_parameters()]
+    still = [nm for nm, a, p in zip(names, before, params)
+             if torch.equal(a, p.detach()) and nm.split(".")[0].endswith(
+                 "_head")]
+    if still:
+        raise AssertionError(f"{kind} train: heads did not move: {still}")
+    ms = sum(times) / n
+    out["train"] = dict(
+        steps=n, max_gt=sizes["max_gt"], encode=encode, losses=losses,
+        first_step_ms=first_ms, step_ms=times, ms_per_step=ms,
+        images_per_s=b * 1e3 / ms, launches=launches,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else None))
+    cfg = RETINA_OBB_CONFIG if kind == "retinanet_obb" else H_OBB_CONFIG
+    out["config"] = cfg + (" (small architecture)" if small else "")
+    out["img"], out["batch"] = img, b
+    out["dtype"] = ("float32 parameters and compute (the config names "
+                    "none); TF32 in cuDNN's convolutions (PyTorch's "
+                    "default)")
+    return out
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -2601,6 +2946,15 @@ def main() -> int:
     runs["centermap_train"] = run_centermap_train()
     phase("centermap_train", model="CenterMap-Net R101-FPN",
           card=info["nvidia_smi"], **runs["centermap_train"])
+    for kind, title in (("retinanet_obb", "RetinaNetOBB"),
+                        ("h_obb", "H-OBB RBBoxRCNN")):
+        phase(f"{kind}_reference", model=f"small {title} float32",
+              **run_detector_reference(kind=kind))
+        paths = run_detector_paths(kind=kind)
+        runs[f"{kind}_predict"] = paths["predict"]
+        runs[f"{kind}_train"] = paths["train"]
+        phase(kind, model=f"{title} R50-FPN", card=info["nvidia_smi"],
+              **paths)
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

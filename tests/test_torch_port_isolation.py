@@ -13,7 +13,10 @@ phase; a second subprocess, with the same imports blocked, rehearses
 the mask family's phases (centermap_reference and maskobb_reference
 CPU against CPU, centermap_predict and centermap_train at the small
 architecture: the targets of `TrainPipeline`, the mask-to-OBB fit and
-the losses).  pandas and matplotlib may be
+the losses); a third rehearses the single-stage and H-OBB phases
+(retinanet_obb_reference and h_obb_reference CPU against CPU, then
+retinanet_obb and h_obb at the small architecture: predict in stages,
+the rotated NMS, the train steps).  pandas and matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
 tools/torch_train.py, tools/torch_test.py and tools/torch_dota_eval.py.
@@ -128,9 +131,35 @@ print("MASK PHASES", pred["n_valid"], len(train["losses"]))
 """
 
 
+RUN_DETECTOR_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] \
+    + """
+import chip_smoke
+for kind in ("retinanet_obb", "h_obb"):
+    ref = chip_smoke.run_detector_reference(device="cpu", kind=kind,
+                                            img=128)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+    paths = chip_smoke.run_detector_paths(device="cpu", small=True,
+                                          kind=kind)
+    for part in ("predict", "train"):
+        assert set(paths[part]["launches"].values()) == {0}, paths
+    assert paths["predict"]["n_valid"] > 0, paths
+assert set(ref["train"]) == {"plain", "robust"}, ref
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("DETECTOR PHASES", paths["predict"]["n_valid"])
+"""
+
+
 def _env():
+    """The subprocesses' environment: no PYTHONPATH, and one OpenMP
+    thread.  Beside the tier-1 run's pytest workers a subprocess with
+    torch's default threads (one per core) spent most of its time in
+    oversubscribed OpenMP waits: the detector phases' rehearsal took
+    218.6 s with them and 74.5 s with one thread, six busy processes
+    beside it on 8 cores."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    env["OMP_NUM_THREADS"] = "1"
     return env
 
 
@@ -150,6 +179,14 @@ def test_mask_phases_run_with_reference_imports_blocked():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("MASK PHASES")
+
+
+def test_detector_phases_run_with_reference_imports_blocked():
+    proc = subprocess.run([sys.executable, "-c", RUN_DETECTOR_PHASES],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("DETECTOR PHASES")
 
 
 def _imports(path):

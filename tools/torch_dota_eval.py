@@ -3,7 +3,8 @@ port's counterpart of tools/dota_eval.py; parity: reference
 tools/dota/dota_eval.py).
 
     python tools/torch_dota_eval.py RESULTS.pkl --gt-json SCENE_GT.json
-        [--task obb|hbb] [--encode thetaobb|pointobb] [--export PREFIX]
+        [--task obb|hbb] [--encode thetaobb|pointobb|hobb]
+        [--export PREFIX]
 
 RESULTS.pkl is tools/torch_test.py's (or tools/test.py's) ``--out``:
 {"results": per-patch dicts, "names": patch file names}.  The patch
@@ -34,7 +35,7 @@ def main():
                    help="scene-level gt json: {scene: {boxes, labels}}")
     p.add_argument("--task", default="obb", choices=["obb", "hbb"])
     p.add_argument("--encode", default="thetaobb",
-                   choices=["thetaobb", "pointobb"])
+                   choices=["thetaobb", "pointobb", "hobb"])
     p.add_argument("--export", default=None,
                    help="prefix for the csv AP export")
     args = p.parse_args()

@@ -11,9 +11,12 @@ checkpoint directory of tools/torch_train.py: its latest model_N; or a
 saved state_dict), runs `apis.test.run_inference` over the config's
 ``data.test`` at ``--batch-size`` through its ``test_pipeline``, saves
 {"results", "names"} to ``--out``, then merges each ``--eval`` task's
-patch detections into scenes (obb: the rboxes' quads, or for the mask
-family (MaskOBB, CenterMapOBB, CenterMap-Net) the min-area rectangles
-of the predicted masks, `core.masks.mask_quads`; hbb: the boxes) and
+patch detections into scenes (obb: the rboxes' quads in the encode
+predict gives them, `result_encode`: a two-stage model's rbbox head's,
+thetaobbs after a refinement head, a RetinaNetOBB's ``rbox_encode``; or
+for the mask family (MaskOBB, CenterMapOBB, CenterMap-Net) the min-area
+rectangles of the predicted masks, `core.masks.mask_quads`; hbb: the
+boxes) and
 writes DOTA submission txt under ``--submit-dir/<task>``.  It runs
 on the CUDA card unless ``--device cpu``, and raises when there is
 none.  The reference's ``--tta`` (apis/tta.py), ``--precompile`` and
@@ -72,10 +75,7 @@ def main():
             pickle.dump({"results": results, "names": names}, f)
 
     if hasattr(dataset, "merge_patches_to_scenes") and results:
-        # a refinement head's predict returns refined thetaobbs whatever
-        # the first stage's encode
-        encode = ("thetaobb" if model.rbbox_refine_head is not None
-                  else getattr(model.rbbox_head, "encode", None))
+        encode = model.result_encode
         for task in args.eval:
             dets = []
             for r in results:
