@@ -14,14 +14,20 @@ of the mapping in the reference's `tools/torch2jax.py`:
   `torch.nn.ConvTranspose2d` correlates with the flipped kernel of
   what flax's ``transpose_kernel=False`` layer applies;
 - FrozenBN: scale -> weight, bias -> bias, and the batch stats
-  mean / var -> running_mean / running_var;
+  mean / var -> running_mean / running_var; GroupNorm (the ResNet's
+  ``stem_bn``, ``bn1``-``bn3`` and ``ds_bn`` and the FPN's
+  ``lateral_norm{i}`` / ``fpn_norm{i}`` under a GN norm_cfg): scale ->
+  weight, bias -> bias, no statistics;
 - top-level modules _backbone / _neck / _rpn / _bbox_head / _rbbox_head
   / _rbbox_refine_head / _mask_head / _semantic_head -> backbone / neck
   / rpn_head / bbox_head / rbbox_head / rbbox_refine_head / mask_head /
   semantic_head, and a single-stage detector's dense head _head ->
   bbox_head; the inner names are the same on both sides (RetinaHead's
   cls_conv{i}, reg_conv{i}, retina_cls, retina_reg; FPN's lateral{i},
-  fpn{i} over the used levels and extra{i}).
+  fpn{i} over the used levels and extra{i}; HRNet's stem1/2,
+  stem_bn1/2, layer1_block{k}, t{stage}_{b}, t_bn{stage}_{b} and
+  stage{s}_module{m} with its branch{b}_block{k}, fuse{i}_{j}[_{s}] and
+  fuse_bn{i}_{j}[_{s}]; HRFPN's reduce and fpn{i}).
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference

@@ -1,8 +1,9 @@
-"""Fixed-size random sampling over padded candidate sets.
+"""Fixed-size random and OHEM sampling over padded candidate sets.
 
-Port of `random_topk_mask`, `random_sample_masks`,
+Port of `random_topk_mask`, `topk_mask_by_score`, `random_sample_masks`,
 `pseudo_sample_masks`, `FixedSample` and `sample_fixed` from
-`aidet_tpu/core/sample.py`.  Anchor heads get
+`aidet_tpu/core/sample.py`, and of the OHEM sampler of its two-stage
+detector (`ohem_sample`).  Anchor heads get
 boolean masks, RoI heads fixed-length index arrays with validity
 masks, so shapes stay fixed.  Leading batch dimensions are written out
 ([..., N]).
@@ -33,6 +34,21 @@ def random_topk_mask(mask, k, generator: torch.Generator):
     r = torch.rand(mask.shape, generator=generator, device=mask.device)
     score = torch.where(mask, r, r.new_full((), -1.0))
     order = torch.argsort(score, dim=-1, descending=True, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(mask.shape[-1], device=mask.device)
+        .expand_as(order))
+    if isinstance(k, torch.Tensor):
+        k = k[..., None]
+    return mask & (rank < k)
+
+
+def topk_mask_by_score(mask, score, k):
+    """The up to ``k`` True entries of ``mask`` [..., N] with the highest
+    ``score`` (``k`` an int or a [...] tensor), as a boolean mask: the
+    reference's hard-example ranking (OHEMSampler), a stable sort, so
+    that ties go to the lower index."""
+    s = torch.where(mask, score, score.new_tensor(-float("inf")))
+    order = torch.argsort(-s, dim=-1, stable=True)
     rank = torch.empty_like(order).scatter_(
         -1, order, torch.arange(mask.shape[-1], device=mask.device)
         .expand_as(order))
@@ -96,12 +112,30 @@ def sample_fixed(assigned, num: int, pos_fraction: float,
     """Fixed-size RoI sampling: the selected positives (in candidate
     order), then the selected negatives, then the other candidates as
     invalid padding slots; the first min(num, N) rows are returned."""
-    n = assigned.shape[-1]
     pos = random_topk_mask(assigned > 0, int(num * pos_fraction),
                            generator)
     neg = random_topk_mask(assigned == 0,
                            _num_neg(num, pos.sum(-1), neg_pos_ub),
                            generator)
+    return _pack(pos, neg, assigned, num)
+
+
+def ohem_sample(assigned, loss, num: int, pos_fraction: float) -> FixedSample:
+    """OHEM's fixed-size RoI sample (the reference's two-stage detector,
+    two_stage.py:498-540; parity: OHEMSampler): the int(num *
+    pos_fraction) positives (assigned > 0) with the highest ``loss``
+    [..., N], then the num - n_pos negatives (assigned == 0) with the
+    highest, packed as `sample_fixed` packs them."""
+    pos = topk_mask_by_score(assigned > 0, loss, int(num * pos_fraction))
+    neg = topk_mask_by_score(assigned == 0, loss, num - pos.sum(-1))
+    return _pack(pos, neg, assigned, num)
+
+
+def _pack(pos, neg, assigned, num: int) -> FixedSample:
+    """The selected positives (in candidate order), then the selected
+    negatives, then the other candidates as invalid padding slots; the
+    first min(num, N) rows."""
+    n = assigned.shape[-1]
     group = torch.where(pos, 0, torch.where(neg, 1, 2))
     rank = group * n + torch.arange(n, device=assigned.device)
     order = torch.argsort(rank, dim=-1)[..., :num]

@@ -1,12 +1,14 @@
-"""ResNet backbone with frozen batch-norm.
+"""ResNet backbone with frozen batch-norm or GroupNorm.
 
-Port of `aidet_tpu/models/backbones/resnet.py` (FrozenBN, BasicBlock,
-Bottleneck, ResNet) at the flagship's settings: pytorch-style
-bottlenecks (stride on the 3x3), stage strides (1, 2, 2, 2), symmetric
-padding (k - 1) // 2 as in its `conv`, the optional space-to-depth
-stem, and `frozen_stages`.  Submodule names follow the reference's
-parameter tree (`stem_conv`, `layer1_block0.conv1`, ...),
-so `aidet_tpu_torch.convert` maps weights one to one.
+Port of `aidet_tpu/models/backbones/resnet.py` (FrozenBN, `make_norm`,
+BasicBlock, Bottleneck, ResNet): pytorch-style bottlenecks (stride on
+the 3x3) or caffe-style ones (stride on the first 1x1), stage strides
+(1, 2, 2, 2), symmetric padding (k - 1) // 2 as in its `conv`, the
+optional space-to-depth stem, `frozen_stages`, and FrozenBN or, with
+``norm_cfg=dict(type="GN", num_groups=N)``, GroupNorm (epsilon 1e-5,
+its own weight and bias) in every norm slot.  Submodule names follow
+the reference's parameter tree (`stem_conv`, `layer1_block0.conv1`,
+...), so `aidet_tpu_torch.convert` maps weights one to one.
 
 The public layout is NHWC: `ResNet.forward` takes [B, H, W, C] and
 returns the C2..C5 maps as [B, H_l, W_l, C_l].  Inside, the maps are
@@ -43,23 +45,43 @@ class FrozenBN(nn.Module):
                 + shift.to(x.dtype)[:, None, None])
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm computed in float32 and returned in the input's dtype
+    (flax's `nn.GroupNorm` computes its statistics in float32)."""
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def make_norm(channels: int, norm_cfg=None):
+    """FrozenBN, or GroupNorm for ``norm_cfg=dict(type="GN",
+    num_groups=N)`` (N defaults to 32, as in the reference)."""
+    if norm_cfg and norm_cfg.get("type") == "GN":
+        return GroupNorm(norm_cfg.get("num_groups", 32), channels, eps=1e-5)
+    return FrozenBN(channels)
+
+
 def conv(cin, cout, kernel, stride=1):
     return nn.Conv2d(cin, cout, kernel, stride, padding=(kernel - 1) // 2,
                      bias=False)
 
 
 class BasicBlock(nn.Module):
+    """``style`` is taken for a uniform signature: a BasicBlock has no
+    1x1 to stride."""
     expansion = 1
 
-    def __init__(self, cin, planes, stride=1, downsample=False):
+    def __init__(self, cin, planes, stride=1, downsample=False,
+                 norm_cfg=None, style="pytorch"):
         super().__init__()
         self.conv1 = conv(cin, planes, 3, stride)
-        self.bn1 = FrozenBN(planes)
+        self.bn1 = make_norm(planes, norm_cfg)
         self.conv2 = conv(planes, planes, 3)
-        self.bn2 = FrozenBN(planes)
+        self.bn2 = make_norm(planes, norm_cfg)
         if downsample:
             self.ds_conv = conv(cin, planes, 1, stride)
-            self.ds_bn = FrozenBN(planes)
+            self.ds_bn = make_norm(planes, norm_cfg)
         self.downsample = downsample
 
     def forward(self, x):
@@ -72,17 +94,20 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin, planes, stride=1, downsample=False):
+    def __init__(self, cin, planes, stride=1, downsample=False,
+                 norm_cfg=None, style="pytorch"):
         super().__init__()
-        self.conv1 = conv(cin, planes, 1)
-        self.bn1 = FrozenBN(planes)
-        self.conv2 = conv(planes, planes, 3, stride)
-        self.bn2 = FrozenBN(planes)
+        # 'caffe' strides the first 1x1, 'pytorch' the 3x3
+        s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
+        self.conv1 = conv(cin, planes, 1, s1)
+        self.bn1 = make_norm(planes, norm_cfg)
+        self.conv2 = conv(planes, planes, 3, s2)
+        self.bn2 = make_norm(planes, norm_cfg)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = FrozenBN(planes * 4)
+        self.bn3 = make_norm(planes * 4, norm_cfg)
         if downsample:
             self.ds_conv = conv(cin, planes * 4, 1, stride)
-            self.ds_bn = FrozenBN(planes * 4)
+            self.ds_bn = make_norm(planes * 4, norm_cfg)
         self.downsample = downsample
 
     def forward(self, x):
@@ -118,10 +143,14 @@ class ResNet(nn.Module):
     (resnet.py:264-268, :306-307).  Their parameters then get no
     gradient; the train step gives them the reference's zero gradient,
     so weight decay and momentum still move them.
+
+    norm_cfg: None (FrozenBN) or dict(type="GN", num_groups=N), in the
+    stem and every block; style: "pytorch" or "caffe" (the
+    bottlenecks' stride on the first 1x1).
     """
 
     def __init__(self, depth=50, stem_space_to_depth=False,
-                 frozen_stages=1):
+                 frozen_stages=1, norm_cfg=None, style="pytorch"):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.stem_space_to_depth = stem_space_to_depth
@@ -130,7 +159,7 @@ class ResNet(nn.Module):
             self.stem_conv = nn.Conv2d(12, BASE_CHANNELS, 4, bias=False)
         else:
             self.stem_conv = conv(3, BASE_CHANNELS, 7, 2)
-        self.stem_bn = FrozenBN(BASE_CHANNELS)
+        self.stem_bn = make_norm(BASE_CHANNELS, norm_cfg)
         self.stage_names = []
         cur = BASE_CHANNELS
         for i, n_blocks in enumerate(stage_blocks):
@@ -141,7 +170,8 @@ class ResNet(nn.Module):
                 stride = 2 if b == 0 and i > 0 else 1
                 ds = b == 0 and (stride != 1 or cur != out_c)
                 name = f"layer{i + 1}_block{b}"
-                self.add_module(name, block_cls(cur, planes, stride, ds))
+                self.add_module(name, block_cls(cur, planes, stride, ds,
+                                                norm_cfg, style))
                 names.append(name)
                 cur = out_c
             self.stage_names.append(names)

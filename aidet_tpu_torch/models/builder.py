@@ -3,9 +3,11 @@ the configs' ``dict(type=..., ...)`` entries.
 
 Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
 modules under the reference's type names, each behind a factory that
-reads the reference's keyword names: the backbone `ResNet`, the neck
-`FPN`, the heads `RPNHead`, `SharedFCBBoxHead` and `RBBoxHead`, and the
-detectors `RBBoxRCNN` and `RBBoxRCNNRRoI`.  An option the port does
+reads the reference's keyword names: the backbones `ResNet` (FrozenBN
+or GroupNorm, pytorch or caffe style) and `HRNet`, the necks `FPN`
+(optionally with GroupNorm) and `HRFPN`, the heads `RPNHead`,
+`SharedFCBBoxHead` and `RBBoxHead`, and the detectors `RBBoxRCNN` and
+`RBBoxRCNNRRoI`.  An option the port does
 not implement raises `NotImplementedError` unless it holds the
 reference's default; a type that is not registered raises `KeyError`.
 
@@ -26,6 +28,7 @@ import torch
 
 from ..flagship import finish
 from ..utils.registry import build_from_cfg
+from .backbones.hrnet import HRNet
 from .backbones.resnet import ARCH_SETTINGS, ResNet
 from .detectors.single_stage import SingleStageDetector
 from .detectors.two_stage import TwoStageDetector
@@ -36,6 +39,7 @@ from .heads.rpn_head import RPNHead
 from .heads.semantic_head import WPSGAHead
 from .losses import FocalLoss, SmoothL1Loss
 from .necks.fpn import FPN
+from .necks.hrfpn import HRFPN
 from .registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 NOT_PORTED = "not yet ported to aidet_tpu_torch"
@@ -76,35 +80,67 @@ def torch_dtype(value):
     return dtype
 
 
+def _norm_cfg(type_name, norm_cfg):
+    """A norm_cfg the port builds: None (FrozenBN) or GroupNorm."""
+    if norm_cfg is not None and norm_cfg.get("type") != "GN":
+        raise NotImplementedError(f"{type_name} norm_cfg {norm_cfg!r} is "
+                                  f"{NOT_PORTED}; None and type 'GN' are")
+    return norm_cfg
+
+
 @BACKBONES.register(name="ResNet")
 def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
-            frozen_stages=1, dtype=None, **options):
+            frozen_stages=1, norm_cfg=None, style="pytorch", dtype=None,
+            **options):
     # stem_s2d_phase is the same function over the same weight, relaid
     # for the TPU's matrix unit; the port has one s2d stem
     if depth not in ARCH_SETTINGS:
         raise NotImplementedError(f"ResNet depth {depth} is {NOT_PORTED}; "
                                   f"{sorted(ARCH_SETTINGS)} are")
+    if style not in ("pytorch", "caffe"):
+        raise ValueError(f"ResNet style {style!r}: 'pytorch' or 'caffe'")
     _only_defaults("ResNet", options, dict(
         num_stages=4, strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
         out_indices=(0, 1, 2, 3), base_channels=64, gen_attention=None,
         gen_attention_stages=NO_STAGES, dcn=None, stage_with_dcn=NO_STAGES,
-        gcb=None, stage_with_gcb=NO_STAGES, norm_cfg=None, conv_cfg=None,
-        norm_eval=True, style="pytorch", pretrained=None))
+        gcb=None, stage_with_gcb=NO_STAGES, conv_cfg=None,
+        norm_eval=True, pretrained=None))
     return ResNet(depth=depth, stem_space_to_depth=stem_space_to_depth,
-                  frozen_stages=frozen_stages)
+                  frozen_stages=frozen_stages,
+                  norm_cfg=_norm_cfg("ResNet", norm_cfg), style=style)
+
+
+@BACKBONES.register(name="HRNet")
+def _hrnet(width=32, stage_modules=(1, 1, 4, 3), stage_blocks=4,
+           norm_eval=True, pretrained=None, dtype=None, **options):
+    # norm_eval and pretrained are fields the reference's forward does
+    # not read: its norms are FrozenBN, and weights come from a
+    # checkpoint
+    _only_defaults("HRNet", options, {})
+    return HRNet(width=width, stage_modules=tuple(stage_modules),
+                 stage_blocks=stage_blocks)
 
 
 @NECKS.register(name="FPN")
 def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
          start_level=0, end_level=-1, add_extra_convs=False,
          extra_convs_on_inputs=True, relu_before_extra_convs=False,
-         dtype=None, **options):
-    _only_defaults("FPN", options, dict(norm_cfg=None))
+         norm_cfg=None, dtype=None, **options):
+    _only_defaults("FPN", options, {})
     return FPN(in_channels=tuple(in_channels), out_channels=out_channels,
                num_outs=num_outs, start_level=start_level,
                end_level=end_level, add_extra_convs=add_extra_convs,
                extra_convs_on_inputs=extra_convs_on_inputs,
-               relu_before_extra_convs=relu_before_extra_convs)
+               relu_before_extra_convs=relu_before_extra_convs,
+               norm_cfg=_norm_cfg("FPN", norm_cfg))
+
+
+@NECKS.register(name="HRFPN")
+def _hrfpn(in_channels=(32, 64, 128, 256), out_channels=256, num_outs=5,
+           dtype=None, **options):
+    _only_defaults("HRFPN", options, {})
+    return HRFPN(in_channels=tuple(in_channels), out_channels=out_channels,
+                 num_outs=num_outs)
 
 
 @HEADS.register(name="RPNHead")

@@ -19,8 +19,11 @@ for those branches of
   level 0's stride (K1 on one level) and added to every RoI crop;
 - `loss`: the RPN's anchor-target loss, proposals without gradient,
   gt boxes prepended as candidates, MaxIoU assignment and fixed random
-  sampling per image, one RoIAlign (kernel K2 on the card) whose crops
-  feed the bbox head and the rbbox head, and their losses; with a
+  sampling per image (or with ``sampler="ohem"`` the candidates with
+  the highest classification loss under the bbox head, scored without
+  gradient over all of them: a K2 forward launch), one RoIAlign
+  (kernel K2 on the card) whose crops feed the bbox head and the rbbox
+  head, and their losses; with a
   refinement head, the class-selected first-stage rboxes of the
   positive rois are re-cropped by rotated RoIAlign (kernel K4, forward
   and backward, on the card) and the refinement head's rtheta and
@@ -30,7 +33,12 @@ for those branches of
   (K2) against `core.targets.mask_target` of the gt masks: BCE or the
   CenterMap loss with mask weights.
 
-The GA-RPN, OHEM and combined samplers, and the grid, shared-head,
+- `aug_predict`: the reference's multi-augmentation test of one image
+  (proposals merged in the original frame, every augmentation scoring
+  the same merged proposals, boxes and softmax scores averaged before
+  one multiclass NMS).
+
+The GA-RPN and combined samplers, and the grid, shared-head,
 Mask Scoring (`MaskIoUHead`) and HTC branches are not ported.
 """
 
@@ -47,10 +55,10 @@ from ...core.anchors import build_pyramid_anchors
 from ...core.assign import max_iou_assign
 from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, hobb2thetaobb,
                             hobb_rolls, pointobb2thetaobb, rtheta2delta)
-from ...core.sample import sample_fixed
+from ...core.sample import ohem_sample, sample_fixed
 from ...core.targets import bbox_target, mask_target, rbbox_target
-from ...ops.nms import (multiclass_nms, nms_cfg_kwargs,
-                        select_parallel_rboxes)
+from ...ops.nms import (NEG_INF, multiclass_nms, nms, nms_cfg_kwargs,
+                        select_parallel_rboxes, topk)
 from ...ops.roi_align import roi_align_bandx_forward, roi_align_forward
 from ...ops.rroi_align import rroi_align_forward
 from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
@@ -216,16 +224,18 @@ class TwoStageDetector(nn.Module):
         """Multi-level RoIAlign over the first 4 levels: [B, R, s, s, C].
         On CUDA tensors this launches kernel K1 under no_grad and K2
         (forward, then its backward kernel) when the features need a
-        gradient.  ``infer`` on bfloat16 features with AIDET_ROI_BAND=x
-        (read at each call, as the reference does) takes K3 instead of
-        K1: the same function, reduced from band-chunked rois."""
+        gradient; a training pass without gradient (``infer`` False
+        under no_grad: OHEM's scoring) is K2's forward too.  ``infer``
+        on bfloat16 features with AIDET_ROI_BAND=x (read at each call,
+        as the reference does) takes K3 instead of K1: the same
+        function, reduced from band-chunked rois."""
         levels = [f.contiguous() for f in feats[:4]]
         if (infer and levels[0].dtype == torch.bfloat16
                 and os.environ.get("AIDET_ROI_BAND", "1") == "x"):
             return roi_align_bandx_forward(levels, rois_b.float(), out_size,
                                            self.strides[:4])
         return roi_align_forward(levels, rois_b.float(), out_size,
-                                 self.strides[:4])
+                                 self.strides[:4], train=not infer)
 
     def _fuse_semantic(self, crops, sem_feat, rois_b, out_size):
         """The semantic map [B, H, W, C] cropped at the rois [B, R, 4] by
@@ -306,6 +316,75 @@ class TwoStageDetector(nn.Module):
         if scale_factors is not None:
             self._rescale(out, scale_factors)
         return out
+
+    @torch.no_grad()
+    def aug_predict(self, imgs, img_shapes, flips, scale_factors):
+        """Multi-augmentation (scale x flip) test of ONE image: the
+        reference's `aug_predict` (two_stage.py:872; parity:
+        TwoStageDetector.aug_test with merge_aug_proposals and
+        merge_aug_bboxes).  Every variant's proposals are mapped back to
+        the original frame and merged by one NMS (the rpn test_cfg's
+        nms_thr, its top max_num); every variant's bbox head then scores
+        the same merged proposals, mapped into its frame; the boxes,
+        mapped back, and the softmax scores are averaged over the
+        variants before one multiclass NMS.  A flip mirrors about the
+        variant's content width (``w - x - 1``), not the canvas.
+
+        imgs [A, S, S, 3] the variants; img_shapes [A, 2]; flips [A]
+        bool; scale_factors [A].  Returns predict's boxes, scores,
+        labels and valid with a leading dim of 1 (boxes only: no rbbox,
+        mask or semantic branch, as in the reference)."""
+        ec = self.test_cfg
+        img_shapes = img_shapes.float()
+        flips = flips.bool()
+        sf = scale_factors.to(img_shapes)
+        w_img = img_shapes[:, 1]
+        feats = self.extract_feat(imgs)
+        rpn_cls, rpn_reg = self.rpn_head(feats)
+        cls_flat, reg_flat = flatten_level_outputs(
+            rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
+        props, scores, valid = rpn_proposals(
+            cls_flat, reg_flat, self.anchors, self.level_sizes, img_shapes,
+            target_stds=RPN_TARGET_STDS, **ec["rpn"])
+        a, p = props.shape[:2]
+
+        def flipped(boxes, f, w):
+            """boxes [A, ..., 4] mirrored where f [A] about w [A]."""
+            shape = (a,) + (1,) * (boxes.dim() - 2)
+            f, w = f.reshape(shape), w.reshape(shape)
+            x1 = torch.where(f, w - boxes[..., 2] - 1, boxes[..., 0])
+            x2 = torch.where(f, w - boxes[..., 0] - 1, boxes[..., 2])
+            return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], -1)
+
+        def per_aug(x):
+            return x.reshape((a,) + (1,) * 2)
+
+        flat_p = (flipped(props, flips, w_img) / per_aug(sf)).reshape(a * p, 4)
+        flat_s = scores.reshape(a * p)
+        keep = nms(flat_p, flat_s, ec["rpn"]["nms_thr"], valid.reshape(a * p))
+        k = min(ec["rpn"]["max_num"], a * p)
+        top_s, top_i = topk(torch.where(keep, flat_s,
+                                        flat_s.new_tensor(NEG_INF)), k)
+        merged = flat_p[top_i]
+        merged_valid = top_s > NEG_INF / 2
+
+        props_aug = flipped(merged[None] * per_aug(sf), flips, w_img)
+        crops = self._roi_features(feats, props_aug,
+                                   self.bbox_head.roi_feat_size, infer=True)
+        cls_score, bbox_pred = self.bbox_head(
+            crops.reshape((a * k,) + crops.shape[2:]))
+        boxes, cls_prob = bbox_head_decode(
+            props_aug, cls_score.reshape(a, k, -1),
+            bbox_pred.reshape(a, k, -1), RCNN_TARGET_MEANS,
+            RCNN_TARGET_STDS, img_shape=img_shapes[:, None, :])
+        grp = boxes.reshape(a, k, -1, 4)
+        grp = flipped(grp, flips, w_img) / sf.reshape(a, 1, 1, 1)
+        rc = ec["rcnn"]
+        res = multiclass_nms(grp.reshape(a, k, -1).mean(0), cls_prob.mean(0),
+                             rc["score_thr"], max_num=rc["max_per_img"],
+                             valid=merged_valid, **nms_cfg_kwargs(rc))
+        return dict(boxes=res.boxes[None], scores=res.scores[None],
+                    labels=res.labels[None], valid=res.valid[None])
 
     def _predict_rboxes(self, feats, crops, props, dets):
         """The rbbox head's rotated boxes of the kept detections [B, K,
@@ -446,9 +525,10 @@ class TwoStageDetector(nn.Module):
         """
         tc = self.train_cfg
         rc = tc["rcnn"]
-        if rc.get("sampler", "random") != "random":
-            raise NotImplementedError(f"rcnn sampler {rc['sampler']!r} "
-                                      "is not ported; 'random' is")
+        sampler = rc.get("sampler", "random")
+        if sampler not in ("random", "ohem"):
+            raise NotImplementedError(f"rcnn sampler {sampler!r} is not "
+                                      "ported; 'random' and 'ohem' are")
         if generator is None:
             raise TypeError("loss needs the sampling generator")
         gt_masks = _dq(gt_masks)
@@ -499,9 +579,14 @@ class TwoStageDetector(nn.Module):
                                  neg_iou_thr=rc["neg_iou_thr"],
                                  min_pos_iou=rc["min_pos_iou"],
                                  box_valid=cand_valid)
-            sample = sample_fixed(res.gt_inds, rc["num_samples"],
-                                  rc["pos_fraction"], generator,
-                                  rc["neg_pos_ub"])
+            if sampler == "ohem":
+                sample = ohem_sample(
+                    res.gt_inds, self._ohem_loss(feats, cand, res, amp),
+                    rc["num_samples"], rc["pos_fraction"])
+            else:
+                sample = sample_fixed(res.gt_inds, rc["num_samples"],
+                                      rc["pos_fraction"], generator,
+                                      rc["neg_pos_ub"])
         r = rc["num_samples"]
         if sample.inds.shape[1] != r:
             # sample_fixed returns min(num_samples, candidates) rows; the
@@ -573,6 +658,24 @@ class TwoStageDetector(nn.Module):
                     feats, sem_feat, rois, sample, gt_masks,
                     gt_mask_weights, gt_labels, amp)
         return losses
+
+    @torch.no_grad()
+    def _ohem_loss(self, feats, cand, res, amp):
+        """OHEM's ranking score of every candidate [B, C] (the reference's
+        two_stage.py:498-540): the bbox head without gradient on the
+        crops of all candidates (gts, then proposals), and the
+        cross-entropy of its scores at the assigned label, which is the
+        reference's: 1 for a positive (the assignment runs without gt
+        labels), 0 otherwise."""
+        b, c = cand.shape[:2]
+        crops = self._roi_features([f.detach() for f in feats], cand,
+                                   self.bbox_head.roi_feat_size)
+        with amp:
+            cls_score, _ = self.bbox_head(
+                crops.reshape((b * c,) + crops.shape[2:]))
+        logp = torch.log_softmax(cls_score.float().reshape(b, c, -1), -1)
+        lab = torch.where(res.gt_inds > 0, res.labels, 0).long()
+        return -torch.gather(logp, -1, lab[..., None])[..., 0]
 
     def _mask_loss(self, feats, sem_feat, rois, sample, gt_masks,
                    gt_mask_weights, gt_labels, amp):

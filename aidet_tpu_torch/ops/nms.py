@@ -1,10 +1,11 @@
-"""Fixed-shape hard NMS, rotated (polygon) NMS and the multiclass
-orchestration of the detector heads.
+"""Fixed-shape hard NMS, soft-NMS, rotated (polygon) NMS and the
+multiclass orchestration of the detector heads.
 
 Port of `aidet_tpu/ops/nms.py` (`_suppression_matrix`,
-`_greedy_keep_presupp`, `nms`, `rnms`, `multiclass_nms` with its
-``box_dim=8`` rotated branch, `NMSResult`, `select_parallel_rboxes`,
-`nms_cfg_kwargs`), in plain PyTorch: the reference writes these as XLA
+`_greedy_keep_presupp`, `nms`, `soft_nms`, `rnms`, `multiclass_nms`
+with its ``box_dim=8`` rotated branch and its soft-NMS branch,
+`NMSResult`, `select_parallel_rboxes`, `nms_cfg_kwargs`), in plain
+PyTorch: the reference writes these as XLA
 code, not as Pallas kernels.  Every function takes any number of
 leading batch dimensions, so all (image, level) or (image, class)
 problems of a call are solved together, on the tensors' device.
@@ -18,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.boxes import bbox_overlaps
 from ..core.riou import quad_overlaps
 
 NEG_INF = -1e10
@@ -126,6 +128,56 @@ def rnms(quads: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.1,
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
 
+SOFT_NMS_METHODS = ("linear", "gaussian", "naive")
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float = 0.3,
+             method: str = "linear", sigma: float = 0.5,
+             min_score: float = 1e-3, valid: torch.Tensor | None = None):
+    """Soft-NMS on horizontal boxes [..., N, 4]: decay instead of
+    suppress (the reference's `soft_nms` :178; parity: mmdet's
+    soft_nms_cpu).  N rounds over every problem of the call at once:
+    each round picks the highest live score of each problem (the first
+    on a tie) and, while that score exceeds ``min_score``, decays the
+    other live scores by its IoU row (legacy +1 sizes): "linear" by
+    1 - IoU above ``iou_thr``, "gaussian" by exp(-IoU^2 / sigma),
+    "naive" to 0 above ``iou_thr``.  The rounds run on the tensors'
+    device without a host sync.  Returns (decayed scores [..., N], 0
+    where not kept; keep [..., N] bool: picked while alive, with a
+    final score above ``min_score``)."""
+    if method not in SOFT_NMS_METHODS:
+        raise ValueError(f"soft_nms method {method!r}: one of "
+                         f"{SOFT_NMS_METHODS}")
+    n = scores.shape[-1]
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    iou = bbox_overlaps(boxes, boxes)                     # [..., N, N]
+    if method == "linear":
+        decay = torch.where(iou > iou_thr, 1.0 - iou, 1.0)
+    elif method == "gaussian":
+        decay = torch.exp(-(iou * iou) / sigma)
+    else:
+        decay = torch.where(iou > iou_thr, 0.0, 1.0).to(iou.dtype)
+    neg = scores.new_tensor(NEG_INF)
+    cur = torch.where(valid, scores, neg)
+    done = ~valid
+    keep = torch.zeros_like(valid)
+    cols = torch.arange(n, device=scores.device)
+    for _ in range(n):
+        i = torch.argmax(torch.where(done, neg, cur), -1, keepdim=True)
+        alive = torch.gather(cur, -1, i) > min_score          # [..., 1]
+        pick = cols == i                                      # [..., N]
+        row = torch.gather(decay, -2, i[..., None].expand(
+            i.shape[:-1] + (1, n)))[..., 0, :]
+        decayed = torch.where(done | pick, cur, cur * row)
+        cur = torch.where(alive, decayed, cur)
+        done = done | pick
+        keep = keep | (pick & alive)
+    keep = keep & (cur > min_score)
+    return torch.where(keep, cur, cur.new_zeros(())), keep
+
+
 class NMSResult(NamedTuple):
     """Fixed-size multiclass NMS output (last dim ``max_num``)."""
     boxes: torch.Tensor    # [..., K, D]
@@ -151,9 +203,9 @@ def nms_cfg_kwargs(cfg: dict) -> dict:
     """A test_cfg's NMS selection as `multiclass_nms` keywords (port of
     the reference's `ops/nms.py::nms_cfg_kwargs` :246-268; parity:
     bbox_nms.py:45-47): the flat ``nms_thr`` key, overridden by a
-    reference-style ``nms=dict(type='nms', iou_thr=...)``.  Soft-NMS
-    (``type='soft_nms'``) raises `NotImplementedError` until it is
-    ported (ROADMAP queue 1 item 10); it never falls back to hard NMS.
+    reference-style ``nms=dict(type='nms', iou_thr=...)`` or
+    ``nms=dict(type='soft_nms', iou_thr=..., method=..., sigma=...,
+    min_score=...)`` (defaults linear, 0.5, 1e-3).
     """
     out: dict = dict(iou_thr=cfg.get("nms_thr", 0.5))
     ncfg = cfg.get("nms")
@@ -162,10 +214,11 @@ def nms_cfg_kwargs(cfg: dict) -> dict:
         t = d.pop("type", "nms")
         out["iou_thr"] = d.pop("iou_thr", out["iou_thr"])
         if t == "soft_nms":
-            raise NotImplementedError(
-                "test_cfg nms type 'soft_nms' is not yet ported to "
-                "aidet_tpu_torch (ROADMAP queue 1 item 10)")
-        if t != "nms":
+            out["nms_type"] = "soft_nms"
+            out["soft_method"] = d.pop("method", "linear")
+            out["sigma"] = d.pop("sigma", 0.5)
+            out["min_score"] = d.pop("min_score", 1e-3)
+        elif t != "nms":
             raise ValueError(f"unknown nms type {t!r}")
     return out
 
@@ -173,8 +226,14 @@ def nms_cfg_kwargs(cfg: dict) -> dict:
 def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
                    iou_thr: float = 0.5, max_num: int = 100,
                    valid: torch.Tensor | None = None,
-                   pre_nms_top_k: int = 256, box_dim: int = 4) -> NMSResult:
+                   pre_nms_top_k: int = 256, box_dim: int = 4,
+                   nms_type: str = "nms", soft_method: str = "linear",
+                   sigma: float = 0.5, min_score: float = 1e-3) -> NMSResult:
     """Per-class NMS over padded candidates, fixed-size top-K output.
+
+    ``nms_type="soft_nms"`` runs each class through `soft_nms` (boxes
+    only: ``box_dim`` 4); the kept detections carry their decayed
+    scores into the global top-``max_num``.
 
     Args:
       multi_bboxes: [(B,) N, G*D] (group 0 = background) or [(B,) N, D]
@@ -200,19 +259,35 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
     scores_t = multi_scores[..., 1:].transpose(1, 2)       # [B, C, N]
     if box_dim not in (4, 8):
         raise ValueError(f"box_dim {box_dim}: 4 (boxes) or 8 (quads)")
+    if nms_type not in ("nms", "soft_nms"):
+        raise ValueError(f"nms_type {nms_type!r}: 'nms' or 'soft_nms'")
+    soft = nms_type == "soft_nms"
+    if soft and box_dim != 4:
+        raise ValueError("soft_nms supports horizontal boxes only "
+                         "(the reference's is HBB only)")
     suppress = nms if box_dim == 4 else rnms
     boxes_t = _per_class_boxes(multi_bboxes, num_classes, box_dim)
     cls_valid = valid[:, None, :] & (scores_t > score_thr)
     neg = scores_t.new_tensor(NEG_INF)
+
+    def soft_keep(bx, sc, v):
+        return soft_nms(bx, sc, iou_thr, soft_method, sigma, min_score, v)
 
     if pre_nms_top_k and pre_nms_top_k < n:
         k = min(max(pre_nms_top_k, max_num), n)
         top_s, top_i = topk(torch.where(cls_valid, scores_t, neg), k)
         boxes_k = torch.gather(
             boxes_t, 2, top_i[..., None].expand(b, num_classes, k, box_dim))
-        keep_k = suppress(boxes_k, top_s, iou_thr, top_s > NEG_INF / 2,
-                          presorted=True)
+        if soft:
+            dec_s, keep_k = soft_keep(boxes_k, top_s, top_s > NEG_INF / 2)
+            scores_t = scores_t.scatter(-1, top_i, dec_s)
+        else:
+            keep_k = suppress(boxes_k, top_s, iou_thr, top_s > NEG_INF / 2,
+                              presorted=True)
         keep = torch.zeros_like(cls_valid).scatter(-1, top_i, keep_k)
+        keep &= cls_valid
+    elif soft:
+        scores_t, keep = soft_keep(boxes_t, scores_t, cls_valid)
         keep &= cls_valid
     else:
         keep = suppress(boxes_t, scores_t, iou_thr, cls_valid)

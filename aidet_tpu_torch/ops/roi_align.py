@@ -776,13 +776,17 @@ class RoIAlignFunction(torch.autograd.Function):
 
 def roi_align_forward(feats, rois_b, out_size=7,
                       featmap_strides=(4, 8, 16, 32), sampling_ratio=2,
-                      finest_scale=56, aligned=True, bump_to_window=False):
+                      finest_scale=56, aligned=True, bump_to_window=False,
+                      train=False):
     """Batched multi-level RoIAlign: [B, R, out_size, out_size, C].
 
     On CPU tensors: the plain version.  On CUDA tensors, in the
     features' dtype (bfloat16 or float32), or an exception: K1 when no
     gradient is wanted (predict, under no_grad), else K2
-    (`RoIAlignFunction`), whose backward is a CUDA kernel too.
+    (`RoIAlignFunction`), whose backward is a CUDA kernel too.  With
+    ``train`` a pass that wants no gradient is still K2's forward (the
+    same kernel, counted on the train path's handle): the reference's
+    OHEM scores its candidates with its train-path RoIAlign.
     """
     feats = list(feats)
     devices = {f.device for f in feats} | {rois_b.device}
@@ -806,8 +810,9 @@ def roi_align_forward(feats, rois_b, out_size=7,
     else:
         out = torch.empty((b * r, out_size, out_size, feats[0].shape[-1]),
                           dtype=feats[0].dtype, device=rois.device)
-        roi_align_kernel(feats, rois, bidx, lvls, out, featmap_strides,
-                         sampling_ratio, aligned)
+        kernel = roi_align_train_kernel if train else roi_align_kernel
+        kernel(feats, rois, bidx, lvls, out, featmap_strides,
+               sampling_ratio, aligned)
     return out.reshape(b, r, out_size, out_size, -1)
 
 

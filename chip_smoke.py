@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's flagship predict and train paths, the
 RBBoxRCNNRRoI predict and train paths, scene serving, the train loop
-and test run from a config file, and CenterMap-Net's predict and train
-paths on one CUDA card.
+and test run from a config file, CenterMap-Net's predict and train
+paths, RetinaNetOBB and H-OBB, the GroupNorm r18_e2e recipes and a
+learning run, HRNet with TTA, OHEM and soft-NMS on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -125,6 +126,41 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    weights, shipped as uint8), 1 warm-up and 3 timed steps: every loss,
    ms per step, K2's launches (4 forward and 4 backward a step), peak
    memory, and the pipeline's host ms per image for each target kind.
+
+20-23. retinanet_obb_reference, retinanet_obb, h_obb_reference, h_obb:
+   RetinaNetOBB and the H-OBB RBBoxRCNN, the small models on the card
+   against the CPU, then their configs as written.
+24. gn_reference: the small thetaobb RBBoxRCNN and RBBoxRCNNRRoI with
+   the r18_e2e recipe's GroupNorm in their ResNet-18 and FPN (float32,
+   cuDNN off in the step) on the card against the CPU: predict paired,
+   one train step's losses and update.
+25. theta_r18_e2e and 26. rroi_r18_e2e: `configs/dota_theta_obb_r18_e2e.py`
+   and `configs/dota_rroi_point_obb_r18_e2e.py` as written (R18-GN,
+   FPN-GN at 128 channels, 512^2, float32): 3 predict calls and 1 + 3
+   train steps at batch 2, K1 (and K4) a call, K2 (and K4) a step.
+27. learn: the port's learning run, `train_detector` on the r18_e2e
+   thetaobb architecture from seeded random weights over 8 seeded 512^2
+   synthetic patches (150 epochs, 600 steps at batch 2, the config's
+   optimizer, warmup 50 steps), then `run_inference`, the scene merge
+   and the DOTA eval on the same scenes: the first and last 10 steps'
+   loss, OBB and HBB mAP@0.5; fails under an OBB mAP of 0.5.
+28. hrnet_reference and 29. hrnet: a small HRNet + HRFPN CenterMapOBB
+   on the card against the CPU, then `configs/dota_centermap_obb_hrnet_ms.py`
+   as written (HRNet-W32, HRFPN, the 10-conv CenterMap head, 1024^2):
+   3 predict calls, `aug_test_image` at the config's tta (4 variants),
+   1 + 2 train steps through `TrainPipeline` at its scale_range.
+30. ohem_reference and 31. ohem: the small thetaobb model's OHEM step on
+   the card against the CPU, then `configs/dota_theta_obb_ohem_r50_fpn_1x.py`
+   as written: 1 + 3 train steps, K2's forward twice a step (the
+   scoring pass over every candidate, and the sample).
+32. soft_nms_reference and 33. soft_nms: the small CenterMap-Net under
+   soft-NMS on the card against the CPU, then
+   `configs/dota_centermap_net_tgrs_reverse_seg_weight_v4.py` as written
+   and the same weights under hard NMS: ms per call and the NMS stage's.
+34. tta_reference: `aug_test_image` of the small GroupNorm thetaobb
+   model on the card against the CPU.
+The kernels phase also holds K1, K2 and K4 at the r18_e2e shapes
+(C=128, float32, 512^2).
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
 first path, and ``launches_by_path`` on every path), nvidia-smi's name
@@ -491,7 +527,8 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda",
                       bound_by=bound_by, library_ms=None)
         fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=name, out_size=s, rois=rois.shape[0],
-              levels=len(strides), dtype=dtype_name, atol=atol, **fields)
+              levels=len(strides), channels=shape["channels"],
+              img=shape["img"], dtype=dtype_name, atol=atol, **fields)
         result = result or fields
     return result
 
@@ -517,8 +554,8 @@ def run_backward_kernel(device="cuda", rotated=False, shape=None, s=7,
         dtype = getattr(torch, name)
         gen = torch.Generator().manual_seed(1)
         if rotated:
-            feats, rois_b, rois, lvls, bidx = rroi_train_inputs(gen, dtype,
-                                                                device)
+            feats, rois_b, rois, lvls, bidx = rroi_train_inputs(
+                gen, dtype, device, shape=shape or RTRAIN)
         else:
             feats, rois_b, rois, lvls, bidx = main_path_inputs(
                 gen, shape or TRAIN, dtype, device, strides)
@@ -569,7 +606,9 @@ def run_backward_kernel(device="cuda", rotated=False, shape=None, s=7,
         fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=("rroi_align_backward" if rotated
                                  else "roi_align_backward"), out_size=s,
-              rois=rois.shape[0], levels=len(feats), dtype=name,
+              rois=rois.shape[0], levels=len(feats),
+              channels=feats[0].shape[-1], img=(shape or TRAIN)["img"],
+              dtype=name,
               max_abs_err_per_level=errs,
               limit_per_level=limits, rel_tol=BWD_REL_TOL[name],
               rerun_max_abs_diff=rerun_err, lists=lists, **fields)
@@ -662,12 +701,12 @@ def run_bandx_kernel(device="cuda"):
     return result
 
 
-def rroi_path_inputs(gen, dtype, device):
-    """Seeded levels as the RRoI predict's and 2 x 100 rotated rois
-    drawn like its detections: centres inside the image, sides
-    log-uniform over 8..512 px, thetas in [-pi/2, 0)."""
+def rroi_path_inputs(gen, dtype, device, shape=RROI):
+    """Seeded levels as the RRoI predict's (``shape``'s) and 2 x 100
+    rotated rois drawn like its detections: centres inside the image,
+    sides log-uniform over 8..512 px, thetas in [-pi/2, 0)."""
     import torch
-    b, n, img, c = (RROI[k] for k in ("batch", "rrois", "img", "channels"))
+    b, n, img, c = (shape[k] for k in ("batch", "rrois", "img", "channels"))
     feats = [torch.randn(b, img // s, img // s, c, generator=gen)
              .to(device=device, dtype=dtype) for s in MAIN["strides"]]
     u = torch.rand(b, n, 5, generator=gen)
@@ -677,7 +716,7 @@ def rroi_path_inputs(gen, dtype, device):
     return feats, rrois_b
 
 
-def rroi_train_inputs(gen, dtype, device, batch=None):
+def rroi_train_inputs(gen, dtype, device, batch=None, shape=RTRAIN):
     """Seeded levels as the RRoI train step's and 2 x 128 rotated rois
     (``batch`` x 128 where given)
     drawn like its stage-1 boxes under random weights: centres inside
@@ -686,8 +725,8 @@ def rroi_train_inputs(gen, dtype, device, batch=None):
     in [-pi, pi); with their routing (no window bump, as the path)."""
     import torch
     from aidet_tpu_torch.ops.rroi_align import route_rrois
-    b, n, img, c = (RTRAIN[k] for k in ("batch", "rrois", "img",
-                                        "channels"))
+    b, n, img, c = (shape[k] for k in ("batch", "rrois", "img",
+                                       "channels"))
     b = batch or b
     feats = [torch.randn(b, img // s, img // s, c, generator=gen)
              .to(device=device, dtype=dtype) for s in MAIN["strides"]]
@@ -703,11 +742,14 @@ def rroi_train_inputs(gen, dtype, device, batch=None):
     return feats, rrois_b, rrois, lvls, bidx
 
 
-def run_rroi_kernel(device="cuda"):
+def run_rroi_kernel(device="cuda", shape=RROI, dtypes=("bfloat16",
+                                                       "float32"),
+                    bumps=(False, True)):
     """K4 against its plain version at the RRoI predict's rotated crops
-    (2 x 100 rrois, 7x7), routed without and with the TPU kernel's
-    window bump, bfloat16 then float32; returns the fields of its
-    entry in the kernels line (bfloat16, no bump: the path's)."""
+    (2 x 100 rrois, 7x7; the levels of ``shape``), routed without and
+    with the TPU kernel's window bump (``bumps``), in each of
+    ``dtypes``; returns the fields of its entry in the kernels line (the
+    first dtype's, the first bump's: bfloat16, no bump, the path's)."""
     import torch
     from aidet_tpu_torch.ops.rroi_align import (batched_rroi_align,
                                                 route_rrois,
@@ -716,20 +758,20 @@ def run_rroi_kernel(device="cuda"):
     strides = MAIN["strides"]
     s = 7
     result = None
-    for dtype, atol in ((torch.bfloat16, ATOL_BF16), (torch.float32,
-                                                      ATOL_F32)):
-        name = str(dtype).split(".")[-1]
+    for name in dtypes:
+        dtype = getattr(torch, name)
+        atol = ATOL_BF16 if dtype == torch.bfloat16 else ATOL_F32
         feats, rrois_b = rroi_path_inputs(torch.Generator().manual_seed(3),
-                                          dtype, device)
+                                          dtype, device, shape)
         b, r = rrois_b.shape[:2]
         rrois = rrois_b.reshape(b * r, 5).contiguous()
         bidx = torch.arange(b, dtype=torch.int32,
                             device=device).repeat_interleave(r)
-        for bump in (False, True):
+        for bump in bumps:
             lvls = route_rrois(rrois, [f.shape[1:3] for f in feats],
                                strides, bump_to_window=bump)
-            out = torch.empty((b * r, s, s, RROI["channels"]), dtype=dtype,
-                              device=device)
+            out = torch.empty((b * r, s, s, shape["channels"]),
+                              dtype=dtype, device=device)
 
             def launch():
                 rroi_align_kernel(feats, rrois, bidx, lvls, out, strides, 2,
@@ -756,7 +798,8 @@ def run_rroi_kernel(device="cuda"):
                           bound_by=bound_by, library_ms=None)
             fields["bound_share"] = bound_ms / fields["ms"]
             phase("kernels", kernel="rroi_align", out_size=s, rrois=b * r,
-                  dtype=name, bump_to_window=bump, atol=atol, **fields)
+                  channels=shape["channels"], img=shape["img"], dtype=name,
+                  bump_to_window=bump, atol=atol, **fields)
             result = result or fields
     return result
 
@@ -773,6 +816,7 @@ def run_kernels():
                        MASK_TRAIN, (14,))
     run_backward_kernel(shape=MASK_TRAIN, s=14)
     run_centermap_kernels(roi_align_kernel, roi_align_train_kernel)
+    run_e2e_kernels(roi_align_kernel, roi_align_train_kernel)
     return dict(
         roi_align=run_forward_kernel(roi_align_kernel, "roi_align", MAIN,
                                      (7, 14)),
@@ -805,6 +849,28 @@ def run_centermap_kernels(k1, k2_forward):
     for shape, s in ((TRAIN, 7), (MASK_TRAIN, 14)):
         run_backward_kernel(shape=shape, s=s, dtype_names=("float32",),
                             strides=SEMANTIC_STRIDES)
+
+
+# the r18_e2e recipe's shapes: 512^2, its FPN at 128 channels, float32
+E2E_PREDICT = dict(batch=2, rois=2000, img=512, channels=128)
+E2E_TRAIN = dict(batch=2, rois=512, img=512, channels=128)
+E2E_RROI = dict(batch=2, rrois=100, img=512, channels=128)
+E2E_RTRAIN = dict(batch=2, rrois=128, img=512, channels=128)
+
+
+def run_e2e_kernels(k1, k2_forward):
+    """K1, K2 (forward and backward) and K4 (forward and backward) at
+    the r18_e2e paths' shapes (`E2E_PREDICT`, `E2E_TRAIN`, `E2E_RROI`,
+    `E2E_RTRAIN`: C=128, float32, 7x7), each against its plain version
+    with its bound, on its own line."""
+    run_forward_kernel(k1, "roi_align", E2E_PREDICT, (7,),
+                       dtype_name="float32")
+    run_forward_kernel(k2_forward, "roi_align_train_forward", E2E_TRAIN,
+                       (7,), dtype_name="float32")
+    run_backward_kernel(shape=E2E_TRAIN, dtype_names=("float32",))
+    run_rroi_kernel(shape=E2E_RROI, dtypes=("float32",), bumps=(False,))
+    run_backward_kernel(rotated=True, shape=E2E_RTRAIN,
+                        dtype_names=("float32",))
 
 
 def run_reference(device="cuda"):
@@ -1216,7 +1282,10 @@ def plain_versions():
     @contextlib.contextmanager
     def swap():
         saved = two_stage.roi_align_forward, two_stage.rroi_align_forward
-        two_stage.roi_align_forward = roi_align.batched_multilevel_roi_align
+
+        def plain(*args, train=False, **kwargs):   # train picks a handle
+            return roi_align.batched_multilevel_roi_align(*args, **kwargs)
+        two_stage.roi_align_forward = plain
         two_stage.rroi_align_forward = rroi_align.batched_rroi_align
         try:
             yield
@@ -2568,6 +2637,14 @@ SMALL_RETINA_TEST_CFG = dict(nms_pre=200, score_thr=0.05, rnms_thr=0.1,
 RETINA_REF_LIMITS = dict(boxes=1.0, rboxes=1.0, theta=1e-2, scores=1e-2)
 H_OBB_REF_LIMITS = dict(boxes=1.0, rboxes=1.0, rboxes_rel=1e-4, theta=1.0,
                         scores=1e-2)
+# the thetaobb models' (GroupNorm, OHEM) are the flagship reference's;
+# the RBBoxRCNNRRoI's are rroi_reference's
+REF_LIMITS = dict(
+    retinanet_obb=RETINA_REF_LIMITS,
+    gn_theta=dict(boxes=1.0, rboxes=1.0, theta=1e-2, scores=1e-2),
+    ohem=dict(boxes=1.0, rboxes=1.0, theta=1e-2, scores=1e-2),
+    gn_rroi=dict(boxes=1.0, rboxes=1.0, rboxes_rel=1e-4, theta=1e-2,
+                 scores=1e-2))
 DETECTOR_REF_TRAIN_LIMITS = dict(losses_rel=1e-3, update_rel_l2=1e-3,
                                  leaf_over_largest=1e-2)
 # `compare_steps(resolved_only=True)`: the float32 ulps of a leaf's
@@ -2595,41 +2672,114 @@ def small_h_obb(robust=False):
                 rbbox_head=dict(SMALL_MODEL["rbbox_head"], encode="hobb"))
 
 
+# the r18_e2e recipe (GroupNorm ResNet-18 and FPN from scratch) and the
+# slice's other configs, each run as written
+E2E_THETA_CONFIG = "configs/dota_theta_obb_r18_e2e.py"
+E2E_RROI_CONFIG = "configs/dota_rroi_point_obb_r18_e2e.py"
+OHEM_CONFIG = "configs/dota_theta_obb_ohem_r50_fpn_1x.py"
+SOFT_NMS_CONFIG = "configs/dota_centermap_net_tgrs_reverse_seg_weight_v4.py"
+HRNET_CONFIG = "configs/dota_centermap_obb_hrnet_ms.py"
+E2E = dict(img=512, batch=2, calls=3, steps=3, max_gt=64)
+OHEM = dict(DETECTORS, calls=0)
+GN_CFG = dict(type="GN", num_groups=32)
+K1 = dict(roi_align=1)
+K2 = dict(roi_align_train_forward=1, roi_align_backward=1)
+K4 = dict(rroi_align=1)
+K4_TRAIN = dict(rroi_align=1, rroi_align_backward=1)
+
+
+def small_gn(rroi=False):
+    """The small architecture with the r18_e2e recipe's GroupNorm in its
+    ResNet-18 and FPN; with ``rroi`` the RBBoxRCNNRRoI's pointobb and
+    rtheta heads."""
+    model = dict(SMALL_MODEL, backbone=dict(type="ResNet", depth=18,
+                                            norm_cfg=GN_CFG),
+                 neck=dict(SMALL_MODEL["neck"], norm_cfg=GN_CFG))
+    if rroi:
+        head = dict(SMALL_MODEL["rbbox_head"], encode="pointobb")
+        model.update(type="RBBoxRCNNRRoI", rbbox_head=head,
+                     rbbox_encode="pointobb",
+                     rbbox_refine_head=dict(head, encode="rtheta"))
+    return model
+
+
+def _small(model, retina=False):
+    return (dict(model=model, test_cfg=SMALL_RETINA_TEST_CFG) if retina else
+            dict(model=model, train_cfg=SMALL_TRAIN_CFG,
+                 test_cfg=SMALL_TEST_CFG))
+
+
+# each detector kind of the detector phases: its config as written, its
+# small architecture (a function of hobb_robust_loss), the sizes of its
+# paths, and its launches a predict call and a train step on the card
+KINDS = dict(
+    retinanet_obb=dict(config=RETINA_OBB_CONFIG, sizes=DETECTORS,
+                       small=lambda r: _small(SMALL_RETINA_OBB, True),
+                       predict={}, train={}),
+    h_obb=dict(config=H_OBB_CONFIG, sizes=DETECTORS,
+               small=lambda r: _small(small_h_obb(r)), predict=K1, train=K2),
+    gn_theta=dict(config=None, sizes=None, small=lambda r: _small(small_gn()),
+                  predict=K1, train=K2),
+    gn_rroi=dict(config=None, sizes=None,
+                 small=lambda r: _small(small_gn(rroi=True)),
+                 predict=dict(K1, **K4), train=dict(K2, **K4_TRAIN)),
+    theta_r18_e2e=dict(config=E2E_THETA_CONFIG, sizes=E2E,
+                       small=lambda r: _small(small_gn()), predict=K1,
+                       train=K2),
+    rroi_r18_e2e=dict(config=E2E_RROI_CONFIG, sizes=E2E,
+                      small=lambda r: _small(small_gn(rroi=True)),
+                      predict=dict(K1, **K4), train=dict(K2, **K4_TRAIN)),
+    # OHEM scores every candidate without gradient (a K2 forward), then
+    # trains on its sample (a K2 forward and backward)
+    ohem=dict(config=OHEM_CONFIG, sizes=OHEM,
+              small=lambda r: dict(_small(SMALL_MODEL), train_cfg=dict(
+                  SMALL_TRAIN_CFG, rcnn=dict(sampler="ohem",
+                                             num_samples=32))),
+              predict=K1, train=dict(K2, roi_align_train_forward=2)))
+
+
 def detector(kind, device, small, train=False, robust=False, seed=0,
              train_cfg=None, img=256):
-    """The small (for ``img``^2 images) or full RetinaNetOBB (``kind``
-    "retinanet_obb") or H-OBB RBBoxRCNN ("h_obb"; ``robust``:
-    hobb_robust_loss) from `build_detector` with seeded weights,
-    `retina_cls`'s bias 0; returns (model, the encode of its gt
-    rboxes)."""
+    """The small (for ``img``^2 images) or full detector of ``kind`` (a
+    key of `KINDS`; ``robust``: an H-OBB model's hobb_robust_loss) from
+    `build_detector` with seeded weights, RetinaNetOBB's `retina_cls`
+    bias 0, a small RBBoxRCNNRRoI's training build with its first
+    stage's regression set as `POINTOBB_BIAS` says; returns (model, the
+    encode of its gt rboxes)."""
     import torch
     from aidet_tpu_torch.models.builder import build_detector
     from aidet_tpu_torch.models.detectors.two_stage import _merge
     from aidet_tpu_torch.utils.config import Config
+    spec = KINDS[kind]
     if small:
-        cfg = (dict(model=SMALL_RETINA_OBB, test_cfg=SMALL_RETINA_TEST_CFG)
-               if kind == "retinanet_obb" else
-               dict(model=small_h_obb(robust), train_cfg=SMALL_TRAIN_CFG,
-                    test_cfg=SMALL_TEST_CFG))
+        cfg = spec["small"](robust)
         cfg["model"] = dict(cfg["model"], img_size=img)
     else:
-        cfg = Config.fromfile(RETINA_OBB_CONFIG if kind == "retinanet_obb"
-                              else H_OBB_CONFIG).to_dict()
-        cfg["model"] = dict(cfg["model"], hobb_robust_loss=robust) \
-            if kind == "h_obb" else cfg["model"]
+        cfg = Config.fromfile(spec["config"]).to_dict()
+        if kind == "h_obb":
+            cfg["model"] = dict(cfg["model"], hobb_robust_loss=robust)
     model = build_detector(cfg["model"], train_cfg=_merge(
         cfg.get("train_cfg") or {}, train_cfg), test_cfg=cfg.get("test_cfg"),
         device=device, seed=seed, train=train)
     if kind == "retinanet_obb":
         with torch.no_grad():
             model.bbox_head.retina_cls.bias.zero_()
-    return model, ("thetaobb" if kind == "retinanet_obb" else "hobb")
+        return model, "thetaobb"
+    if small and train and model.rbbox_refine_head is not None:
+        reg = model.rbbox_head.fc_reg
+        with torch.no_grad():
+            reg.weight.mul_(0.01)
+            reg.bias.copy_(torch.tensor(POINTOBB_BIAS).repeat(
+                reg.bias.numel() // len(POINTOBB_BIAS)))
+    return model, model.rbbox_head.encode
 
 
 def detector_step_once(kind, device, img, n_gt, train_cfg=None, robust=False,
-                       seed=0):
+                       seed=0, dtype=None):
     """One train step of the small ``kind`` detector on ``device``: as
-    `train_step_once`, its gts in the detector's encode."""
+    `train_step_once`, its gts in the detector's encode; with ``dtype``
+    (float64) the model, its compute and the batch in it (the
+    parameters before the step are returned as built, in float32)."""
     import torch
     from aidet_tpu_torch.flagship import synthetic_train_batch
     from aidet_tpu_torch.parallel.train import (build_lr_schedule,
@@ -2638,12 +2788,17 @@ def detector_step_once(kind, device, img, n_gt, train_cfg=None, robust=False,
                                                 make_train_step)
     net, encode = detector(kind, device, True, train=True, robust=robust,
                            seed=seed, train_cfg=train_cfg, img=img)
+    before = [p.detach().cpu().clone() for p in net.parameters()]
+    batch = synthetic_train_batch(2, img, n_gt, seed, device, encode)
+    if dtype is not None:
+        net = net.to(dtype)
+        net.compute_dtype = dtype
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
     params = list(net.parameters())
-    before = [p.detach().cpu().clone() for p in params]
     optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
     state = create_train_state(net, optimizer)
     step = make_train_step(net, optimizer)
-    batch = synthetic_train_batch(2, img, n_gt, seed, device, encode)
     _, metrics = step(state, batch,
                       torch.Generator(device=device).manual_seed(seed))
     return ({k: float(v) for k, v in metrics.items()}, before,
@@ -2660,9 +2815,17 @@ def run_detector_reference(device="cuda", kind="retinanet_obb", img=256):
     whose update float32 resolves, `UPDATE_RESOLUTION`), its
     convolutions PyTorch's own CUDA kernels (cuDNN off, as the note at
     `UPDATE_RESOLUTION` says); RetinaNetOBB
-    samples nothing, the
-    H-OBB model runs under a train_cfg that keeps every candidate, once
-    without and once with hobb_robust_loss.  Returns the phase's
+    samples nothing, the two-stage models run under a train_cfg that
+    keeps every candidate (the H-OBB model once without and once with
+    hobb_robust_loss), but for OHEM's RoI sample, which is deterministic
+    given the head.  The RBBoxRCNNRRoI's rboxes are compared where its
+    first-stage quad is clear of a tie (`rbox_clear_of_ties`), and its
+    update held to 2e-3 relative L2, as rroi_reference_train's.  The
+    GroupNorm models' float32 update lies farther from float64 than the
+    others' on either device (`GN_FLOAT32_NOTE`): their card step and
+    their CPU step are each held to the CPU's float64 step, and the
+    card's distance to it may exceed the limits only up to twice the
+    CPU's own (losses still card against CPU).  Returns the phase's
     fields."""
     import torch
     from aidet_tpu_torch.flagship import keep_every_candidate_cfg
@@ -2672,29 +2835,94 @@ def run_detector_reference(device="cuda", kind="retinanet_obb", img=256):
     imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(1))
     shapes = torch.full((2, 2), float(img))
-    got, ref = ({k: v.cpu() for k, v in detector(
-        kind, d, True, img=img)[0].predict(imgs.to(d), shapes.to(d)).items()}
-        for d in (device, "cpu"))
-    limits = RETINA_REF_LIMITS if kind == "retinanet_obb" \
-        else H_OBB_REF_LIMITS
-    errs = match_detections(got, ref, limits, cut_slack=True)
-    net = detector(kind, "cpu", True, img=img)[0]
+    models = [detector(kind, d, True, img=img)[0] for d in (device, "cpu")]
+    got, ref = ({k: v.cpu() for k, v in m.predict(
+        imgs.to(d), shapes.to(d)).items()}
+        for m, d in zip(models, (device, "cpu")))
+    limits = REF_LIMITS.get(kind, H_OBB_REF_LIMITS)
+    clear = None
+    if getattr(models[1], "rbbox_refine_head", None) is not None:
+        clear = rbox_clear_of_ties(first_stage_quads(models[1], imgs, shapes))
+    errs = match_detections(got, ref, limits, rbox_clear=clear,
+                            cut_slack=True)
+    net = models[1]
     names = [n for n, _ in net.named_parameters()]
     cfg = None if kind == "retinanet_obb" else keep_every_candidate_cfg(
         img, n_gt, net.train_cfg["rpn_proposal"]["max_num"])
+    if kind == "ohem":
+        cfg = dict(rpn=cfg["rpn"])
+    train_limits = (dict(DETECTOR_REF_TRAIN_LIMITS, update_rel_l2=2e-3)
+                    if clear is not None else DETECTOR_REF_TRAIN_LIMITS)
     train = {}
     for robust in (False, True) if kind == "h_obb" else (False,):
         with torch.backends.cudnn.flags(enabled=False):
             steps = [detector_step_once(kind, d, img, n_gt, cfg, robust)
                      for d in (device, "cpu")]
-        t = compare_steps(f"{kind}_reference", *steps,
-                          DETECTOR_REF_TRAIN_LIMITS, resolved_only=True)
-        t["worst_leaf"] = names[t["worst_leaf"]]
+        if kind.startswith("gn_"):
+            t = gn_step_against_float64(kind, steps, img, n_gt, cfg,
+                                        train_limits, names)
+        else:
+            t = compare_steps(f"{kind}_reference", *steps, train_limits,
+                              resolved_only=True)
+            t["worst_leaf"] = names[t["worst_leaf"]]
         train["robust" if robust else "plain"] = dict(
             losses_card=steps[0][0], losses_cpu=steps[1][0], **t)
     return dict(img=img, tf32=False, n_valid=int(got["valid"].sum()),
                 max_abs_err=errs, limits=limits, gts=n_gt,
                 train_cudnn=False, train=train)
+
+
+# the small GroupNorm models' first-step update in float32 against the
+# CPU's float64, on the CPU alone (gn_reference's own fields on the
+# card's machine): 9.9e-4 relative L2 with its default threads and
+# 2.8e-3 with one (thetaobb), 4.3e-4 and 7.2e-3 (RBBoxRCNNRRoI), the
+# worst leaf at 2.2e-2 and 6.1e-2 of its largest update with one
+# thread -- the float32 rounding of the GroupNorm statistics' sums
+# moves stage 3's update most
+GN_FLOAT32_NOTE = ("the GroupNorm models' float32 update lies up to "
+                   "7.2e-3 relative L2 and 6.1e-2 of a leaf's largest "
+                   "update from float64 on the CPU alone, by its thread "
+                   "count")
+
+
+def gn_step_against_float64(kind, steps, img, n_gt, cfg, limits, names):
+    """A GroupNorm model's card and CPU float32 steps (``steps``) against
+    the CPU's float64 step: the losses card against CPU within
+    ``limits``; the update's relative L2 and worst leaf of the card
+    against float64 within the larger of ``limits`` and twice the
+    farthest of the CPU's float32 steps from float64 (with its default
+    threads, and with one: the order of its sums moves the update as
+    far as the device does).  Returns the fields."""
+    import torch
+    f64 = detector_step_once(kind, "cpu", img, n_gt, cfg,
+                             dtype=torch.float64)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = detector_step_once(kind, "cpu", img, n_gt, cfg)
+    finally:
+        torch.set_num_threads(threads)
+    compare_steps(f"{kind}_reference (losses)", steps[0],
+                  (steps[1][0], steps[0][1], steps[0][2]),
+                  dict(limits, update_rel_l2=math.inf,
+                       leaf_over_largest=math.inf))
+    card, cpu, cpu_one = (compare_steps(f"{kind}_reference", st, f64,
+                                        resolved_only=True)
+                          for st in (*steps, one))
+    for key, limit in (("update_rel_l2", limits["update_rel_l2"]),
+                       ("worst_leaf_err_over_largest",
+                        limits["leaf_over_largest"])):
+        bound = max(limit, 2 * cpu[key], 2 * cpu_one[key])
+        if not card[key] <= bound:
+            raise AssertionError(f"{kind}_reference: the card's {key} "
+                                 f"{card[key]} against float64 exceeds "
+                                 f"{bound} (the CPU's float32: {cpu[key]}, "
+                                 f"with one thread {cpu_one[key]})")
+    for t in (card, cpu, cpu_one):
+        t["worst_leaf"] = names[t["worst_leaf"]]
+    return dict(card_against_float64=card, cpu_against_float64=cpu,
+                cpu_one_thread_against_float64=cpu_one,
+                losses_float64=f64[0], limits=limits, note=GN_FLOAT32_NOTE)
 
 
 def staged_retina_predict(model, imgs, shapes, sync):
@@ -2748,8 +2976,11 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
     warm-up and ``steps`` timed train steps on `synthetic_train_batch`
     with ``max_gt`` gts in the detector's encode (every loss finite, the
     heads' parameters moved, ms per step, peak memory).  Launches, per
-    call and per step on the card: RetinaNetOBB none; the H-OBB model K1
-    once a call and K2 once forward and once backward a step.  Returns
+    call and per step on the card, are `KINDS`': RetinaNetOBB none; the
+    two-stage models K1 once a call and K2 once forward and once
+    backward a step, the RBBoxRCNNRRoI K4 besides, OHEM K2's forward
+    twice (its scoring pass's and its sample's rois counted in
+    ``k2_forward_rois_per_step``; OHEM runs no predict call).  Returns
     {"predict": fields, "train": fields}."""
     import torch
     from aidet_tpu_torch.flagship import synthetic_train_batch
@@ -2757,13 +2988,21 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
                                                 build_optimizer,
                                                 create_train_state,
                                                 make_train_step)
-    sizes = DETECTORS_SMALL if small else DETECTORS
+    spec = KINDS[kind]
+    sizes = (dict(DETECTORS_SMALL, calls=min(spec["sizes"]["calls"], 1))
+             if small else spec["sizes"])
     b, img = sizes["batch"], sizes["img"]
     on_card = torch.device(device).type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
+
+    def per(counts, n):
+        want = dict.fromkeys(HANDLES, 0)
+        if on_card:
+            want.update({k: v * n for k, v in counts.items()})
+        return want
     out = {}
     with tf32_defaults():
         model, encode = detector(kind, device, small, seed=seed, img=img)
@@ -2783,8 +3022,8 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
             times.append((time.perf_counter() - t0) * 1e3)
         launches = launch_counts()
         fields = dict(calls=len(times), call_ms=times,
-                      ms_per_call=sum(times) / len(times),
-                      n_valid=int(pred["valid"].sum()),
+                      ms_per_call=sum(times) / max(len(times), 1),
+                      n_valid=int(pred["valid"].sum()) if times else 0,
                       peak_memory_gib=(torch.cuda.max_memory_allocated()
                                        / 2 ** 30 if on_card else None))
         if kind == "retinanet_obb":
@@ -2798,17 +3037,18 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
                 stage_ms={k: [s[1][k] for s in staged]
                           for k in staged[0][1]},
                 nms_candidates_per_image=staged[-1][2])
-        want = dict.fromkeys(HANDLES, 0)
-        if kind == "h_obb" and on_card:
-            want["roi_align"] = len(times)
+        want = per(spec["predict"], len(times))
         if launches != want:
             raise AssertionError(f"{kind} predict: launches {launches} in "
                                  f"{len(times)} calls, expected {want}")
-        if not all(bool(torch.isfinite(v.float()).all())
-                   for v in pred.values()) or fields["n_valid"] == 0:
+        if times and (not all(bool(torch.isfinite(v.float()).all())
+                              for v in pred.values())
+                      or fields["n_valid"] == 0):
             raise AssertionError(f"{kind} predict: {fields}")
-        out["predict"] = dict(fields, launches=launches)
-        del model, pred
+        if times:
+            out["predict"] = dict(fields, launches=launches)
+            del pred
+        del model
 
         net = detector(kind, device, small, train=True, seed=seed,
                        img=img)[0]
@@ -2841,9 +3081,7 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
            if not math.isfinite(v)]
     if bad:
         raise AssertionError(f"{kind} train: not finite {bad}")
-    want = dict.fromkeys(HANDLES, 0)
-    if kind == "h_obb" and on_card:
-        want.update(roi_align_train_forward=n, roi_align_backward=n)
+    want = per(spec["train"], n)
     if launches != want:
         raise AssertionError(f"{kind} train: launches {launches} in {n} "
                              f"steps, expected {want}")
@@ -2860,13 +3098,539 @@ def run_detector_paths(device="cuda", small=False, kind="retinanet_obb",
         images_per_s=b * 1e3 / ms, launches=launches,
         peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
                          if on_card else None))
-    cfg = RETINA_OBB_CONFIG if kind == "retinanet_obb" else H_OBB_CONFIG
-    out["config"] = cfg + (" (small architecture)" if small else "")
+    if kind == "ohem":
+        # the scoring pass crops every candidate (the gts, then the
+        # proposals), the sample's pass num_samples rois an image
+        tc = net.train_cfg
+        out["train"]["k2_forward_rois_per_step"] = dict(
+            ohem_scoring=b * (sizes["max_gt"] + tc["rpn_proposal"]["max_num"]),
+            sample=b * tc["rcnn"]["num_samples"])
+    out["config"] = spec["config"] + (" (small architecture)" if small
+                                      else "")
     out["img"], out["batch"] = img, b
     out["dtype"] = ("float32 parameters and compute (the config names "
                     "none); TF32 in cuDNN's convolutions (PyTorch's "
                     "default)")
     return out
+
+
+# Slice 12: the repo's remaining DOTA configs.  Soft-NMS (CenterMap-Net
+# as written with test_cfg.rcnn.nms soft, against the same weights with
+# hard NMS), HRNet-W32 + HRFPN CenterMapOBB (predict, train through
+# `TrainPipeline` at its scale_range, multi-scale flip TTA), and the
+# port's first learning run (the r18_e2e recipe from seeded random
+# weights on synthetic patches, scored by the DOTA eval on them)
+SOFT_NMS_SMALL_TEST_CFG = dict(SMALL_TEST_CFG, rcnn=dict(
+    max_per_img=16, nms=dict(type="soft_nms")))
+HRNET = dict(img=1024, batch=2, calls=3, steps=2, objects=60)
+HRNET_SMALL = dict(img=256, batch=2, calls=1, steps=1, objects=12)
+# a narrow HRNet with HRFPN at the small architecture's widths
+SMALL_HRNET = dict(
+    type="CenterMapOBB",
+    backbone=dict(type="HRNet", width=16, stage_modules=(1, 1, 1, 1),
+                  stage_blocks=2),
+    neck=dict(type="HRFPN", in_channels=(16, 32, 64, 128), out_channels=64,
+              num_outs=5),
+    rpn_head=SMALL_MODEL["rpn_head"], bbox_head=SMALL_MODEL["bbox_head"],
+    mask_head=dict(type="CenterMapHead", num_convs=2, in_channels=64,
+                   conv_out_channels=64, num_classes=16))
+# the learning run: 8 seeded patches of 512^2 (10 objects each, every
+# patch its own scene), at most 600 steps at batch 2 (150 epochs of 4
+# steps), the config's optimizer, its warmup cut to 50 steps and its
+# step decay at the same fractions of the run (epochs 9 and 11 of 12);
+# scored on the same scenes.  Random weights score an OBB mAP near 0.
+LEARN = dict(patches=8, size=512, objects=10, epochs=150, batch=2,
+             warmup=50)
+LEARN_SMALL = dict(patches=2, size=256, objects=6, epochs=2, batch=2,
+                   warmup=1)
+LEARN_MAP_BAR = 0.5
+# aug_test_image on the card against the CPU: the small thetaobb model's
+# merged detections paired as the reference phases pair predict's
+TTA_REF_LIMITS = dict(boxes=1.0, scores=1e-2)
+
+
+def timed_nms(sync):
+    """A context in which `TwoStageDetector`'s multiclass NMS (the
+    bbox_decode_nms stage's NMS: hard or soft) is timed on the host
+    clock between ``sync`` calls; yields the list of its ms."""
+    import contextlib
+    from aidet_tpu_torch.models.detectors import two_stage
+
+    @contextlib.contextmanager
+    def swap():
+        inner, ms = two_stage.multiclass_nms, []
+
+        def timed(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        two_stage.multiclass_nms = timed
+        try:
+            yield ms
+        finally:
+            two_stage.multiclass_nms = inner
+    return swap()
+
+
+def soft_nms_models(device, small, seed=0):
+    """The soft-NMS CenterMap-Net (`SOFT_NMS_CONFIG` as written, or the
+    small CenterMap-Net under soft-NMS) and the same weights under hard
+    NMS at the same IoU threshold: {"soft": model, "hard": model}."""
+    from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.models.detectors.two_stage import _merge
+    from aidet_tpu_torch.ops.nms import nms_cfg_kwargs
+    from aidet_tpu_torch.utils.config import Config
+    if small:
+        model_cfg = dict(small_mask_model("centermap"), img_size=256)
+        test_cfg, train_cfg = SOFT_NMS_SMALL_TEST_CFG, SMALL_TRAIN_CFG
+    else:
+        cfg = Config.fromfile(SOFT_NMS_CONFIG).to_dict()
+        model_cfg, test_cfg, train_cfg = (cfg["model"], cfg["test_cfg"],
+                                          cfg["train_cfg"])
+    thr = nms_cfg_kwargs(test_cfg["rcnn"])["iou_thr"]
+    hard = _merge(test_cfg, dict(rcnn=dict(nms=dict(type="nms",
+                                                    iou_thr=thr))))
+    return {name: build_detector(model_cfg, train_cfg=train_cfg,
+                                 test_cfg=t, device=device, seed=seed)
+            for name, t in (("soft", test_cfg), ("hard", hard))}
+
+
+def run_soft_nms(device="cuda", small=False, seed=0):
+    """CenterMap-Net under soft-NMS (`soft_nms_models`) and the same
+    weights under hard NMS, ``calls`` predict calls each on 2 seeded
+    uint8 images under `tf32_defaults`: ms per call, the bbox_decode_nms
+    stage's multiclass NMS ms (`timed_nms`), detections, K1's launches
+    (4 a call on the card: 7x7 and 14x14, multi-level and on the
+    semantic map), peak memory.  Returns the phase's fields."""
+    import torch
+    sizes = CENTERMAP_SMALL if small else CENTERMAP
+    b, img = sizes["batch"], sizes["img"]
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    out = {}
+    with tf32_defaults():
+        models = soft_nms_models(device, small, seed)
+        imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(seed))
+        imgs = imgs.to(device)
+        shapes = torch.full((b, 2), float(img), device=device)
+        for name, model in models.items():
+            model.predict(imgs, shapes)           # warm
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            launch_counts(reset=True)
+            times = []
+            with timed_nms(sync) as nms_ms:
+                for _ in range(sizes["calls"]):
+                    sync()
+                    t0 = time.perf_counter()
+                    pred = model.predict(imgs, shapes)
+                    sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+            launches = launch_counts()
+            want = dict.fromkeys(HANDLES, 0)
+            if on_card:
+                want["roi_align"] = 4 * len(times)
+            if launches != want:
+                raise AssertionError(f"soft_nms {name}: launches {launches} "
+                                     f"in {len(times)} calls, expected "
+                                     f"{want}")
+            if not all(bool(torch.isfinite(v.float()).all())
+                       for v in pred.values()) or not pred["valid"].any():
+                raise AssertionError(f"soft_nms {name}: outputs not finite "
+                                     "or empty")
+            out[name] = dict(
+                nms=model.test_cfg["rcnn"].get("nms"), call_ms=times,
+                ms_per_call=sum(times) / len(times),
+                nms_ms=nms_ms, nms_ms_per_call=sum(nms_ms) / len(nms_ms),
+                n_valid=int(pred["valid"].sum()),
+                score_mean=float(pred["scores"][pred["valid"]].mean()),
+                launches=launches,
+                peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                                 if on_card else None))
+    return dict(config=SOFT_NMS_CONFIG + (" (small architecture)"
+                                          if small else ""),
+                img=img, batch=b,
+                max_per_img=models["soft"].test_cfg["rcnn"]["max_per_img"],
+                dtype="float32 (the config names none); TF32 in cuDNN's "
+                "convolutions (PyTorch's default)", **out,
+                launches=out["soft"]["launches"])
+
+
+def run_soft_nms_reference(device="cuda"):
+    """The small CenterMap-Net under soft-NMS (float32, TF32 off) on
+    ``device`` against the CPU with the same weights: predict's
+    detections, their decayed scores and masks paired
+    (`MASK_REF_LIMITS`).  Returns the phase's fields."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = 256
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    got, ref = ({k: v.cpu() for k, v in soft_nms_models(d, True)[
+        "soft"].predict(imgs.to(d), shapes.to(d)).items()}
+        for d in (device, "cpu"))
+    errs = match_detections(got, ref, MASK_REF_LIMITS, cut_slack=True)
+    return dict(model="small CenterMap-Net float32, soft-NMS", img=img,
+                tf32=False, n_valid=int(got["valid"].sum()),
+                max_abs_err=errs, limits=MASK_REF_LIMITS)
+
+
+def hrnet_model(device, small, seed=0, train=False):
+    """`HRNET_CONFIG` as written (float32: it names no dtype), or with
+    ``small`` `SMALL_HRNET` at 256^2 (its pipeline's scale_range and
+    TTA scales scaled alike), from `build_detector` with seeded
+    weights; returns (model, config dict)."""
+    from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(HRNET_CONFIG).to_dict()
+    if small:
+        cfg.update(model=dict(SMALL_HRNET, img_size=256),
+                   train_cfg=SMALL_TRAIN_CFG, test_cfg=SMALL_TEST_CFG,
+                   train_pipeline=dict(cfg["train_pipeline"], img_size=256,
+                                       max_gt=64, scale_range=(192, 256)),
+                   tta=dict(cfg["tta"], scales=(192, 256)))
+    model = build_detector(cfg["model"], train_cfg=cfg["train_cfg"],
+                           test_cfg=cfg["test_cfg"], device=device,
+                           seed=seed, train=train)
+    return model, cfg
+
+
+def run_hrnet_reference(device="cuda"):
+    """The small HRNet CenterMapOBB (`SMALL_HRNET`, float32, TF32 off)
+    on ``device`` against the CPU with the same weights: predict's
+    detections and masks paired (`MASK_REF_LIMITS`).  Returns the
+    phase's fields."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = 256
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    got, ref = ({k: v.cpu() for k, v in hrnet_model(d, True)[0].predict(
+        imgs.to(d), shapes.to(d)).items()} for d in (device, "cpu"))
+    errs = match_detections(got, ref, MASK_REF_LIMITS, cut_slack=True)
+    return dict(model="small HRNet-W16 + HRFPN CenterMapOBB float32",
+                img=img, tf32=False, n_valid=int(got["valid"].sum()),
+                max_abs_err=errs, limits=MASK_REF_LIMITS)
+
+
+def hrnet_batches(cfg, root, sizes, seed):
+    """``sizes["steps"] + 1`` batches of ``sizes["batch"]`` made by the
+    port's `TrainPipeline` (the config's train_pipeline: its scale_range,
+    CenterMap masks, uint8 transfer) from seeded synthetic PNG patches;
+    and the pipeline's host ms per image."""
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
+    from aidet_tpu_torch.data.pipeline import TrainPipeline, collate_batch
+    n = sizes["batch"] * (sizes["steps"] + 1)
+    ann, prefix, _ = write_patch_set(root, 0, n, sizes["img"],
+                                     sizes["objects"], seed)
+    dataset = build_dataset(dict(cfg["data"]["train"], ann_file=ann,
+                                 img_prefix=prefix))
+    pipe = TrainPipeline(**dict(cfg["train_pipeline"], device_normalize=True,
+                                seed=seed))
+    t0 = time.perf_counter()
+    samples = [pipe(imread(dataset.img_path(i)), dataset.parse_anns(i))
+               for i in range(n)]
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    b = sizes["batch"]
+    return [collate_batch(samples[i:i + b]) for i in range(0, n, b)], ms
+
+
+def run_hrnet(device="cuda", small=False, seed=0):
+    """HRNet-W32 + HRFPN CenterMapOBB (`hrnet_model`) under
+    `tf32_defaults`: ``calls`` predict calls on 2 seeded uint8 images
+    (ms per call, K1 twice a call on the card: 7x7 and 14x14), then
+    `apis.tta.aug_test_image` of one seeded synthetic scene at the
+    config's ``tta`` (scales x flip: 4 variants, each on the model's
+    canvas; one warm-up image, then one timed: ms per TTA image, K1 per
+    variant, merged detections and quads), then the trainer's build on
+    `hrnet_batches`: 1 warm-up and ``steps`` timed train steps (every
+    loss finite, the heads moved, ms per step, K2 twice forward and
+    twice backward a step on the card), peak memory.  Returns the
+    phase's fields."""
+    import tempfile
+
+    import torch
+    from aidet_tpu_torch.apis.tta import aug_test_image
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    sizes = HRNET_SMALL if small else HRNET
+    b, img = sizes["batch"], sizes["img"]
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    out = {}
+    with tf32_defaults():
+        model, cfg = hrnet_model(device, small, seed)
+        imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(seed))
+        imgs = imgs.to(device)
+        shapes = torch.full((b, 2), float(img), device=device)
+        model.predict(imgs, shapes)               # warm
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        times = []
+        for _ in range(sizes["calls"]):
+            sync()
+            t0 = time.perf_counter()
+            pred = model.predict(imgs, shapes)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = launch_counts()
+        want = dict.fromkeys(HANDLES, 0)
+        if on_card:
+            want["roi_align"] = 2 * len(times)
+        if launches != want or not pred["valid"].any() or not all(
+                bool(torch.isfinite(v.float()).all()) for v in pred.values()):
+            raise AssertionError(f"hrnet predict: launches {launches} "
+                                 f"(expected {want}), valid "
+                                 f"{int(pred['valid'].sum())}")
+        out["predict"] = dict(
+            calls=len(times), call_ms=times, ms_per_call=sum(times) / len(
+                times), n_valid=int(pred["valid"].sum()), launches=launches,
+            peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None))
+
+        tta = dict(cfg["tta"])
+        scene = synth_scene(seed + 100, img, sizes["objects"])[0]
+        aug_test_image(model, scene, scales=tta["scales"],
+                       flip=tta["flip"])          # warm
+        sync()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        merged = aug_test_image(model, scene, scales=tta["scales"],
+                                flip=tta["flip"])
+        sync()
+        tta_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        variants = len(tta["scales"]) * (2 if tta["flip"] else 1)
+        want = dict.fromkeys(HANDLES, 0)
+        if on_card:
+            want["roi_align"] = 2 * variants
+        if launches != want or "quads" not in merged:
+            raise AssertionError(f"hrnet tta: launches {launches} (expected "
+                                 f"{want}), keys {sorted(merged)}")
+        out["tta"] = dict(
+            scales=list(tta["scales"]), flip=tta["flip"], variants=variants,
+            ms_per_image=tta_ms, launches=launches,
+            merged_boxes=len(merged["boxes"]),
+            merged_quads=len(merged["quads"]))
+        del model, pred
+
+        net = hrnet_model(device, small, seed, train=True)[0]
+        with tempfile.TemporaryDirectory() as root:
+            batches, host_ms = hrnet_batches(cfg, root, sizes, seed)
+        data = [{k: (torch.from_numpy(v).long() if v.dtype.kind == "i"
+                     else torch.from_numpy(v)).to(device)
+                 for k, v in bt.items()} for bt in batches]
+        params = list(net.parameters())
+        before = [p.detach().clone() for p in params]
+        optimizer = build_optimizer(build_lr_schedule(
+            base_lr=cfg["optimizer"]["lr"]))
+        state = create_train_state(net, optimizer)
+        step = make_train_step(net, optimizer)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, data[0], gen)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launch_counts(reset=True)
+        times, steps = [], []
+        for batch in data[1:]:
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            steps.append({k: float(v) for k, v in metrics.items()})
+        launches = launch_counts()
+    n = len(times)
+    bad = [(i, k) for i, m in enumerate(steps) for k, v in m.items()
+           if not math.isfinite(v)]
+    want = dict.fromkeys(HANDLES, 0)
+    if on_card:
+        want.update(roi_align_train_forward=2 * n, roi_align_backward=2 * n)
+    if bad or "loss_mask" not in steps[0] or launches != want:
+        raise AssertionError(f"hrnet train: not finite {bad}, launches "
+                             f"{launches} (expected {want})")
+    names = [nm for nm, _ in net.named_parameters()]
+    still = [nm for nm, a, p in zip(names, before, params)
+             if torch.equal(a, p.detach()) and nm.split(".")[0].endswith(
+                 "_head")]
+    if still:
+        raise AssertionError(f"hrnet train: heads did not move: {still}")
+    ms = sum(times) / n
+    out["train"] = dict(
+        steps=n, losses=steps, first_step_ms=first_ms, step_ms=times,
+        ms_per_step=ms, images_per_s=b * 1e3 / ms, launches=launches,
+        scale_range=list(cfg["train_pipeline"]["scale_range"]),
+        img_shapes=[[float(x) for x in bt["img_shapes"].reshape(-1)]
+                    for bt in batches[1:]],
+        pipeline_ms_per_image=host_ms,
+        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if on_card else None))
+    return dict(config=HRNET_CONFIG + (" (small architecture)" if small
+                                       else ""),
+                img=img, batch=b, dtype="float32 (the config names none); "
+                "TF32 in cuDNN's convolutions (PyTorch's default)", **out)
+
+
+def run_tta_reference(device="cuda"):
+    """`apis.tta.aug_test_image` of the small thetaobb model (float32,
+    TF32 off) on one seeded 200 x 256 image at scales (192, 256) with
+    flip, on ``device`` against the CPU with the same weights: the
+    merged boxes paired by label (`TTA_REF_LIMITS`), the same count of
+    merged quads.  Returns the phase's fields."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.apis.tta import aug_test_image
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    img = np.random.RandomState(2).randint(0, 256, (200, 256, 3)).astype(
+        np.uint8)
+    outs = []
+    for d in (device, "cpu"):
+        model = detector("gn_theta", d, True, img=256)[0]
+        outs.append(aug_test_image(model, img, scales=(192, 256), flip=True,
+                                   rbox_encode="thetaobb"))
+
+    def batch(m):
+        k = len(m["scores"])
+        return dict(boxes=torch.from_numpy(m["boxes"][None]),
+                    scores=torch.from_numpy(m["scores"][None]),
+                    labels=torch.from_numpy(m["labels"][None]).long(),
+                    valid=torch.ones(1, k, dtype=torch.bool))
+    errs = match_detections(batch(outs[0]), batch(outs[1]), TTA_REF_LIMITS)
+    if len(outs[0]["quads"]) != len(outs[1]["quads"]):
+        raise AssertionError(f"tta_reference: {len(outs[0]['quads'])} "
+                             f"merged quads against {len(outs[1]['quads'])}")
+    return dict(model="small GroupNorm thetaobb RBBoxRCNN float32",
+                scales=[192, 256], flip=True, tf32=False,
+                merged=len(outs[0]["scores"]),
+                merged_quads=len(outs[0]["quads"]), max_abs_err=errs,
+                limits=TTA_REF_LIMITS)
+
+
+def learn_config(root, small=False, seed=0):
+    """`E2E_THETA_CONFIG`'s architecture and optimizer (or the small
+    GroupNorm architecture) on `write_patch_set`'s seeded patches, the
+    same set for training and test, with `LEARN`'s schedule; returns
+    (config, the scenes' gt json, the schedule as run)."""
+    from aidet_tpu_torch.utils.config import Config
+    sizes = LEARN_SMALL if small else LEARN
+    cfg = Config.fromfile(E2E_THETA_CONFIG).to_dict()
+    if small:
+        cfg.update(model=dict(small_gn(), img_size=sizes["size"]),
+                   train_cfg=SMALL_TRAIN_CFG, test_cfg=SMALL_TEST_CFG)
+    ann, prefix, gt_json = write_patch_set(root, 0, sizes["patches"],
+                                           sizes["size"], sizes["objects"],
+                                           seed)
+    epochs = sizes["epochs"]
+    lr = dict(cfg["lr_config"], warmup_iters=sizes["warmup"],
+              step=(round(epochs * 9 / 12), round(epochs * 11 / 12)))
+    cfg["data"] = dict(
+        train=dict(cfg["data"]["train"], ann_file=ann, img_prefix=prefix),
+        test=dict(cfg["data"]["test"], ann_file=ann, img_prefix=prefix))
+    cfg.update(lr_config=lr, total_epochs=epochs,
+               batch_size=sizes["batch"], log_interval=1,
+               checkpoint_interval=epochs,
+               train_pipeline=dict(cfg["train_pipeline"],
+                                   img_size=sizes["size"]))
+    steps = epochs * sizes["patches"] // sizes["batch"]
+    schedule = dict(steps=steps, epochs=epochs, batch=sizes["batch"],
+                    optimizer=cfg["optimizer"], lr_config=lr,
+                    patches=sizes["patches"], objects=sizes["objects"],
+                    size=sizes["size"])
+    return Config(cfg, E2E_THETA_CONFIG), gt_json, schedule
+
+
+def run_learn(device="cuda", small=False, seed=0):
+    """The port's learning run: `train_detector` on `learn_config` from
+    seeded random weights (float32, TF32 as PyTorch's default), then
+    `init_detector` from its checkpoint, `run_inference` over the same
+    patches, the scene merge and the DOTA eval (VOC-07 AP at IoU 0.5,
+    OBB on the rboxes' quads and HBB on the boxes).  Fails when the OBB
+    mAP is under `LEARN_MAP_BAR` (not with ``small``, a plumbing
+    rehearsal).  Returns the phase's fields: the total loss of the
+    first and last 10 steps, ms per step, the mAPs and their classes'
+    APs, K2's launches in training and K1's in the test run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.apis.inference import init_detector
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.np_rboxes import (pointobb2bbox,
+                                                thetaobb2pointobb)
+    on_card = torch.device(device).type == "cuda"
+    with tf32_defaults(), tempfile.TemporaryDirectory() as root:
+        cfg, gt_json, schedule = learn_config(root, small, seed)
+        run = loop_train(cfg, f"{root}/run", device, seed)
+        model, _ = init_detector(cfg, f"{root}/run/ckpt", device=device)
+        dataset = build_dataset(cfg.data.test)
+        launch_counts(reset=True)
+        results, names = run_inference(model, dataset,
+                                       batch_size=schedule["patches"])
+        test_launches = launch_counts()
+        with open(gt_json) as f:
+            gts = {scene: {k: np.asarray(v) for k, v in g.items()}
+                   for scene, g in json.load(f).items()}
+    maps = {}
+    for task in ("obb", "hbb"):
+        dets = [dict(boxes=(thetaobb2pointobb(r["rboxes"]) if task == "obb"
+                            else r["boxes"]), scores=r["scores"],
+                     labels=r["labels"], valid=r["valid"]) for r in results]
+        merged = dataset.merge_patches_to_scenes(dets, names, task=task)
+        task_gts = gts if task == "obb" else {
+            k: dict(g, boxes=pointobb2bbox(g["boxes"])) for k, g in
+            gts.items()}
+        m, aps = dataset.evaluate_scenes(merged, task_gts, task=task)
+        maps[task] = dict(map=float(m), aps={k: float(v)
+                                             for k, v in aps.items()})
+    losses = [r["metrics"]["loss"] for r in run["records"] if "metrics" in r]
+    want = dict.fromkeys(HANDLES, 0)
+    if on_card:
+        want.update(roi_align_train_forward=schedule["steps"],
+                    roi_align_backward=schedule["steps"])
+    if run["launches"] != want or len(losses) != schedule["steps"]:
+        raise AssertionError(f"learn: launches {run['launches']} (expected "
+                             f"{want}) in {len(losses)} logged steps")
+    step_ms = [r["time"] * 1e3 for r in run["records"] if "metrics" in r]
+    fields = dict(
+        config=E2E_THETA_CONFIG + (" (small architecture)" if small else ""),
+        schedule=schedule, seed=seed, steps=len(losses),
+        loss_first_10=losses[:10], loss_last_10=losses[-10:],
+        ms_per_step=float(np.mean(step_ms[1:] if len(step_ms) > 1
+                                  else step_ms)),
+        train_wall_s=run["wall_s"], train_launches=run["launches"],
+        test_launches=test_launches, obb_map=maps["obb"]["map"],
+        hbb_map=maps["hbb"]["map"], obb_aps=maps["obb"]["aps"],
+        hbb_aps=maps["hbb"]["aps"], map_bar=LEARN_MAP_BAR,
+        evaluated_on="the training scenes (a learning check, as the "
+        "reference's README:92)")
+    if not small and not maps["obb"]["map"] >= LEARN_MAP_BAR:
+        raise AssertionError(f"learn: OBB mAP@0.5 {maps['obb']['map']} is "
+                             f"under {LEARN_MAP_BAR}: {fields}")
+    return fields
 
 
 KERNELS = (
@@ -2913,6 +3677,43 @@ def run_rroi_paths(card):
     return dict(rroi_predict=fields, rroi_predict_bandx=bandx)
 
 
+def run_slice12(card, loop_ms_per_step=None):
+    """The phases of the GroupNorm r18_e2e recipes, the learning run,
+    HRNet, OHEM (beside the loop phase's plain thetaobb step,
+    ``loop_ms_per_step``), soft-NMS and TTA, in that order; returns
+    their runs' fields by path name (those with launches)."""
+    phase("gn_reference", model="small R18-GN FPN-GN float32", card=card,
+          theta=run_detector_reference(kind="gn_theta"),
+          rroi=run_detector_reference(kind="gn_rroi"))
+    runs = {}
+    for kind, title in (("theta_r18_e2e", "RBBoxRCNN"),
+                        ("rroi_r18_e2e", "RBBoxRCNNRRoI")):
+        paths = run_detector_paths(kind=kind)
+        runs[f"{kind}_predict"] = paths["predict"]
+        runs[f"{kind}_train"] = paths["train"]
+        phase(kind, model=f"{title} R18-GN FPN-GN 128", card=card, **paths)
+    learn = run_learn()
+    runs["learn"] = dict(launches=learn["train_launches"])
+    runs["learn_test"] = dict(launches=learn["test_launches"])
+    phase("learn", model="RBBoxRCNN R18-GN FPN-GN 128", card=card, **learn)
+    phase("hrnet_reference", card=card, **run_hrnet_reference())
+    hrnet = run_hrnet()
+    runs.update({f"hrnet_{k}": hrnet[k] for k in ("predict", "tta", "train")})
+    phase("hrnet", model="CenterMapOBB HRNet-W32 HRFPN", card=card, **hrnet)
+    phase("ohem_reference", model="small RBBoxRCNN float32, OHEM",
+          card=card, **run_detector_reference(kind="ohem"))
+    ohem = run_detector_paths(kind="ohem")
+    runs["ohem_train"] = ohem["train"]
+    phase("ohem", model="RBBoxRCNN R50-FPN, OHEM", card=card,
+          loop_plain_ms_per_step=loop_ms_per_step, **ohem)
+    phase("soft_nms_reference", card=card, **run_soft_nms_reference())
+    soft = run_soft_nms()
+    runs["soft_nms"] = soft
+    phase("soft_nms", model="CenterMap-Net R101-FPN", card=card, **soft)
+    phase("tta_reference", card=card, **run_tta_reference())
+    return runs
+
+
 def main() -> int:
     info = run_device()
     run_build()
@@ -2955,6 +3756,7 @@ def main() -> int:
         runs[f"{kind}_train"] = paths["train"]
         phase(kind, model=f"{title} R50-FPN", card=info["nvidia_smi"],
               **paths)
+    runs.update(run_slice12(info["nvidia_smi"], runs["loop"]["ms_per_step"]))
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

@@ -280,9 +280,16 @@ def test_nms_cfg_kwargs_match(cfg):
 
 
 def test_nms_cfg_kwargs():
-    """soft-NMS raises (not ported, no fallback to hard NMS); an unknown
-    type raises as in the reference."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        nms_cfg_kwargs(dict(nms=dict(type="soft_nms", iou_thr=0.5)))
+    """soft-NMS parses to its method, sigma and min_score (the
+    reference's defaults where the config names none); an unknown type
+    raises as in the reference."""
+    from aidet_tpu.ops.nms import nms_cfg_kwargs as j_nms_cfg_kwargs
+    for cfg in (dict(nms=dict(type="soft_nms", iou_thr=0.5)),
+                dict(nms=dict(type="soft_nms", method="gaussian", sigma=0.3,
+                              min_score=0.01))):
+        assert nms_cfg_kwargs(cfg) == j_nms_cfg_kwargs(cfg)
+    assert nms_cfg_kwargs(dict(nms=dict(type="soft_nms", iou_thr=0.5))) == \
+        dict(iou_thr=0.5, nms_type="soft_nms", soft_method="linear",
+             sigma=0.5, min_score=1e-3)
     with pytest.raises(ValueError):
         nms_cfg_kwargs(dict(nms=dict(type="matrix_nms")))

@@ -265,19 +265,26 @@ def test_h_obb_loss_matches_the_reference(models, robust):
 @needs_reference
 def test_h_obb_configs_build_and_load():
     """`configs/dota_h_obb_r50_fpn_1x.py` as written and with
-    hobb_robust_loss builds and loads the bridge's weights strictly
-    (the reference's variables of the small architecture stand in for
-    the full width: the same names)."""
+    hobb_robust_loss builds; `configs/dota_h_obb_robust_r18_e2e.py`
+    (GroupNorm R18) builds and loads the reference's variables of it
+    (shapes from `jax.eval_shape`) strictly through the bridge; a
+    ConvWS backbone still raises."""
+    from aidet_tpu_torch.models.backbones.resnet import GroupNorm
     from aidet_tpu_torch.utils.config import Config
+    from torch_port_pairs import assert_bridge_loads
     cfg = Config.fromfile("configs/dota_h_obb_r50_fpn_1x.py")
     for robust in (False, True):
         model = build_detector(dict(cfg.model, hobb_robust_loss=robust),
                                device="cpu")
         assert model.rbbox_head.encode == "hobb"
         assert model.hobb_robust_loss is robust
-    with pytest.raises(NotImplementedError, match="GN|norm"):
-        build_detector(dict(Config.fromfile(
-            "configs/dota_h_obb_robust_r18_e2e.py").model), device="cpu")
+    model, _ = assert_bridge_loads("configs/dota_h_obb_robust_r18_e2e.py")
+    assert model.hobb_robust_loss and model.rbbox_head.encode == "hobb"
+    assert isinstance(model.backbone.stem_bn, GroupNorm)
+    with pytest.raises(NotImplementedError, match="conv_cfg"):
+        build_detector(dict(cfg.model, backbone=dict(
+            type="ResNet", depth=50, conv_cfg=dict(type="ConvWS"))),
+            device="cpu")
 
 
 @pytest.mark.gpu

@@ -164,8 +164,13 @@ def test_registry_names_what_is_not_ported():
                        device="cpu")
     with pytest.raises(NotImplementedError, match="rbbox_encode"):
         build_detector(dict(cfg, rbbox_encode="pointobb"), device="cpu")
-    with pytest.raises(KeyError, match="HRNet.*not yet ported"):
-        build_detector(dict(cfg, backbone=dict(type="HRNet")), device="cpu")
+    hrnet = build_detector(dict(
+        cfg, backbone=dict(type="HRNet", width=8, stage_modules=(1, 1, 1, 1),
+                           stage_blocks=1),
+        neck=dict(type="HRFPN", in_channels=(8, 16, 32, 64),
+                  out_channels=64)), device="cpu")
+    assert type(hrnet.backbone).__name__ == "HRNet"
+    assert hrnet.neck.reduce.in_channels == 120
 
 
 def test_fp16_and_dtype_names_map_to_bfloat16():

@@ -16,7 +16,14 @@ architecture: the targets of `TrainPipeline`, the mask-to-OBB fit and
 the losses); a third rehearses the single-stage and H-OBB phases
 (retinanet_obb_reference and h_obb_reference CPU against CPU, then
 retinanet_obb and h_obb at the small architecture: predict in stages,
-the rotated NMS, the train steps).  pandas and matplotlib may be
+the rotated NMS, the train steps); a fourth rehearses the GroupNorm,
+OHEM, soft-NMS, HRNet, TTA and learning phases (gn_reference's and
+ohem_reference's models, soft_nms_reference, hrnet_reference and
+tta_reference CPU against CPU, then theta_r18_e2e, rroi_r18_e2e, ohem,
+soft_nms, hrnet and learn at the small architecture, and
+rroi_reference_train CPU against CPU with its plain versions swapped
+in).  pandas and
+matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
 tools/torch_train.py, tools/torch_test.py and tools/torch_dota_eval.py.
@@ -150,6 +157,35 @@ print("DETECTOR PHASES", paths["predict"]["n_valid"])
 """
 
 
+RUN_SLICE12_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] \
+    + """
+import chip_smoke
+for kind in ("gn_theta", "gn_rroi", "ohem"):
+    ref = chip_smoke.run_detector_reference(device="cpu", kind=kind,
+                                            img=128)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+for kind in ("theta_r18_e2e", "rroi_r18_e2e", "ohem"):
+    paths = chip_smoke.run_detector_paths(device="cpu", small=True,
+                                          kind=kind)
+    assert set(paths["train"]["launches"].values()) == {0}, paths
+for run in (chip_smoke.run_soft_nms_reference,
+            chip_smoke.run_hrnet_reference, chip_smoke.run_tta_reference):
+    ref = run(device="cpu")
+    assert ref["max_abs_err"]["unpaired"] == 0, ref
+soft = chip_smoke.run_soft_nms(device="cpu", small=True)
+assert soft["soft"]["n_valid"] > 0 and soft["hard"]["n_valid"] > 0, soft
+hrnet = chip_smoke.run_hrnet(device="cpu", small=True)
+assert hrnet["tta"]["variants"] == 4 and hrnet["tta"]["merged_quads"], hrnet
+learn = chip_smoke.run_learn(device="cpu", small=True)
+assert learn["steps"] == 2 and 0 <= learn["obb_map"] <= 1, learn
+# the plain versions swapped in for the kernels take the train flag
+chip_smoke.run_reference_train(device="cpu", model="rroi")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("SLICE12 PHASES", hrnet["tta"]["merged_boxes"], learn["obb_map"])
+"""
+
+
 def _env():
     """The subprocesses' environment: no PYTHONPATH, and one OpenMP
     thread.  Beside the tier-1 run's pytest workers a subprocess with
@@ -187,6 +223,14 @@ def test_detector_phases_run_with_reference_imports_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("DETECTOR PHASES")
+
+
+def test_slice12_phases_run_with_reference_imports_blocked():
+    proc = subprocess.run([sys.executable, "-c", RUN_SLICE12_PHASES],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("SLICE12 PHASES")
 
 
 def _imports(path):

@@ -337,8 +337,8 @@ def reference_tree(path):
 def test_configs_build_and_load_the_bridges_weights(path, extra):
     """The reference's parameter tree of the config (its shapes, from
     `jax.eval_shape`, filled with seeded values) carried over by
-    `flax_to_state_dict` loads strictly; the GroupNorm r18_e2e configs
-    still raise."""
+    `flax_to_state_dict` loads strictly, the GroupNorm r18_e2e
+    RetinaNetOBB's too; a ResNeXt backbone is not registered."""
     cfg = Config.fromfile(path)
     model_cfg = dict(cfg.model, **extra)
     tm = build_detector(model_cfg, train_cfg=cfg.get("train_cfg"),
@@ -354,10 +354,14 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
     np.testing.assert_array_equal(to_np(tm.state_dict()[key]),
                                   to_np(sd[key]))
     if "retinanet_theta" in path:
-        with pytest.raises(NotImplementedError, match="GN"):
-            build_detector(dict(Config.fromfile(
-                "configs/dota_retinanet_theta_obb_r18_e2e.py").model),
-                device="cpu")
+        from torch_port_pairs import assert_bridge_loads
+        gn, _ = assert_bridge_loads(
+            "configs/dota_retinanet_theta_obb_r18_e2e.py")
+        assert gn.neck.lateral_norm0.num_groups == 32
+        assert gn.neck.extra0.bias is not None
+        with pytest.raises(KeyError, match="ResNeXt.*not yet ported"):
+            build_detector(dict(model_cfg, backbone=dict(type="ResNeXt")),
+                           device="cpu")
 
 
 def test_train_detector_takes_a_single_stage_config(tmp_path):

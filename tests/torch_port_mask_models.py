@@ -69,10 +69,13 @@ def _batch(kind):
     return out
 
 
-def run_pair(kind):
+def run_pair(kind, test_cfg=None, loss=True):
     """(kind, reference predict, port predict, reference losses, port
-    losses) of the small ``kind`` model."""
+    losses) of the small ``kind`` model, under ``test_cfg`` if given;
+    without ``loss`` the losses are None."""
     cfg = MODELS[kind]()
+    if test_cfg is not None:
+        cfg["test_cfg"] = test_cfg
     cfg["train_cfg"] = dict(
         keep_every_candidate_cfg(IMG, G, MAX_NUM),
         rpn_proposal=dict(nms_pre=200, nms_post=MAX_NUM, max_num=MAX_NUM))
@@ -86,18 +89,20 @@ def run_pair(kind):
     batch = _batch(kind)
     ref_pred = jax.jit(functools.partial(jm.apply, method="predict"))(
         v, jnp.asarray(batch["imgs"]), jnp.asarray(batch["img_shapes"]))
-    ref_loss = jax.jit(functools.partial(jm.apply, method="loss"))(
-        v, rngs={"sampling": jax.random.PRNGKey(1)},
-        **{k: jnp.asarray(x) for k, x in batch.items()})
     tm.eval()
     got_pred = tm.predict(torch.from_numpy(batch["imgs"]),
                           torch.from_numpy(batch["img_shapes"]))
-    got_loss = tm.loss(**{k: torch.from_numpy(x) for k, x in batch.items()},
-                       generator=torch.Generator().manual_seed(0))
+    ref_loss = got_loss = None
+    if loss:
+        ref_loss = {k: float(x) for k, x in jax.jit(functools.partial(
+            jm.apply, method="loss"))(
+                v, rngs={"sampling": jax.random.PRNGKey(1)},
+                **{k: jnp.asarray(x) for k, x in batch.items()}).items()}
+        got_loss = {k: float(x) for k, x in tm.loss(
+            **{k: torch.from_numpy(x) for k, x in batch.items()},
+            generator=torch.Generator().manual_seed(0)).items()}
     return (kind, {k: np.asarray(x) for k, x in ref_pred.items()},
-            {k: to_np(x) for k, x in got_pred.items()},
-            {k: float(x) for k, x in ref_loss.items()},
-            {k: float(x) for k, x in got_loss.items()})
+            {k: to_np(x) for k, x in got_pred.items()}, ref_loss, got_loss)
 
 
 def check_predict(pair):

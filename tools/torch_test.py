@@ -4,7 +4,7 @@ dota_test.py: inference -> format -> merge).
 
     python tools/torch_test.py CONFIG [--checkpoint DIR/ckpt | FILE]
         [--out results.pkl] [--eval hbb obb] [--submit-dir DIR]
-        [--batch-size 8] [--device cuda|cpu]
+        [--batch-size 8] [--tta] [--device cuda|cpu]
 
 It builds the config's detector with the weights of ``--checkpoint`` (a
 checkpoint directory of tools/torch_train.py: its latest model_N; or a
@@ -17,10 +17,13 @@ thetaobbs after a refinement head, a RetinaNetOBB's ``rbox_encode``; or
 for the mask family (MaskOBB, CenterMapOBB, CenterMap-Net) the min-area
 rectangles of the predicted masks, `core.masks.mask_quads`; hbb: the
 boxes) and
-writes DOTA submission txt under ``--submit-dir/<task>``.  It runs
-on the CUDA card unless ``--device cpu``, and raises when there is
-none.  The reference's ``--tta`` (apis/tta.py), ``--precompile`` and
-``--n-devices`` are not ported.
+writes DOTA submission txt under ``--submit-dir/<task>``.  With
+``--tta`` each test image goes instead through `apis.tta.aug_test_image`
+at the config's ``tta = dict(scales=..., flip=...)`` (default: the
+model's img_size, flip on): its merged boxes, and its merged quads,
+which the obb task then takes as they are.  It runs on the CUDA card
+unless ``--device cpu``, and raises when there is none.  The
+reference's ``--precompile`` and ``--n-devices`` are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ def parse_args():
     p.add_argument("--submit-dir", default=None,
                    help="write DOTA submission txt files here")
     p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--tta", action="store_true",
+                   help="multi-scale/flip TTA per image, driven by the "
+                        "config's tta = dict(scales=..., flip=...)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args()
@@ -59,6 +65,7 @@ def main():
     from aidet_tpu_torch.apis.test import run_inference
     from aidet_tpu_torch.core.masks import mask_quads
     from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
     from aidet_tpu_torch.data.np_rboxes import rbox_quads
     from aidet_tpu_torch.utils.logging import get_root_logger
 
@@ -66,9 +73,29 @@ def main():
     model, cfg = init_detector(args.config, args.checkpoint,
                                device=args.device)
     dataset = build_dataset(cfg.data["test"])
-    results, names = run_inference(model, dataset,
-                                   batch_size=args.batch_size,
-                                   pipeline_cfg=cfg.get("test_pipeline"))
+    if args.tta:
+        from aidet_tpu_torch.apis.tta import aug_test_image
+        tta_cfg = dict(cfg.get("tta") or {})
+        scales = tuple(tta_cfg.get("scales", (model.img_size,)))
+        flip = bool(tta_cfg.get("flip", True))
+        logger.info("TTA: scales=%s flip=%s", scales, flip)
+        results, names = [], []
+        for i in range(len(dataset)):
+            m = aug_test_image(model, imread(dataset.img_path(i)),
+                               scales=scales, flip=flip,
+                               rbox_encode=model.result_encode)
+            r = dict(boxes=m["boxes"], scores=m["scores"],
+                     labels=m["labels"],
+                     valid=np.ones(len(m["scores"]), bool))
+            if "quads" in m:
+                r.update(quads=m["quads"], quad_scores=m["quad_scores"],
+                         quad_labels=m["quad_labels"])
+            results.append(r)
+            names.append(dataset.img_infos[i]["file_name"])
+    else:
+        results, names = run_inference(
+            model, dataset, batch_size=args.batch_size,
+            pipeline_cfg=cfg.get("test_pipeline"))
     logger.info("ran inference on %d images", len(results))
     if args.out:
         with open(args.out, "wb") as f:
@@ -79,6 +106,15 @@ def main():
         for task in args.eval:
             dets = []
             for r in results:
+                if task == "obb" and "quads" in r:
+                    # TTA: the quads come merged, with their own scores
+                    # and labels
+                    dets.append(dict(
+                        boxes=np.asarray(r["quads"]),
+                        scores=np.asarray(r["quad_scores"]),
+                        labels=np.asarray(r["quad_labels"]),
+                        valid=np.ones(len(r["quad_scores"]), bool)))
+                    continue
                 if task == "obb" and "rboxes" in r:
                     boxes = rbox_quads(np.asarray(r["rboxes"]), encode)
                 elif task == "obb" and "masks" in r:
