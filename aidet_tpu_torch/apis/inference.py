@@ -15,6 +15,7 @@ import os
 import numpy as np
 import torch
 
+from ..convert import load_torch_state_dict, mmdet_to_state_dict
 from ..data.pipeline import TestPipeline
 from ..models.builder import apply_fp16_cfg, build_detector
 from ..utils.checkpoint import load_checkpoint
@@ -27,8 +28,10 @@ def init_detector(config, checkpoint: str | None = None, device="cuda",
     weights from ``seed`` or those of ``checkpoint``: a checkpoint
     directory of the train loop (its latest ``model_N``, and the meta's
     classes as ``model.CLASSES``, as mmdet's init_detector sets them),
-    or a state_dict of the port's model saved by `torch.save`.
-    ``config`` is a path or a `Config`.  Returns (model, config)."""
+    or a ``.pth`` / ``.pt`` file: a state_dict of the port's model saved
+    by `torch.save`, or an mmdet-named one (`convert.mmdet_to_state_dict`;
+    a key it cannot map raises).  ``config`` is a path or a `Config`.
+    Returns (model, config)."""
     if isinstance(config, str):
         config = Config.fromfile(config)
     model_cfg = apply_fp16_cfg(config, dict(config.model))
@@ -42,8 +45,13 @@ def init_detector(config, checkpoint: str | None = None, device="cuda",
         if meta and meta.get("classes"):
             model.CLASSES = tuple(meta["classes"])
     elif checkpoint:
-        state = torch.load(checkpoint, map_location=model.anchors.device,
-                           weights_only=True)
+        state = load_torch_state_dict(checkpoint)
+        if set(state) != set(model.state_dict()):
+            state, unmapped = mmdet_to_state_dict(state, model)
+            if unmapped:
+                raise KeyError(f"{checkpoint}: keys that name no weight of "
+                               f"the port's {type(model).__name__}: "
+                               f"{sorted(unmapped)[:10]} ({len(unmapped)})")
         model.load_state_dict(state, strict=True)
     return model, config
 

@@ -4,12 +4,15 @@ the configs' ``dict(type=..., ...)`` entries.
 Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
 modules under the reference's type names, each behind a factory that
 reads the reference's keyword names: the backbones `ResNet` (FrozenBN
-or GroupNorm, pytorch or caffe style) and `HRNet`, the necks `FPN`
-(optionally with GroupNorm) and `HRFPN`, the heads `RPNHead`,
-`SharedFCBBoxHead` and `RBBoxHead`, and the detectors `RBBoxRCNN` and
-`RBBoxRCNNRRoI`.  An option the port does
-not implement raises `NotImplementedError` unless it holds the
-reference's default; a type that is not registered raises `KeyError`.
+or GroupNorm, pytorch or caffe style), `ResNeXt` and `HRNet`, the
+necks `FPN` (optionally with GroupNorm) and `HRFPN` (a config's list of
+necks runs them in order), the heads `RPNHead`, `SharedFCBBoxHead` (and
+`ConvFCBBoxHead`), `RBBoxHead`, the mask, semantic and dense heads, and
+the detectors (`RPN`, the two-stage presets from `FasterRCNN` to
+`CenterMapNet`, `CascadeRCNN`, `HTC`, the single-stage ones).  An
+option the port does not implement raises `NotImplementedError` unless
+it holds the reference's default; a type that is not registered raises
+`KeyError`.
 
 `build_detector` returns the predict model with seeded random weights
 (`aidet_tpu_torch.flagship.init_weights`) on ``device``, every
@@ -25,18 +28,22 @@ variables, or a saved port model).
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..flagship import finish
 from ..utils.registry import build_from_cfg
 from .backbones.hrnet import HRNet
 from .backbones.resnet import ARCH_SETTINGS, ResNet
+from .backbones.resnext import ResNeXt
+from .detectors.cascade import CascadeRCNN
+from .detectors.rpn import RPN
 from .detectors.single_stage import SingleStageDetector
-from .detectors.two_stage import TwoStageDetector
+from .detectors.two_stage import AnchorDetector, TwoStageDetector
 from .heads.bbox_head import RBBoxHead, SharedFCBBoxHead
-from .heads.mask_head import CenterMapHead, FCNMaskHead
+from .heads.mask_head import CenterMapHead, FCNMaskHead, HTCMaskHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
-from .heads.semantic_head import WPSGAHead
+from .heads.semantic_head import FusedSemanticHead, WPSGAHead
 from .losses import FocalLoss, SmoothL1Loss
 from .necks.fpn import FPN
 from .necks.hrfpn import HRFPN
@@ -121,6 +128,22 @@ def _hrnet(width=32, stage_modules=(1, 1, 4, 3), stage_blocks=4,
                  stage_blocks=stage_blocks)
 
 
+@BACKBONES.register(name="ResNeXt")
+def _resnext(depth=101, groups=32, base_width=4, frozen_stages=1,
+             style="pytorch", dtype=None, **options):
+    if depth not in (50, 101):
+        raise NotImplementedError(f"ResNeXt depth {depth} is {NOT_PORTED}; "
+                                  "50 and 101 are")
+    if style not in ("pytorch", "caffe"):
+        raise ValueError(f"ResNeXt style {style!r}: 'pytorch' or 'caffe'")
+    _only_defaults("ResNeXt", options, dict(
+        num_stages=4, strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+        out_indices=(0, 1, 2, 3), base_channels=64, norm_eval=True,
+        pretrained=None))
+    return ResNeXt(depth=depth, groups=groups, base_width=base_width,
+                   frozen_stages=frozen_stages, style=style)
+
+
 @NECKS.register(name="FPN")
 def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
          start_level=0, end_level=-1, add_extra_convs=False,
@@ -151,15 +174,21 @@ def _rpn_head(in_channels=256, feat_channels=256, num_anchors=3,
                    num_anchors=num_anchors)
 
 
+@HEADS.register(name="ConvFCBBoxHead")
 @HEADS.register(name="SharedFCBBoxHead")
 def _shared_fc_bbox_head(num_classes=81, in_channels=256,
                          fc_out_channels=1024, num_fcs=2, roi_feat_size=7,
-                         dtype=None, conv_out_channels=256, **options):
-    _only_defaults("SharedFCBBoxHead", options, dict(
-        num_shared_convs=0, norm_cfg=None, reg_class_agnostic=False))
-    return SharedFCBBoxHead(num_classes=num_classes, in_channels=in_channels,
-                            fc_out_channels=fc_out_channels, num_fcs=num_fcs,
-                            roi_feat_size=roi_feat_size)
+                         num_shared_convs=0, conv_out_channels=256,
+                         norm_cfg=None, reg_class_agnostic=False, dtype=None,
+                         **options):
+    _only_defaults("SharedFCBBoxHead", options, {})
+    return SharedFCBBoxHead(
+        num_classes=num_classes, in_channels=in_channels,
+        fc_out_channels=fc_out_channels, num_fcs=num_fcs,
+        roi_feat_size=roi_feat_size, num_shared_convs=num_shared_convs,
+        conv_out_channels=conv_out_channels,
+        norm_cfg=_norm_cfg("SharedFCBBoxHead", norm_cfg),
+        reg_class_agnostic=reg_class_agnostic)
 
 
 @HEADS.register(name="RBBoxHead")
@@ -182,6 +211,27 @@ def _fcn_mask_head(num_convs=4, in_channels=256, conv_out_channels=256,
     return FCNMaskHead(num_convs=num_convs, in_channels=in_channels,
                        conv_out_channels=conv_out_channels,
                        num_classes=num_classes)
+
+
+@HEADS.register(name="HTCMaskHead")
+def _htc_mask_head(num_convs=4, in_channels=256, conv_out_channels=256,
+                   num_classes=81, with_conv_res=True, dtype=None, **options):
+    _only_defaults("HTCMaskHead", options, dict(upsample_ratio=2,
+                                                class_agnostic=False))
+    return HTCMaskHead(num_convs=num_convs, in_channels=in_channels,
+                       conv_out_channels=conv_out_channels,
+                       num_classes=num_classes, with_conv_res=with_conv_res)
+
+
+@HEADS.register(name="FusedSemanticHead")
+def _fused_semantic_head(num_ins=5, fusion_level=1, num_convs=4,
+                         in_channels=256, conv_out_channels=256,
+                         num_classes=183, dtype=None, **options):
+    _only_defaults("FusedSemanticHead", options, {})
+    return FusedSemanticHead(num_ins=num_ins, fusion_level=fusion_level,
+                             num_convs=num_convs, in_channels=in_channels,
+                             conv_out_channels=conv_out_channels,
+                             num_classes=num_classes)
 
 
 @HEADS.register(name="CenterMapHead")
@@ -230,17 +280,27 @@ DETECTOR_DEFAULTS = dict(
 
 
 def _compute_dtype(type_name, dtype, cfgs: dict):
-    """The detector's dtype, else its sub-modules' (they must agree),
+    """The detector's dtype, else its sub-modules' (they must agree; a
+    list of configs, such as a sequence of necks, counts each),
     else float32."""
     dtype = torch_dtype(dtype)
     if dtype is not None:
         return dtype
-    subs = {torch_dtype(c["dtype"]) for c in cfgs.values()
+    flat = [c for v in cfgs.values()
+            for c in (v if isinstance(v, (list, tuple)) else [v])]
+    subs = {torch_dtype(c["dtype"]) for c in flat
             if c and c.get("dtype") is not None}
     if len(subs) > 1:
         raise NotImplementedError(f"{type_name}: sub-modules in several "
                                   f"dtypes {subs} are {NOT_PORTED}")
     return subs.pop() if subs else torch.float32
+
+
+def _neck(cfg):
+    """The neck of ``cfg``, or of a list of configs an `nn.Sequential`
+    that runs them in order (reference two_stage.py:203-211)."""
+    neck = build_neck(cfg)
+    return nn.Sequential(*neck) if isinstance(neck, list) else neck
 
 
 def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
@@ -252,17 +312,14 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
     """A `TwoStageDetector` from the reference's detector keywords, with
     its defaults for the sub-modules a config leaves out
     (two_stage.py:126-177); its ``compute_dtype`` is the config's
-    dtype.  A detector needs an rbbox head or a mask head: the rotated
-    boxes come from one or the other."""
+    dtype.  Without an rbbox head or a mask head it predicts boxes
+    alone (FasterRCNN, FastRCNN)."""
     if options.get("mask_iou_head"):
         raise NotImplementedError(f"{type_name}: MaskIoUHead (Mask Scoring "
                                   f"R-CNN) is {NOT_PORTED}")
     _only_defaults(type_name, options, DETECTOR_DEFAULTS)
     if roi_align_impl not in ("auto", "xla", "pallas"):
         raise ValueError(f"roi_align_impl {roi_align_impl!r}")
-    if not rbbox_head and not mask_head:
-        raise NotImplementedError(f"{type_name} without an rbbox_head or a "
-                                  f"mask_head is {NOT_PORTED}")
     cfgs = dict(
         backbone=backbone or dict(type="ResNet", depth=50),
         neck=neck or dict(type="FPN", num_outs=5),
@@ -279,7 +336,7 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
         cfgs["rbbox_refine_head"].setdefault("encode", "rtheta")
     dtype = _compute_dtype(type_name, dtype, cfgs)
     mods = {k: build_backbone(c) if k == "backbone"
-            else build_neck(c) if k == "neck" else build_head(c)
+            else _neck(c) if k == "neck" else build_head(c)
             for k, c in cfgs.items()}
     if "rbbox_head" in mods and mods["rbbox_head"].encode != rbbox_encode:
         raise NotImplementedError(
@@ -321,6 +378,9 @@ def _preset(type_name, build=None, **preset):
     return factory
 
 
+_preset("FasterRCNN")
+# Fast R-CNN: the same model, whose test path is predict_from_proposals
+_preset("FastRCNN")
 _preset("MaskRCNN", mask_head=dict(type="FCNMaskHead"))
 _preset("MaskOBB", mask_head=dict(type="FCNMaskHead"))
 _preset("CenterMapOBB", mask_head=dict(type="CenterMapHead"),
@@ -330,6 +390,92 @@ _preset("CenterMapOBB", mask_head=dict(type="CenterMapHead"),
 _preset("CenterMapNet", mask_head=dict(type="CenterMapHead"),
         mask_loss_type="centermap",
         semantic_head=dict(type="WPSGAHead", channels=256))
+
+
+# the anchor keywords of the reference's RPN, two-stage and cascade
+# detectors, which the port builds at their defaults
+ANCHOR_DEFAULTS = dict(strides=AnchorDetector.strides, anchor_scales=(8,),
+                       anchor_ratios=(0.5, 1.0, 2.0), img_norm=None)
+
+
+@DETECTORS.register(name="RPN")
+def _rpn(backbone=None, neck=None, rpn_head=None, train_cfg=None,
+         test_cfg=None, img_size=1024, dtype=None, **options):
+    """The proposal-only RPN (reference detectors/rpn.py) with its
+    defaults for the sub-modules a config leaves out; a `GARPNHead`
+    raises the registry's KeyError."""
+    _only_defaults("RPN", options, dict(
+        ANCHOR_DEFAULTS, ga_target_stds=(0.07, 0.07, 0.14, 0.14),
+        ga_loc_filter_thr=0.01))
+    cfgs = dict(backbone=backbone or dict(type="ResNet", depth=50),
+                neck=neck or dict(type="FPN", num_outs=5),
+                rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3))
+    dtype = _compute_dtype("RPN", dtype, cfgs)
+    return RPN(build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
+               build_head(cfgs["rpn_head"]), img_size=img_size,
+               train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype)
+
+
+def _cascade(type_name, backbone=None, neck=None, rpn_head=None,
+             bbox_head=None, shared_head=None, mask_head=None,
+             per_stage_masks=False, interleaved=False, mask_info_flow=False,
+             semantic_head=None, semantic_fusion=("bbox", "mask"),
+             semantic_level=1, num_stages=3, train_cfg=None, test_cfg=None,
+             img_size=1024, dtype=None, **options):
+    """A `CascadeRCNN` from the reference's keywords (cascade.py:49-96):
+    ``num_stages`` copies of the bbox head's config, each forced
+    class-agnostic (the cascade's convention, :85-88), one mask head or
+    one per stage.  Under the mask information flow every mask head
+    must be an `HTCMaskHead` (the reference calls it with the previous
+    stage's feature, which an `FCNMaskHead` does not take: a TypeError
+    there too), and every one but the first gets its ``conv_res``."""
+    if shared_head:
+        raise NotImplementedError(f"{type_name}: the C4 shared_head "
+                                  f"(ResLayer) is {NOT_PORTED}")
+    _only_defaults(type_name, options, ANCHOR_DEFAULTS)
+    cfgs = dict(
+        backbone=backbone or dict(type="ResNet", depth=50),
+        neck=neck or dict(type="FPN", num_outs=5),
+        rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3),
+        bbox_head=dict(bbox_head or dict(type="SharedFCBBoxHead",
+                                         num_classes=16),
+                       reg_class_agnostic=True))
+    n_masks = (num_stages if per_stage_masks else 1) if mask_head else 0
+    flow = mask_info_flow and per_stage_masks
+    masks = []
+    for i in range(n_masks):
+        c = dict(mask_head)
+        if flow:
+            if c.get("type") != "HTCMaskHead" or not c.get("with_conv_res",
+                                                           True):
+                raise TypeError(
+                    f"{type_name}: the mask information flow feeds each "
+                    "mask head the previous stage's feature, which needs an "
+                    f"HTCMaskHead with conv_res, not {c.get('type')!r}")
+            c["with_conv_res"] = i > 0
+        elif c.get("type") == "HTCMaskHead":
+            c["with_conv_res"] = False
+        masks.append(c)
+    if semantic_head:
+        cfgs["semantic_head"] = semantic_head
+    dtype = _compute_dtype(type_name, dtype, dict(cfgs, masks=masks))
+    return CascadeRCNN(
+        build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
+        build_head(cfgs["rpn_head"]),
+        [build_head(dict(cfgs["bbox_head"])) for _ in range(num_stages)],
+        mask_heads=[build_head(c) for c in masks] or None,
+        semantic_head=semantic_head and build_head(semantic_head),
+        per_stage_masks=per_stage_masks, interleaved=interleaved,
+        mask_info_flow=mask_info_flow, semantic_fusion=semantic_fusion,
+        semantic_level=semantic_level, img_size=img_size,
+        train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype)
+
+
+_preset("CascadeRCNN", build=_cascade)
+# Hybrid Task Cascade: per-stage HTC mask heads, interleaved, with the
+# mask information flow (cascade.py:462-472)
+_preset("HTC", build=_cascade, mask_head=dict(type="HTCMaskHead"),
+        per_stage_masks=True, interleaved=True, mask_info_flow=True)
 
 
 def _loss(cfg: dict, ported: dict):
@@ -369,7 +515,7 @@ def _single_stage(type_name, backbone=None, neck=None, bbox_head=None,
                                     num_anchors=num_anchors))
     dtype = _compute_dtype(type_name, dtype, cfgs)
     return SingleStageDetector(
-        build_backbone(cfgs["backbone"]), build_neck(cfgs["neck"]),
+        build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
         build_head(cfgs["bbox_head"]), img_size=img_size, strides=strides,
         anchor_scales=anchor_scales, anchor_ratios=anchor_ratios,
         target_means=target_means, target_stds=target_stds,

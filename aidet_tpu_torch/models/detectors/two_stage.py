@@ -1,5 +1,7 @@
-"""Two-stage detector: the RBBoxRCNN, RBBoxRCNNRRoI, MaskOBB,
-CenterMapOBB and CenterMap-Net predict paths and training losses.
+"""Two-stage detector: the FasterRCNN, FastRCNN, MaskRCNN, RBBoxRCNN,
+RBBoxRCNNRRoI, MaskOBB, CenterMapOBB and CenterMap-Net predict paths
+and training losses, and `AnchorDetector`, the parts that the RPN, the
+two-stage detectors and the cascades share.
 
 Port of `aidet_tpu/models/detectors/two_stage.py::TwoStageDetector`
 for those branches of
@@ -33,13 +35,16 @@ for those branches of
   (K2) against `core.targets.mask_target` of the gt masks: BCE or the
   CenterMap loss with mask weights.
 
+- `predict_from_proposals`: FastRCNN's test path, detections from given
+  proposals;
 - `aug_predict`: the reference's multi-augmentation test of one image
   (proposals merged in the original frame, every augmentation scoring
   the same merged proposals, boxes and softmax scores averaged before
   one multiclass NMS).
 
-The GA-RPN and combined samplers, and the grid, shared-head,
-Mask Scoring (`MaskIoUHead`) and HTC branches are not ported.
+The GA-RPN and combined samplers, and the grid, shared-head and Mask
+Scoring (`MaskIoUHead`) branches are not ported; the cascades are
+`detectors/cascade.py`, the proposal-only RPN `detectors/rpn.py`.
 """
 
 from __future__ import annotations
@@ -124,69 +129,30 @@ def _dq(x):
         else x
 
 
-class TwoStageDetector(nn.Module):
-    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head, and
-    with ``rbbox_refine_head`` (an rtheta `RBBoxHead`) RBBoxRCNNRRoI.
-    The first-stage rbbox codec (the reference's ``rbbox_encode``) is
-    the rbbox head's ``encode``: thetaobb, pointobb or hobb; with
-    ``hobb_robust_loss`` a hobb head's regression loss is the smallest
-    over the 4 rolls of each gt (`core.rboxes.hobb_rolls`), predict
-    unchanged.  Without an rbbox
-    head and with a ``mask_head`` (an `FCNMaskHead` trained with BCE,
-    ``mask_loss_type="bce"``, or a `CenterMapHead` trained with the
-    CenterMap loss, "centermap") it is MaskOBB or CenterMapOBB, whose
-    rotated boxes come from the masks on the host
-    (`core.masks.masks_to_thetaobbs`); with a ``semantic_head`` (a
-    `WPSGAHead`) too, CenterMap-Net: its map at pyramid level 0 is
-    cropped with every RoI and added to the crops (the reference's
-    default fusion and level, the only ones its configs use).
+class AnchorDetector(nn.Module):
+    """What the RPN, the two-stage detectors and the cascades share: a
+    backbone, a neck (a list of necks in the config is an
+    `nn.Sequential` that runs them in order, as the reference's
+    two_stage.py:203-211), the RPN head over the pyramid anchors
+    (strides P2..P6, 3 anchors per location: scale 8, ratios 0.5 / 1 /
+    2, the reference's defaults), the uint8 normalize, the mixed
+    precision of `loss`, the RPN's loss and proposals, and the RoI
+    crops.  ``dtype`` is the parameters' (the RPN head's)."""
 
-    compute_dtype: the dtype of `loss`'s convolutions and matrix
-    products when it differs from the parameters' (the training build
-    keeps float32 parameters and computes in bfloat16, as the
-    reference's flax modules with dtype=bfloat16 do); None means the
-    parameters' dtype.  `predict` computes in the parameters' dtype.
-    """
-
-    # pyramid strides P2..P6; 3 anchors per location (scale 8, ratios
-    # 0.5 / 1 / 2), the reference's defaults
     strides = (4, 8, 16, 32, 64)
+    # the pyramid level of a semantic head's map (`_fuse_semantic`)
+    semantic_level = 0
 
-    def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head,
-                 img_size=1024, train_cfg=None, test_cfg=None,
-                 compute_dtype=None, rbbox_refine_head=None, mask_head=None,
-                 mask_loss_type="bce", semantic_head=None,
-                 hobb_robust_loss=False):
+    def __init__(self, backbone, neck, rpn_head, img_size=1024,
+                 compute_dtype=None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
-        self.bbox_head = bbox_head
-        self.rbbox_head = rbbox_head
-        if rbbox_refine_head is not None \
-                and rbbox_refine_head.encode != "rtheta":
-            raise ValueError("rbbox_refine_head regresses against rotated "
-                             "proposals; encode must be 'rtheta'")
-        self.rbbox_refine_head = rbbox_refine_head
-        if rbbox_refine_head is not None and rbbox_head is None:
-            raise ValueError("rbbox_refine_head refines the rbbox head's "
-                             "boxes; it needs an rbbox_head")
-        if mask_loss_type not in ("bce", "centermap"):
-            raise ValueError(f"mask_loss_type {mask_loss_type!r}: 'bce' or "
-                             "'centermap'")
-        self.hobb_robust_loss = hobb_robust_loss
-        self.mask_head = mask_head
-        self.mask_loss_type = mask_loss_type
-        self.semantic_head = semantic_head
         self.img_size = img_size
-        self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
-        self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
         self.compute_dtype = compute_dtype
         self.rpn_cls_loss = CrossEntropyLoss(use_sigmoid=True)
         self.rpn_bbox_loss = SmoothL1Loss(beta=1.0 / 9.0)
-        self.rcnn_cls_loss = CrossEntropyLoss()
-        self.rcnn_bbox_loss = SmoothL1Loss(beta=1.0)
-        self.centermap_loss = CenterMapLoss()
         anchors, sizes = build_pyramid_anchors(img_size, self.strides)
         self.register_buffer("anchors", anchors, persistent=False)
         self.level_sizes = sizes
@@ -203,22 +169,65 @@ class TwoStageDetector(nn.Module):
 
     @property
     def dtype(self):
-        return self.bbox_head.fc_cls.weight.dtype
-
-    @property
-    def result_encode(self):
-        """The encode of predict's ``rboxes`` (a refinement head's are
-        thetaobbs whatever the first stage's), or None without them."""
-        if self.rbbox_head is None:
-            return None
-        return ("thetaobb" if self.rbbox_refine_head is not None
-                else self.rbbox_head.encode)
+        return self.rpn_head.rpn_cls.weight.dtype
 
     def extract_feat(self, imgs):
         with record_function("backbone"):
             feats = self.backbone(device_normalize(imgs, dtype=self.dtype))
         with record_function("neck"):
             return self.neck(feats)
+
+    def _mixed_precision(self, device):
+        """Autocast to ``compute_dtype`` (convolutions and linears in it,
+        parameters kept as they are), or nothing when it is the
+        parameters' dtype."""
+        cd = self.compute_dtype or self.dtype
+        return torch.autocast(torch.device(device).type, dtype=cd,
+                              enabled=cd != self.dtype)
+
+    def _rpn_outputs(self, feats):
+        """The RPN head's outputs flattened over the levels: (cls [B, A],
+        reg [B, A, 4])."""
+        with record_function("rpn_head"):
+            rpn_cls, rpn_reg = self.rpn_head(feats)
+        return flatten_level_outputs(rpn_cls, rpn_reg,
+                                     self.rpn_head.cls_out_channels)
+
+    def _rpn_loss(self, imgs, gt_boxes, gt_valid, img_shapes, generator,
+                  rpn):
+        """The features (under `_mixed_precision`), the RPN's float32
+        outputs and its losses under the assigner and sampler of the
+        ``rpn`` train_cfg (loss_rpn_cls, loss_rpn_bbox).  Returns (feats,
+        cls_flat, reg_flat, losses, the autocast context)."""
+        amp = self._mixed_precision(imgs.device)
+        with amp:
+            feats = self.extract_feat(imgs)
+            cls_flat, reg_flat = self._rpn_outputs(feats)
+        cls_flat, reg_flat = cls_flat.float(), reg_flat.float()
+        with record_function("rpn_loss"):
+            out = anchor_head_loss(
+                cls_flat, reg_flat, self.anchors, gt_boxes, gt_valid,
+                img_shapes, generator, target_stds=RPN_TARGET_STDS,
+                cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
+                assigner_cfg=dict(pos_iou_thr=rpn["pos_iou_thr"],
+                                  neg_iou_thr=rpn["neg_iou_thr"],
+                                  min_pos_iou=rpn["min_pos_iou"]),
+                sampler_cfg=dict(num_samples=rpn["num_samples"],
+                                 pos_fraction=rpn["pos_fraction"],
+                                 neg_pos_ub=rpn["neg_pos_ub"]),
+                allowed_border=rpn["allowed_border"],
+                pos_weight=rpn["pos_weight"])
+        return feats, cls_flat, reg_flat, dict(
+            loss_rpn_cls=out["loss_cls"], loss_rpn_bbox=out["loss_bbox"]), amp
+
+    def _proposals(self, cls_flat, reg_flat, img_shapes, cfg):
+        """The RPN's proposals under ``cfg`` (nms_pre, nms_post, max_num,
+        nms_thr, min_bbox_size), without gradient: (boxes [B, N, 4],
+        scores [B, N], valid [B, N])."""
+        with torch.no_grad(), record_function("rpn_proposals"):
+            return rpn_proposals(cls_flat, reg_flat, self.anchors,
+                                 self.level_sizes, img_shapes,
+                                 target_stds=RPN_TARGET_STDS, **cfg)
 
     def _roi_features(self, feats, rois_b, out_size, infer=False):
         """Multi-level RoIAlign over the first 4 levels: [B, R, s, s, C].
@@ -239,16 +248,88 @@ class TwoStageDetector(nn.Module):
 
     def _fuse_semantic(self, crops, sem_feat, rois_b, out_size):
         """The semantic map [B, H, W, C] cropped at the rois [B, R, 4] by
-        the single-level RoIAlign at level 0's stride (sampling ratio 2,
-        aligned: the reference's `ops/roi_align.py::roi_align`,
-        two_stage.py:352-365) and added to the crops [B, R, s, s, C].  The crop is the multi-level
-        RoIAlign over one level: K1 on the card under no_grad, K2
-        (forward and backward) when the map needs a gradient, the plain
-        version on the CPU."""
+        the single-level RoIAlign at the stride of `semantic_level`
+        (sampling ratio 2, aligned: the reference's
+        `ops/roi_align.py::roi_align`, two_stage.py:352-365,
+        cascade.py:134-142) and added to the crops [B, R, s, s, C].  The
+        crop is the multi-level RoIAlign over one level: K1 on the card
+        under no_grad, K2 (forward and backward) when the map needs a
+        gradient, the plain version on the CPU."""
+        lvl = self.semantic_level
         with record_function("semantic_roi_align"):
             sem = roi_align_forward([sem_feat.contiguous()], rois_b.float(),
-                                    out_size, self.strides[:1])
+                                    out_size, self.strides[lvl:lvl + 1])
         return crops + sem
+
+
+class TwoStageDetector(AnchorDetector):
+    """RBBoxRCNN: backbone + FPN + RPN + bbox head + rbbox head, and
+    with ``rbbox_refine_head`` (an rtheta `RBBoxHead`) RBBoxRCNNRRoI.
+    The first-stage rbbox codec (the reference's ``rbbox_encode``) is
+    the rbbox head's ``encode``: thetaobb, pointobb or hobb; with
+    ``hobb_robust_loss`` a hobb head's regression loss is the smallest
+    over the 4 rolls of each gt (`core.rboxes.hobb_rolls`), predict
+    unchanged.  Without an rbbox
+    head and with a ``mask_head`` (an `FCNMaskHead` trained with BCE,
+    ``mask_loss_type="bce"``, or a `CenterMapHead` trained with the
+    CenterMap loss, "centermap") it is MaskOBB or CenterMapOBB, whose
+    rotated boxes come from the masks on the host
+    (`core.masks.masks_to_thetaobbs`); with a ``semantic_head`` (a
+    `WPSGAHead`) too, CenterMap-Net: its map at pyramid level 0 is
+    cropped with every RoI and added to the crops (the reference's
+    default fusion and level, the only ones its configs use).  With
+    neither an rbbox head nor a mask head it is FasterRCNN (or
+    FastRCNN, whose test path is `predict_from_proposals`): boxes
+    alone.
+
+    compute_dtype: the dtype of `loss`'s convolutions and matrix
+    products when it differs from the parameters' (the training build
+    keeps float32 parameters and computes in bfloat16, as the
+    reference's flax modules with dtype=bfloat16 do); None means the
+    parameters' dtype.  `predict` computes in the parameters' dtype.
+    """
+
+    def __init__(self, backbone, neck, rpn_head, bbox_head, rbbox_head=None,
+                 img_size=1024, train_cfg=None, test_cfg=None,
+                 compute_dtype=None, rbbox_refine_head=None, mask_head=None,
+                 mask_loss_type="bce", semantic_head=None,
+                 hobb_robust_loss=False):
+        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype)
+        self.bbox_head = bbox_head
+        self.rbbox_head = rbbox_head
+        if rbbox_refine_head is not None \
+                and rbbox_refine_head.encode != "rtheta":
+            raise ValueError("rbbox_refine_head regresses against rotated "
+                             "proposals; encode must be 'rtheta'")
+        self.rbbox_refine_head = rbbox_refine_head
+        if rbbox_refine_head is not None and rbbox_head is None:
+            raise ValueError("rbbox_refine_head refines the rbbox head's "
+                             "boxes; it needs an rbbox_head")
+        if mask_loss_type not in ("bce", "centermap"):
+            raise ValueError(f"mask_loss_type {mask_loss_type!r}: 'bce' or "
+                             "'centermap'")
+        self.hobb_robust_loss = hobb_robust_loss
+        self.mask_head = mask_head
+        self.mask_loss_type = mask_loss_type
+        self.semantic_head = semantic_head
+        self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
+        self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
+        self.rcnn_cls_loss = CrossEntropyLoss()
+        self.rcnn_bbox_loss = SmoothL1Loss(beta=1.0)
+        self.centermap_loss = CenterMapLoss()
+
+    @property
+    def dtype(self):
+        return self.bbox_head.fc_cls.weight.dtype
+
+    @property
+    def result_encode(self):
+        """The encode of predict's ``rboxes`` (a refinement head's are
+        thetaobbs whatever the first stage's), or None without them."""
+        if self.rbbox_head is None:
+            return None
+        return ("thetaobb" if self.rbbox_refine_head is not None
+                else self.rbbox_head.encode)
 
     @torch.no_grad()
     def predict(self, imgs, img_shapes, scale_factors=None):
@@ -272,14 +353,9 @@ class TwoStageDetector(nn.Module):
         ec = self.test_cfg
         img_shapes = img_shapes.float()
         feats = self.extract_feat(imgs)
-        with record_function("rpn_head"):
-            rpn_cls, rpn_reg = self.rpn_head(feats)
-        with record_function("rpn_proposals"):
-            cls_flat, reg_flat = flatten_level_outputs(
-                rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
-            props, _, prop_valid = rpn_proposals(
-                cls_flat, reg_flat, self.anchors, self.level_sizes,
-                img_shapes, target_stds=RPN_TARGET_STDS, **ec["rpn"])
+        cls_flat, reg_flat = self._rpn_outputs(feats)
+        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
+                                               img_shapes, ec["rpn"])
 
         b, p = props.shape[:2]
         sem_feat = None
@@ -315,6 +391,42 @@ class TwoStageDetector(nn.Module):
                 out["masks"] = self._predict_masks(feats, sem_feat, dets)
         if scale_factors is not None:
             self._rescale(out, scale_factors)
+        return out
+
+    @torch.no_grad()
+    def predict_from_proposals(self, imgs, proposals, prop_valid, img_shapes,
+                               scale_factors=None):
+        """Fast R-CNN's test path (reference two_stage.py:841-870; parity:
+        mmdet's fast_rcnn.py): detections from given proposals [B, P, 4]
+        with validity [B, P] (an RPN's `predict`, or a file's), through
+        the RoI crops (K1 on the card), the bbox head, its decode and
+        multiclass NMS.  Returns boxes [B, K, 4] (divided by
+        ``scale_factors`` [B] when given), scores, labels and valid."""
+        img_shapes = img_shapes.float()
+        feats = self.extract_feat(imgs)
+        b, p = proposals.shape[:2]
+        with record_function("roi_align"):
+            crops = self._roi_features(feats, proposals,
+                                       self.bbox_head.roi_feat_size,
+                                       infer=True)
+        with record_function("bbox_head"):
+            cls_score, bbox_pred = self.bbox_head(
+                crops.reshape((b * p,) + crops.shape[2:]))
+        rc = self.test_cfg["rcnn"]
+        with record_function("bbox_decode_nms"):
+            boxes, scores = bbox_head_decode(
+                proposals.float(), cls_score.reshape(b, p, -1),
+                bbox_pred.reshape(b, p, -1), RCNN_TARGET_MEANS,
+                RCNN_TARGET_STDS, img_shape=img_shapes[:, None, :])
+            dets = multiclass_nms(boxes, scores, rc["score_thr"],
+                                  max_num=rc["max_per_img"],
+                                  valid=prop_valid.bool(),
+                                  **nms_cfg_kwargs(rc))
+        out = dict(boxes=dets.boxes, scores=dets.scores,
+                   labels=dets.labels, valid=dets.valid)
+        if scale_factors is not None:
+            out["boxes"] = out["boxes"] / scale_factors.to(
+                out["boxes"]).reshape(-1, 1, 1)
         return out
 
     @torch.no_grad()
@@ -483,14 +595,6 @@ class TwoStageDetector(nn.Module):
         return torch.where(dets.valid[..., None], refined,
                            refined.new_zeros(()))
 
-    def _mixed_precision(self, device):
-        """Autocast to ``compute_dtype`` (convolutions and linears in it,
-        parameters kept as they are), or nothing when it is the
-        parameters' dtype."""
-        cd = self.compute_dtype or self.dtype
-        return torch.autocast(torch.device(device).type, dtype=cd,
-                              enabled=cd != self.dtype)
-
     def loss(self, imgs, gt_boxes, gt_valid, gt_labels, img_shapes,
              gt_rboxes=None, generator: torch.Generator = None,
              gt_masks=None, gt_mask_weights=None, gt_semantic=None,
@@ -537,38 +641,11 @@ class TwoStageDetector(nn.Module):
         img_shapes = img_shapes.float()
         gt_boxes = gt_boxes.float()
         b = imgs.shape[0]
-        amp = self._mixed_precision(imgs.device)
-        with amp:
-            feats = self.extract_feat(imgs)
-            with record_function("rpn_head"):
-                rpn_cls, rpn_reg = self.rpn_head(feats)
-        cls_flat, reg_flat = flatten_level_outputs(
-            rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
-        cls_flat, reg_flat = cls_flat.float(), reg_flat.float()
-
-        rpn = tc["rpn"]
-        with record_function("rpn_loss"):
-            rpn_losses = anchor_head_loss(
-                cls_flat, reg_flat, self.anchors, gt_boxes, gt_valid,
-                img_shapes, generator, target_stds=RPN_TARGET_STDS,
-                cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
-                assigner_cfg=dict(pos_iou_thr=rpn["pos_iou_thr"],
-                                  neg_iou_thr=rpn["neg_iou_thr"],
-                                  min_pos_iou=rpn["min_pos_iou"]),
-                sampler_cfg=dict(num_samples=rpn["num_samples"],
-                                 pos_fraction=rpn["pos_fraction"],
-                                 neg_pos_ub=rpn["neg_pos_ub"]),
-                allowed_border=rpn["allowed_border"],
-                pos_weight=rpn["pos_weight"])
-        losses = dict(loss_rpn_cls=rpn_losses["loss_cls"],
-                      loss_rpn_bbox=rpn_losses["loss_bbox"])
-
+        feats, cls_flat, reg_flat, losses, amp = self._rpn_loss(
+            imgs, gt_boxes, gt_valid, img_shapes, generator, tc["rpn"])
         # proposals carry no gradient, as in the reference
-        with torch.no_grad(), record_function("rpn_proposals"):
-            props, _, prop_valid = rpn_proposals(
-                cls_flat, reg_flat, self.anchors, self.level_sizes,
-                img_shapes, target_stds=RPN_TARGET_STDS,
-                **tc["rpn_proposal"])
+        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
+                                               img_shapes, tc["rpn_proposal"])
 
         # the gt boxes join the proposals as candidates
         with record_function("rcnn_sample"):
@@ -627,7 +704,8 @@ class TwoStageDetector(nn.Module):
                                rc["pos_weight"]))
         losses["loss_cls"], losses["loss_bbox"] = bbox_head_loss(
             cls_score.float(), bbox_pred.float(), tgt,
-            self.rcnn_cls_loss, self.rcnn_bbox_loss)
+            self.rcnn_cls_loss, self.rcnn_bbox_loss,
+            reg_class_agnostic=self.bbox_head.reg_class_agnostic)
         if self.rbbox_head is not None:
             with amp, record_function("roi_heads"):
                 rcls, rreg = self.rbbox_head(crops)

@@ -1,11 +1,11 @@
 """RoI box heads, their loss and their decodes.
 
-Port of `SharedFCBBoxHead`, `RBBoxHead`, `bbox_head_loss`,
-`bbox_head_decode` and `rbbox_head_decode` from
-`aidet_tpu/models/heads/bbox_head.py`.  The
-heads take roi crops [N, s, s, C] and flatten them in (h, w, c) order,
-the reference's order, so the first FC's weight is the reference
-kernel transposed and needs no row permutation.
+Port of `SharedFCBBoxHead` (registered as `ConvFCBBoxHead` too, as
+in the reference), `RBBoxHead`, `bbox_head_loss`, `bbox_head_decode`
+and `rbbox_head_decode` from `aidet_tpu/models/heads/bbox_head.py`.
+The heads take roi crops [N, s, s, C] and flatten them in (h, w, c)
+order, the reference's order, so the first FC's weight is the
+reference kernel transposed and needs no row permutation.
 """
 
 from __future__ import annotations
@@ -16,28 +16,54 @@ from torch import nn
 
 from ...core.boxes import delta2bbox
 from ...core.rboxes import RBBOX_CODECS
+from ..backbones.resnet import make_norm
 
 
 class SharedFCBBoxHead(nn.Module):
-    """Shared FCs, then classification and per-class box regression
-    (the reference's class-agnostic option is not ported: the flagship
-    does not use it)."""
+    """``num_shared_convs`` 3x3 convs with ReLU (``shared_conv{i}``, with
+    ``norm_cfg`` GroupNorm ``shared_norm{i}`` after each and no conv
+    bias: the reference's 4conv1fc GN head), shared FCs, then
+    classification and box regression: per class, or one box for every
+    class with ``reg_class_agnostic`` (the cascade's stages)."""
 
     def __init__(self, num_classes=16, in_channels=256, fc_out_channels=1024,
-                 num_fcs=2, roi_feat_size=7, out_dim_reg=4):
+                 num_fcs=2, roi_feat_size=7, out_dim_reg=4,
+                 num_shared_convs=0, conv_out_channels=256, norm_cfg=None,
+                 reg_class_agnostic=False):
         super().__init__()
         self.num_fcs = num_fcs
+        self.num_shared_convs = num_shared_convs
         self.roi_feat_size = roi_feat_size
         self.out_dim_reg = out_dim_reg
-        cin = in_channels * roi_feat_size * roi_feat_size
+        self.reg_class_agnostic = reg_class_agnostic
+        cin = in_channels
+        for i in range(num_shared_convs):
+            self.add_module(f"shared_conv{i}", nn.Conv2d(
+                cin, conv_out_channels, 3, padding=1,
+                bias=norm_cfg is None))
+            if norm_cfg is not None:
+                self.add_module(f"shared_norm{i}",
+                                make_norm(conv_out_channels, norm_cfg))
+            cin = conv_out_channels
+        self.with_norm = norm_cfg is not None
+        cin = cin * roi_feat_size * roi_feat_size
         for i in range(num_fcs):
             self.add_module(f"shared_fc{i}", nn.Linear(cin, fc_out_channels))
             cin = fc_out_channels
         self.fc_cls = nn.Linear(cin, num_classes)
-        self.fc_reg = nn.Linear(cin, out_dim_reg * num_classes)
+        self.fc_reg = nn.Linear(cin, out_dim_reg * (
+            1 if reg_class_agnostic else num_classes))
 
     def forward(self, x):
         """x: [N, s, s, C] -> (cls_score [N, classes], pred [N, D])."""
+        if self.num_shared_convs:
+            x = x.permute(0, 3, 1, 2)
+            for i in range(self.num_shared_convs):
+                x = getattr(self, f"shared_conv{i}")(x)
+                if self.with_norm:
+                    x = getattr(self, f"shared_norm{i}")(x)
+                x = F.relu(x)
+            x = x.permute(0, 2, 3, 1)
         x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fcs):
             x = F.relu(getattr(self, f"shared_fc{i}")(x))
@@ -63,26 +89,30 @@ class RBBoxHead(SharedFCBBoxHead):
 
 
 def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
-                   box_dim: int = 4, alt_bbox_targets=None):
+                   box_dim: int = 4, alt_bbox_targets=None,
+                   reg_class_agnostic: bool = False):
     """Second-stage loss over the sampled rois of a batch: CE over all
     of them and smooth L1 on the class-specific slice of the
-    regression, both averaged by the count of valid samples (the
-    label-weight sum, at least 1).
+    regression (the whole of it if ``reg_class_agnostic``), both
+    averaged by the count of valid samples (the label-weight sum, at
+    least 1).
 
-    cls_score [N, C], bbox_pred [N, C * box_dim]; ``targets`` a
-    `core.targets.RoiTargets` with leading dim N.  ``alt_bbox_targets``
-    [K, N, box_dim]: equivalent targets (the 4 rolls of a hobb, which
-    decode to one rectangle); the regression loss is then each
-    sample's smallest summed loss over them, on the positives (the
-    reference's sort-robust hobb loss).
+    cls_score [N, C], bbox_pred [N, C * box_dim] (or [N, box_dim]); ``targets``
+    a `core.targets.RoiTargets` with leading dim N.  ``alt_bbox_targets`` [K,
+    N, box_dim]: equivalent targets (the 4 rolls of a hobb, which decode to one
+    rectangle); the regression loss is then each sample's smallest summed loss
+    over them, on the positives (the reference's sort-robust hobb loss).
     """
     avg = targets.label_weights.sum().clamp(min=1.0)
     loss_cls = cls_loss(cls_score, targets.labels,
                         weight=targets.label_weights, avg_factor=avg)
-    per = bbox_pred.reshape(bbox_pred.shape[0], -1, box_dim)
-    idx = targets.labels.long().clamp(0, per.shape[1] - 1)
-    pred = torch.gather(per, 1, idx[:, None, None].expand(
-        -1, 1, box_dim))[:, 0]
+    if reg_class_agnostic:
+        pred = bbox_pred
+    else:
+        per = bbox_pred.reshape(bbox_pred.shape[0], -1, box_dim)
+        idx = targets.labels.long().clamp(0, per.shape[1] - 1)
+        pred = torch.gather(per, 1, idx[:, None, None].expand(
+            -1, 1, box_dim))[:, 0]
     if alt_bbox_targets is None:
         loss_bbox = bbox_loss(pred, targets.bbox_targets,
                               weight=targets.bbox_weights, avg_factor=avg)
@@ -108,7 +138,8 @@ def softmax(x):
 def bbox_head_decode(rois, cls_score, bbox_pred,
                      target_means=(0., 0., 0., 0.),
                      target_stds=(0.1, 0.1, 0.2, 0.2), img_shape=None):
-    """Per-class boxes [..., C*4] and softmax scores [..., C].
+    """Per-class boxes [..., C*4] (a class-agnostic head's [..., 4]) and
+    softmax scores [..., C].
     img_shape: None or (h, w) [..., 2] broadcasting like the rois'
     leading dims (see `core.boxes.delta2bbox`).  The softmax runs in
     cls_score's dtype (bfloat16 in the full model), as the reference's;

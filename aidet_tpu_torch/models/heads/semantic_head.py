@@ -1,22 +1,27 @@
-"""The CenterMap-Net semantic branch: the WPSGA head and its loss.
+"""The semantic branches: CenterMap-Net's WPSGA head, HTC's fused
+semantic head, and their loss.
 
-Port of `aidet_tpu/models/heads/semantic_head.py` (`ChannelAttention`
-:66-78, `SpatialAttention` :81-91, `WPSGAHead` :94-131,
-`semantic_loss` :134-168; parity: the reference's wpsga_head.py):
-semantic-FPN scale heads summed at the finest level, a channel gate
-and a spatial gate, and a 1x1 predictor of per-pixel class logits.
-Level i runs its first 3x3 conv at its own resolution, is resized to
-level 0's, then runs its remaining convs there (:116-124), as the
-reference does.  NHWC in and out.  Submodule names follow the
-reference's parameter tree (scale{i}_conv{k}, ca.fc1, ca.fc2, sa.conv,
-predictor).  `FusedSemanticHead` waits for HTC (cascade).
+Port of `aidet_tpu/models/heads/semantic_head.py` (`FusedSemanticHead`
+:30-63, `ChannelAttention` :66-78, `SpatialAttention` :81-91,
+`WPSGAHead` :94-131, `semantic_loss` :134-168; parity: the reference's
+wpsga_head.py and fused_semantic_head.py).  WPSGA: semantic-FPN scale
+heads summed at the finest level, a channel gate and a spatial gate,
+and a 1x1 predictor of per-pixel class logits.  Level i runs its first
+3x3 conv at its own resolution, is resized to level 0's, then runs its
+remaining convs there (:116-124), as the reference does.  The fused
+head: a 1x1 lateral per level, each resized to the fusion level's size
+and summed, a 3x3 conv stack, then a 1x1 embedding (ReLU) and 1x1
+logits.  NHWC in and out.  Submodule names follow the reference's
+parameter tree (scale{i}_conv{k}, ca.fc1, ca.fc2, sa.conv, predictor;
+lateral{i}, conv{i}, conv_embedding, conv_logits).
 
-`jax.image.resize`'s "bilinear" antialiases when it shrinks; torch's
-bilinear interpolation without antialias is the same function where
-it enlarges or keeps the size, the only case the configs reach (the
-levels are resized up to level 0; `semantic_loss`'s weight map already
-has the logits' size at ``seg_scale`` 4), so a shrink raises.  Its
-"nearest" takes half-pixel centres: torch's "nearest-exact".
+`jax.image.resize`'s "bilinear" antialiases when it shrinks (a
+triangle filter stretched by the scale, renormalized at the border);
+torch's bilinear interpolation is the same function, without antialias
+where it enlarges or keeps the size and with ``antialias=True`` where
+it shrinks (the fused head's finer levels; `semantic_loss`'s weight
+map already has the logits' size at ``seg_scale`` 4).  Its "nearest"
+takes half-pixel centres: torch's "nearest-exact".
 """
 
 from __future__ import annotations
@@ -27,16 +32,59 @@ from torch import nn
 
 
 def resize_bilinear(x, hw):
-    """NCHW x to spatial size ``hw``, bilinear with half-pixel centres
-    (`jax.image.resize(method="bilinear")` where it does not shrink)."""
-    if x.shape[-2] > hw[0] or x.shape[-1] > hw[1]:
-        raise NotImplementedError(
-            f"a bilinear shrink {tuple(x.shape[-2:])} -> {tuple(hw)}: "
-            "jax.image.resize antialiases there, which is not ported")
+    """NCHW x to spatial size ``hw``, bilinear with half-pixel centres,
+    antialiased where it shrinks (`jax.image.resize(method="bilinear")`).
+    A shrink in one axis and a stretch in the other raises: torch
+    antialiases both axes or neither."""
+    shrink = x.shape[-2] > hw[0], x.shape[-1] > hw[1]
     if tuple(x.shape[-2:]) == tuple(hw):
         return x
+    if any(shrink) and not (x.shape[-2] >= hw[0] and x.shape[-1] >= hw[1]):
+        raise NotImplementedError(
+            f"a bilinear resize {tuple(x.shape[-2:])} -> {tuple(hw)} "
+            "that shrinks one axis and stretches the other is not ported")
     return F.interpolate(x, size=tuple(hw), mode="bilinear",
-                         align_corners=False)
+                         align_corners=False, antialias=any(shrink))
+
+
+class FusedSemanticHead(nn.Module):
+    """HTC's semantic branch: returns (seg_logits [B, Hf, Wf,
+    num_classes], semantic_feat [B, Hf, Wf, C]) at the fusion level's
+    size; `semantic_loss` at the reference's settings for it (CE, weight
+    0.2, ignore 255)."""
+    loss_weight, use_focal, focal_gamma = 0.2, False, 2.0
+
+    def __init__(self, num_ins=5, fusion_level=1, num_convs=4,
+                 in_channels=256, conv_out_channels=256, num_classes=183):
+        super().__init__()
+        self.num_ins = num_ins
+        self.fusion_level = fusion_level
+        self.num_convs = num_convs
+        for i in range(num_ins):
+            self.add_module(f"lateral{i}",
+                            nn.Conv2d(in_channels, in_channels, 1))
+        cin = in_channels
+        for i in range(num_convs):
+            self.add_module(f"conv{i}", nn.Conv2d(cin, conv_out_channels, 3,
+                                                  padding=1))
+            cin = conv_out_channels
+        self.conv_embedding = nn.Conv2d(cin, conv_out_channels, 1)
+        self.conv_logits = nn.Conv2d(cin, num_classes, 1)
+
+    def forward(self, feats):
+        """feats: [B, H_l, W_l, C] levels."""
+        ref = feats[self.fusion_level].permute(0, 3, 1, 2)
+        hw = ref.shape[-2:]
+        x = getattr(self, f"lateral{self.fusion_level}")(ref)
+        for i, f in enumerate(feats[:self.num_ins]):
+            if i != self.fusion_level:
+                lat = getattr(self, f"lateral{i}")(f.permute(0, 3, 1, 2))
+                x = x + resize_bilinear(lat, hw)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        embedding = F.relu(self.conv_embedding(x))
+        logits = self.conv_logits(x)
+        return logits.permute(0, 2, 3, 1), embedding.permute(0, 2, 3, 1)
 
 
 class ChannelAttention(nn.Module):

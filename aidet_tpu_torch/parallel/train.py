@@ -24,6 +24,8 @@ use them.
 
 from __future__ import annotations
 
+import inspect
+
 from dataclasses import dataclass, field
 
 import torch
@@ -153,20 +155,24 @@ def create_train_state(model: nn.Module, optimizer: SGD) -> TrainState:
 def make_train_step(model: nn.Module, optimizer: SGD):
     """step(state, batch, generator) -> (state, metrics).
 
-    ``batch`` holds the detector's `loss` inputs (imgs, gt_boxes,
-    gt_valid, gt_labels, img_shapes, gt_rboxes, ...: a
-    `TwoStageDetector`'s or a `SingleStageDetector`'s, whose loss
-    samples nothing); ``generator`` is the sampling's generator, on the
-    batch's device.  The state's model is
-    updated in place.  ``metrics``: each loss, their sum ``loss`` and
-    ``grad_norm``, the global norm of the gradients before the clip,
-    as detached float32 tensors.  The backward and the update are
-    `record_function` spans ("backward", "optimizer").
+    ``batch`` holds the detector's `loss` inputs (imgs, gt_boxes, gt_valid,
+    gt_labels, img_shapes, gt_rboxes, gt_masks, gt_semantic, ...: a
+    `TwoStageDetector`'s, a `CascadeRCNN`'s, an `RPN`'s or a
+    `SingleStageDetector`'s, whose loss samples nothing); the entries that the
+    model's loss does not take (an RPN's gt_labels, a box model's gt_rboxes
+    from a DOTA pipeline) are left out.  ``generator`` is the sampling's
+    generator, on the batch's device.  The state's model is updated in place.
+    ``metrics``: each loss, their sum ``loss`` and ``grad_norm``, the global
+    norm of the gradients before the clip, as detached float32 tensors.  The
+    backward and the update are `record_function` spans ("backward",
+    "optimizer").
     """
     params = list(model.parameters())
+    takes = set(inspect.signature(model.loss).parameters)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
-        losses = model.loss(**batch, generator=generator)
+        losses = model.loss(**{k: v for k, v in batch.items() if k in takes},
+                            generator=generator)
         total = sum(losses.values())
         with record_function("backward"):
             grads = torch.autograd.grad(total, params, allow_unused=True)

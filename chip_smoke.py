@@ -3,7 +3,9 @@
 RBBoxRCNNRRoI predict and train paths, scene serving, the train loop
 and test run from a config file, CenterMap-Net's predict and train
 paths, RetinaNetOBB and H-OBB, the GroupNorm r18_e2e recipes and a
-learning run, HRNet with TTA, OHEM and soft-NMS on one CUDA card.
+learning run, HRNet with TTA, OHEM and soft-NMS, and the HBB R-CNN
+family (FasterRCNN, RPN -> FastRCNN, ResNeXt, Cascade R-CNN, HTC) on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,8 +161,26 @@ Phases, each printing one JSON line with its ``elapsed_s``:
    and the same weights under hard NMS: ms per call and the NMS stage's.
 34. tta_reference: `aug_test_image` of the small GroupNorm thetaobb
    model on the card against the CPU.
+35-39. hbb_reference_faster, _fast, _resnext, _cascade, _htc: the
+   small FasterRCNN (its weights through `convert.mmdet_to_state_dict`
+   from an mmdet-named state_dict), RPN -> FastRCNN, a ResNeXt-50
+   FasterRCNN, Cascade Mask R-CNN and HTC with its semantic branch
+   (float32, TF32 off) on the card against the CPU: predict paired
+   (masks within 1e-2), one train step held as reference_train's under
+   a train_cfg that keeps every candidate of every stage.
+40-45. faster, faster_x101, rpn_fast, cascade, cascade_mask, htc: the
+   COCO configs as written (float32, 81 classes, 1024^2, batch 2):
+   1 + 3 predict calls each (ms per call, K1 once a call, three times for
+   the cascade's stages, 4 with its mask, 8 for HTC: its stages, its
+   masks and their semantic crops; the RPN's proposals fed to
+   FastRCNN's `predict_from_proposals`), and 1 + 3 train steps of
+   FasterRCNN R50, the cascade and HTC (K2 forward and backward once a
+   step, 3 times, 12 times; HTC's on `TrainPipeline` batches with masks
+   and the pseudo segmentation), peak memory.  `configs/htc_r50_fpn_1x.py`
+   runs with an HTCMaskHead (`HTC_CONFIG`'s note).
 The kernels phase also holds K1, K2 and K4 at the r18_e2e shapes
-(C=128, float32, 512^2).
+(C=128, float32, 512^2), and K1 and K2 at the HBB family's (float32:
+2 x 1000 proposals, HTC's semantic map at stride 8).
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
 first path, and ``launches_by_path`` on every path), nvidia-smi's name
@@ -817,6 +837,7 @@ def run_kernels():
     run_backward_kernel(shape=MASK_TRAIN, s=14)
     run_centermap_kernels(roi_align_kernel, roi_align_train_kernel)
     run_e2e_kernels(roi_align_kernel, roi_align_train_kernel)
+    run_hbb_kernels(roi_align_kernel, roi_align_train_kernel)
     return dict(
         roi_align=run_forward_kernel(roi_align_kernel, "roi_align", MAIN,
                                      (7, 14)),
@@ -3633,6 +3654,492 @@ def run_learn(device="cuda", small=False, seed=0):
     return fields
 
 
+# Slice 13: the HBB R-CNN family as the COCO configs write them
+# (float32, 81 classes): FasterRCNN with ResNet-50 and ResNeXt-101
+# 64x4d, the RPN feeding FastRCNN, Cascade R-CNN with and without its
+# mask head, and HTC with its semantic branch
+FASTER_CONFIG = "configs/faster_rcnn_r50_fpn_1x.py"
+FASTER_X101_CONFIG = "configs/faster_rcnn_x101_64x4d_fpn_1x.py"
+RPN_CONFIG = "configs/rpn_r50_fpn_1x.py"
+FAST_CONFIG = "configs/fast_rcnn_r50_fpn_1x.py"
+CASCADE_CONFIG = "configs/cascade_rcnn_r50_fpn_1x.py"
+CASCADE_MASK_CONFIG = "configs/cascade_mask_rcnn_r50_fpn_1x.py"
+# every HTC config of the repo names an FCNMaskHead, which the
+# reference's mask information flow cannot call (it raises a TypeError,
+# and so does the port's builder); HTC's own head, as upstream's
+# htc_r50_fpn_1x names it, takes its place
+HTC_CONFIG = "configs/htc_r50_fpn_1x.py"
+HBB = dict(img=1024, batch=2, calls=3, steps=3, max_gt=64, objects=60)
+HBB_SMALL = dict(img=256, batch=2, calls=1, steps=1, max_gt=4, objects=6)
+SMALL_HBB_MASK_HEAD = dict(num_convs=2, in_channels=64, conv_out_channels=64,
+                           num_classes=16)
+SMALL_HBB_SEMANTIC_HEAD = dict(type="FusedSemanticHead", num_ins=5,
+                               fusion_level=1, in_channels=64,
+                               conv_out_channels=64, num_classes=16)
+SMALL_RESNEXT = dict(
+    backbone=dict(type="ResNeXt", depth=50, groups=4, base_width=4),
+    neck=dict(SMALL_MODEL["neck"], in_channels=(256, 512, 1024, 2048)))
+# the reference phases' train steps: 4 gts an image, and proposals
+# capped at 50 valid ones (10 a level after NMS) in 64 rows, so that
+# every cascade stage's valid candidates (the gts, then the previous
+# stage's sample: up to 4 x 4 + 50 in HTC's last interleaved mask
+# sample) fit in the 4 + 64 samples and every stage keeps all of them
+HBB_REF_GTS = 4
+HBB_REF_PROPOSALS = dict(nms_pre=16, nms_post=10, max_num=64)
+HBB_REF_LIMITS = dict(boxes=1.0, scores=1e-2)
+# each kind's small architecture (for the reference phases and the CPU
+# rehearsals), its config as written, and its launches a predict call
+# and a train step on the card: K1 once a call for each stage's crop,
+# the mask crop and each semantic crop; K2 (forward and backward) once
+# a step for each stage's, each mask loss's and each semantic crop
+HBB_KINDS = dict(
+    faster=dict(small=dict(type="FasterRCNN"), config=FASTER_CONFIG,
+                predict=K1, train=K2),
+    faster_x101=dict(small=dict(type="FasterRCNN", **SMALL_RESNEXT),
+                     config=FASTER_X101_CONFIG, predict=K1, train=None),
+    cascade=dict(small=dict(type="CascadeRCNN"), config=CASCADE_CONFIG,
+                 predict=dict(roi_align=3),
+                 train=dict(roi_align_train_forward=3,
+                            roi_align_backward=3)),
+    cascade_mask=dict(
+        small=dict(type="CascadeRCNN", mask_head=dict(
+            type="FCNMaskHead", **SMALL_HBB_MASK_HEAD)),
+        config=CASCADE_MASK_CONFIG, predict=dict(roi_align=4), train=None),
+    htc=dict(
+        small=dict(type="HTC", mask_head=dict(type="HTCMaskHead",
+                                              **SMALL_HBB_MASK_HEAD),
+                   semantic_head=SMALL_HBB_SEMANTIC_HEAD),
+        config=HTC_CONFIG, predict=dict(roi_align=8),
+        train=dict(roi_align_train_forward=12, roi_align_backward=12)))
+
+
+def hbb_cfg(kind, small, img=256, train_cfg=None):
+    """(model config, train_cfg, test_cfg) of ``kind`` (a key of
+    `HBB_KINDS`, or "rpn" / "fast"): its small architecture at ``img``
+    with `SMALL_TRAIN_CFG` and `SMALL_TEST_CFG`, or its config as
+    written (HTC's mask head as `HTC_CONFIG`'s note says); ``train_cfg``
+    merged over the train_cfg."""
+    from aidet_tpu_torch.models.detectors.two_stage import _merge
+    from aidet_tpu_torch.utils.config import Config
+    if small:
+        model = dict(SMALL_MODEL, img_size=img)
+        del model["rbbox_head"], model["rbbox_encode"]
+        if kind == "rpn":
+            del model["bbox_head"]
+        model.update(type="RPN" if kind == "rpn" else "FastRCNN")
+        if kind in HBB_KINDS:
+            model.update(HBB_KINDS[kind]["small"])
+        test = (dict(rpn=SMALL_TEST_CFG["rpn"]) if kind == "rpn"
+                else SMALL_TEST_CFG)
+        train = SMALL_TRAIN_CFG
+    else:
+        path = dict(rpn=RPN_CONFIG, fast=FAST_CONFIG).get(kind) or \
+            HBB_KINDS[kind]["config"]
+        cfg = Config.fromfile(path).to_dict()
+        model, train, test = (cfg["model"], cfg.get("train_cfg"),
+                              cfg.get("test_cfg"))
+        if kind == "htc":
+            model["mask_head"] = dict(model["mask_head"], type="HTCMaskHead")
+    return model, _merge(train or {}, train_cfg), test
+
+
+def hbb_model(kind, device, small, img=256, train=False, train_cfg=None,
+              seed=0):
+    """`build_detector` of `hbb_cfg` on ``device`` with seeded weights
+    (the same on every device)."""
+    from aidet_tpu_torch.models.builder import build_detector
+    model, train_c, test_c = hbb_cfg(kind, small, img, train_cfg)
+    return build_detector(model, train_cfg=train_c, test_cfg=test_c,
+                          device=device, seed=seed, train=train)
+
+
+def mmdet_named(model):
+    """The state_dict of a ResNet-FPN FasterRCNN under mmdet's names
+    (the inverse of `convert.MMDET_NAMES`, the box head's first FC
+    relaid to torch's (c, h, w) flatten): a checkpoint as mmdet would
+    save this model."""
+    import re
+    names = [(r"backbone\.stem_conv\.(.*)", r"backbone.conv1.\1"),
+             (r"backbone\.stem_bn\.(.*)", r"backbone.bn1.\1"),
+             (r"backbone\.layer(\d)_block(\d+)\.ds_conv\.(.*)",
+              r"backbone.layer\1.\2.downsample.0.\3"),
+             (r"backbone\.layer(\d)_block(\d+)\.ds_bn\.(.*)",
+              r"backbone.layer\1.\2.downsample.1.\3"),
+             (r"backbone\.layer(\d)_block(\d+)\.(.*)",
+              r"backbone.layer\1.\2.\3"),
+             (r"neck\.lateral(\d+)\.(.*)", r"neck.lateral_convs.\1.conv.\2"),
+             (r"neck\.fpn(\d+)\.(.*)", r"neck.fpn_convs.\1.conv.\2"),
+             (r"bbox_head\.shared_fc(\d+)\.(.*)",
+              r"bbox_head.shared_fcs.\1.\2"), (r"(.*)", r"\1")]
+    out = {}
+    for key, value in model.state_dict().items():
+        for pattern, repl in names:
+            m = re.fullmatch(pattern, key)
+            if m:
+                break
+        value = value.detach().cpu().float()
+        if key == "bbox_head.shared_fc0.weight":
+            s = model.bbox_head.roi_feat_size
+            value = value.reshape(value.shape[0], s, s, -1).permute(
+                0, 3, 1, 2).reshape(value.shape[0], -1)
+        out[m.expand(repl)] = value
+    return out
+
+
+def hbb_train_batch(b, img, n_gt, seed, device, masks=False,
+                    semantic=False):
+    """`synthetic_train_batch` (normalized float images, ``n_gt`` boxes
+    an image) with, if asked, each gt's box filled in a [n_gt, img,
+    img] mask and a seeded [img / 4]^2 semantic map of classes 0..15."""
+    import torch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    batch = synthetic_train_batch(b, img, n_gt, seed, device)
+    if masks:
+        xy = torch.arange(img, device=device, dtype=torch.float32)
+        bx = batch["gt_boxes"][..., None, None]
+        batch["gt_masks"] = ((xy[None, :] >= bx[..., 0, :, :])
+                             & (xy[None, :] <= bx[..., 2, :, :])
+                             & (xy[:, None] >= bx[..., 1, :, :])
+                             & (xy[:, None] <= bx[..., 3, :, :])).float()
+    if semantic:
+        batch["gt_semantic"] = torch.randint(
+            0, 16, (b, img // 4, img // 4),
+            generator=torch.Generator().manual_seed(seed)).to(device)
+    return batch
+
+
+def hbb_step_once(kind, device, img, seed=0):
+    """One train step of the small ``kind`` on ``device`` under a
+    train_cfg that keeps every candidate of every stage
+    (`HBB_REF_PROPOSALS`); returns (metrics, parameters before, after),
+    on the CPU."""
+    import torch
+    from aidet_tpu_torch.flagship import keep_every_candidate_cfg
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    cfg = dict(keep_every_candidate_cfg(img, HBB_REF_GTS,
+                                        HBB_REF_PROPOSALS["max_num"]),
+               rpn_proposal=HBB_REF_PROPOSALS)
+    net = hbb_model(kind, device, True, img, train=True, train_cfg=cfg,
+                    seed=seed)
+    params = list(net.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
+    state = create_train_state(net, optimizer)
+    batch = hbb_train_batch(2, img, HBB_REF_GTS, seed, device,
+                            masks=kind in ("cascade_mask", "htc"),
+                            semantic=kind == "htc")
+    _, metrics = make_train_step(net, optimizer)(
+        state, batch, torch.Generator(device=device).manual_seed(seed))
+    return ({k: float(v) for k, v in metrics.items()}, before,
+            [p.detach().cpu() for p in params])
+
+
+def run_hbb_reference(device="cuda", kind="faster", img=256):
+    """The small ``kind`` ("faster", its weights loaded through
+    `convert.mmdet_to_state_dict` from `mmdet_named`; "fast": the RPN's
+    proposals, then FastRCNN's `predict_from_proposals` on the CPU's;
+    "resnext": a FasterRCNN with a ResNeXt-50 (groups 4); "cascade":
+    Cascade Mask R-CNN; "htc": HTC with its semantic branch), float32
+    with TF32 off, on ``device`` against the CPU with the same weights:
+    predict on 2 seeded uint8 images (`match_detections` with
+    `HBB_REF_LIMITS`, and masks within 1e-2), then one train step
+    (cuDNN off, as the note at `UPDATE_RESOLUTION` says; "fast" trains
+    the RPN) held by `compare_steps` to `DETECTOR_REF_TRAIN_LIMITS`.
+    Returns the phase's fields."""
+    import torch
+    from aidet_tpu_torch.convert import mmdet_to_state_dict
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = dict(resnext="faster_x101", cascade="cascade_mask").get(kind,
+                                                                   kind)
+    imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1))
+    shapes = torch.full((2, 2), float(img))
+    devices = (device, "cpu")
+    models = [hbb_model(arch, d, True, img) for d in devices]
+    out = dict(img=img, tf32=False)
+    if kind == "faster":
+        sd, unmapped = mmdet_to_state_dict(mmdet_named(models[1]),
+                                           models[1])
+        if unmapped:
+            raise AssertionError(f"mmdet_to_state_dict left {unmapped}")
+        for k, v in models[1].state_dict().items():
+            if not torch.equal(sd[k].to(v.dtype), v.cpu()):
+                raise AssertionError(f"{k}: the mmdet round trip differs")
+        for m in models:
+            m.load_state_dict(sd, strict=True)
+        out["weights"] = "mmdet_to_state_dict"
+    limits = dict(HBB_REF_LIMITS)
+    names = [n for n, _ in models[1].named_parameters()]
+    if kind == "fast":
+        rpns = [hbb_model("rpn", d, True, img) for d in devices]
+        names = [n for n, _ in rpns[1].named_parameters()]
+        props = [{k: v.cpu() for k, v in r.predict(
+            imgs.to(d), shapes.to(d)).items()} for r, d in zip(rpns, devices)]
+        if not torch.equal(props[0]["valid"], props[1]["valid"]):
+            raise AssertionError("fast: the RPN's valid proposals differ")
+        v = props[1]["valid"]
+        out["rpn_max_abs_err"] = dict(
+            boxes=float((props[0]["boxes"] - props[1]["boxes"])[v].abs()
+                        .max()),
+            scores=float((props[0]["scores"] - props[1]["scores"])[v].abs()
+                         .max()))
+        if not (out["rpn_max_abs_err"]["boxes"] <= limits["boxes"]
+                and out["rpn_max_abs_err"]["scores"] <= limits["scores"]):
+            raise AssertionError(f"fast: the RPN's proposals {out}")
+        got, ref = ({k: v.cpu() for k, v in m.predict_from_proposals(
+            imgs.to(d), props[1]["boxes"].to(d), props[1]["valid"].to(d),
+            shapes.to(d)).items()} for m, d in zip(models, devices))
+    else:
+        got, ref = ({k: v.cpu() for k, v in m.predict(
+            imgs.to(d), shapes.to(d)).items()}
+            for m, d in zip(models, devices))
+        if "masks" in ref:
+            limits["masks"] = 1e-2
+    errs = match_detections(got, ref, limits, cut_slack=True)
+    del models
+    with torch.backends.cudnn.flags(enabled=False):
+        steps = [hbb_step_once("rpn" if kind == "fast" else arch, d, img)
+                 for d in devices]
+    t = compare_steps(f"{kind}_reference", *steps, DETECTOR_REF_TRAIN_LIMITS,
+                      resolved_only=True)
+    t["worst_leaf"] = names[t["worst_leaf"]]
+    return dict(out, n_valid=int(got["valid"].sum()), max_abs_err=errs,
+                limits=limits, gts=HBB_REF_GTS, train_cudnn=False,
+                train=dict(losses_card=steps[0][0], losses_cpu=steps[1][0],
+                           **t))
+
+
+def hbb_pipeline_batches(root, sizes, seed):
+    """``sizes["steps"] + 1`` batches of ``sizes["batch"]`` made by the
+    port's `TrainPipeline` (HTC's train_pipeline: masks and the pseudo
+    segmentation, uint8 transfer) from seeded synthetic PNG patches
+    (`write_patch_set`) read back by `DOTADataset` (the repo has no
+    COCO images); and the pipeline's host ms per image."""
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
+    from aidet_tpu_torch.data.pipeline import TrainPipeline, collate_batch
+    from aidet_tpu_torch.utils.config import Config
+    n = sizes["batch"] * (sizes["steps"] + 1)
+    ann, prefix, _ = write_patch_set(root, 0, n, sizes["img"],
+                                     sizes["objects"], seed)
+    dataset = build_dataset(dict(type="DOTADataset", ann_file=ann,
+                                 img_prefix=prefix))
+    pipe_cfg = Config.fromfile(HTC_CONFIG).to_dict()["train_pipeline"]
+    pipe = TrainPipeline(**dict(pipe_cfg, img_size=sizes["img"],
+                                max_gt=sizes["max_gt"],
+                                device_normalize=True, seed=seed))
+    t0 = time.perf_counter()
+    samples = [pipe(imread(dataset.img_path(i)), dataset.parse_anns(i))
+               for i in range(n)]
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    b = sizes["batch"]
+    return [collate_batch(samples[i:i + b]) for i in range(0, n, b)], ms
+
+
+def run_hbb_paths(device="cuda", small=False, kind="faster", seed=0):
+    """``kind``'s config as written (`hbb_cfg`: float32 with cuDNN's
+    TF32, as PyTorch's default), or with ``small`` its small
+    architecture: 1 warm-up and ``calls`` timed predict calls on 2
+    seeded uint8 images (ms per call, detections, peak memory;
+    "rpn_fast": the RPN's proposals, then FastRCNN's
+    `predict_from_proposals` on them, each so timed), then,
+    where `HBB_KINDS` gives train launches, 1 warm-up and ``steps``
+    timed train steps (every loss finite, the heads moved, ms per step,
+    peak memory) on `synthetic_train_batch` with ``max_gt`` gts, HTC's
+    on `hbb_pipeline_batches`.  Launches, a call and a step on the card,
+    are `HBB_KINDS`'; FastRCNN K1 once a call, the RPN none.  Returns
+    {"predict": fields, "train": fields, ...}."""
+    import tempfile
+
+    import torch
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    sizes = HBB_SMALL if small else HBB
+    b, img = sizes["batch"], sizes["img"]
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def expect(name, counts, n):
+        want = dict.fromkeys(HANDLES, 0)
+        if on_card:
+            want.update({k: v * n for k, v in counts.items()})
+        got = launch_counts()
+        if got != want:
+            raise AssertionError(f"{kind} {name}: launches {got} in {n}, "
+                                 f"expected {want}")
+        return got
+
+    def peak():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None)
+
+    def timed_calls(name, call, counts):
+        call()          # warm-up: cuDNN's plans
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        times = []
+        for _ in range(sizes["calls"]):
+            sync()
+            t0 = time.perf_counter()
+            res = call()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fields = dict(calls=len(times), call_ms=times,
+                      ms_per_call=sum(times) / len(times),
+                      launches=expect(name, counts, len(times)),
+                      peak_memory_gib=peak())
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in res.values()) or not res["valid"].any():
+            raise AssertionError(f"{kind} {name}: {fields}")
+        return res, dict(fields, n_valid=int(res["valid"].sum()))
+
+    imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed))
+    imgs = imgs.to(device)
+    shapes = torch.full((b, 2), float(img), device=device)
+    out = dict(config=(f"{kind} (small architecture)" if small else
+                       "configs as written"), img=img, batch=b)
+    with tf32_defaults():
+        if kind == "rpn_fast":
+            rpn = hbb_model("rpn", device, small, img, seed=seed)
+            props, out["rpn_predict"] = timed_calls(
+                "rpn_predict", lambda: rpn.predict(imgs, shapes), {})
+            del rpn
+            fast = hbb_model("fast", device, small, img, seed=seed)
+            _, out["fast_predict"] = timed_calls(
+                "fast_predict", lambda: fast.predict_from_proposals(
+                    imgs, props["boxes"], props["valid"], shapes), K1)
+            out["proposals_per_image"] = int(props["boxes"].shape[1])
+            return out
+        spec = HBB_KINDS[kind]
+        model = hbb_model(kind, device, small, img, seed=seed)
+        _, out["predict"] = timed_calls(
+            "predict", lambda: model.predict(imgs, shapes), spec["predict"])
+        del model
+        if spec["train"] is None:
+            return out
+        net = hbb_model(kind, device, small, img, train=True, seed=seed)
+        params = list(net.parameters())
+        before = [p.detach().clone() for p in params]
+        optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
+        state = create_train_state(net, optimizer)
+        step = make_train_step(net, optimizer)
+        pipeline_ms = None
+        if kind == "htc":
+            with tempfile.TemporaryDirectory() as root:
+                batches, pipeline_ms = hbb_pipeline_batches(root, sizes,
+                                                            seed)
+            batches = [{k: (torch.from_numpy(v).long() if v.dtype.kind == "i"
+                            else torch.from_numpy(v)).to(device)
+                        for k, v in x.items()} for x in batches]
+        else:
+            batches = [synthetic_train_batch(b, img, sizes["max_gt"], seed,
+                                             device)] * (sizes["steps"] + 1)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[0], gen)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launch_counts(reset=True)
+        times, losses = [], []
+        for data in batches[1:]:
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = step(state, data, gen)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in metrics.items()})
+        launches = expect("train", spec["train"], len(times))
+    bad = [(i, k) for i, m in enumerate(losses) for k, v in m.items()
+           if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{kind} train: not finite {bad}")
+    names = [nm for nm, _ in net.named_parameters()]
+    still = [nm for nm, a, p in zip(names, before, params)
+             if torch.equal(a, p.detach()) and "_head" in nm.split(".")[0]]
+    if still:
+        raise AssertionError(f"{kind} train: heads did not move: {still}")
+    ms = sum(times) / len(times)
+    out["train"] = dict(
+        steps=len(times), losses=losses, first_step_ms=first_ms,
+        step_ms=times, ms_per_step=ms, images_per_s=b * 1e3 / ms,
+        launches=launches, peak_memory_gib=peak(),
+        batches=("TrainPipeline (masks, pseudo segmentation) on seeded "
+                 f"PNG patches, {pipeline_ms} host ms an image"
+                 if kind == "htc" else
+                 f"synthetic, {sizes['max_gt']} gts an image"))
+    return out
+
+
+# K1 and K2 at the slice's own shapes in float32: the COCO configs'
+# 1000 proposals an image (FasterRCNN, FastRCNN) and 2000 (the
+# cascades), 100 detections, and HTC's semantic map: one 256-channel
+# level at stride 8 ([2, 128, 128, 256] at 1024^2)
+HBB_PREDICT = dict(batch=2, rois=1000, img=1024, channels=256)
+HBB_DETS = dict(batch=2, rois=100, img=1024, channels=256)
+HTC_SEMANTIC_STRIDES = (8,)
+
+
+def run_hbb_kernels(k1, k2_forward):
+    """K1 (7x7 on 2 x 1000 proposals, four levels; 7x7 on 2 x 2000 and
+    14x14 on 2 x 100 detections on the semantic map's one level) and
+    K2 (forward and backward: 7x7 on 2 x 512 samples and 14x14 on 2 x
+    128 positives on the semantic map) in float32, each against its
+    plain version with its bound, on its own line."""
+    run_forward_kernel(k1, "roi_align", HBB_PREDICT, (7,),
+                       dtype_name="float32")
+    run_forward_kernel(k1, "roi_align", RROI, (7,), dtype_name="float32",
+                       strides=HTC_SEMANTIC_STRIDES)
+    run_forward_kernel(k1, "roi_align", HBB_DETS, (14,),
+                       dtype_name="float32", strides=HTC_SEMANTIC_STRIDES)
+    for shape, s in ((TRAIN, 7), (MASK_TRAIN, 14)):
+        run_forward_kernel(k2_forward, "roi_align_train_forward", shape,
+                           (s,), dtype_name="float32",
+                           strides=HTC_SEMANTIC_STRIDES)
+        run_backward_kernel(shape=shape, s=s, dtype_names=("float32",),
+                            strides=HTC_SEMANTIC_STRIDES)
+
+
+def run_slice13(card):
+    """The reference phases of the HBB family (FasterRCNN with mmdet
+    weights, RPN -> FastRCNN, ResNeXt, Cascade Mask R-CNN, HTC), then
+    the configs as written: predict of FasterRCNN R50 and X101-64x4d,
+    RPN -> FastRCNN, Cascade, Cascade Mask and HTC, and the train steps
+    of FasterRCNN R50, Cascade and HTC.  Returns the runs' fields by
+    path name."""
+    for kind in ("faster", "fast", "resnext", "cascade", "htc"):
+        phase(f"hbb_reference_{kind}", card=card,
+              **run_hbb_reference(kind=kind))
+    runs = {}
+    for kind, title in (("faster", "FasterRCNN R50-FPN"),
+                        ("faster_x101", "FasterRCNN X101-64x4d-FPN"),
+                        ("rpn_fast", "RPN -> FastRCNN R50-FPN"),
+                        ("cascade", "Cascade R-CNN R50-FPN"),
+                        ("cascade_mask", "Cascade Mask R-CNN R50-FPN"),
+                        ("htc", "HTC R50-FPN with semantic")):
+        paths = run_hbb_paths(kind=kind)
+        for part in ("predict", "train", "rpn_predict", "fast_predict"):
+            if part in paths:
+                runs[f"{kind}_{part}".replace("rpn_fast_", "")] = \
+                    paths[part]
+        phase(kind, model=title, card=card, **paths)
+    return runs
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -3757,6 +4264,7 @@ def main() -> int:
         phase(kind, model=f"{title} R50-FPN", card=info["nvidia_smi"],
               **paths)
     runs.update(run_slice12(info["nvidia_smi"], runs["loop"]["ms_per_step"]))
+    runs.update(run_slice13(info["nvidia_smi"]))
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

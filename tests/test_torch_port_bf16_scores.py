@@ -46,6 +46,7 @@ from aidet_tpu_torch.convert import flax_to_state_dict
 from aidet_tpu_torch.flagship import build_flagship
 from aidet_tpu_torch.models.detectors import two_stage
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMG = 128
 RPN_CFG = dict(nms_pre=768, nms_post=64, max_num=64, nms_thr=0.7)

@@ -49,6 +49,7 @@ from aidet_tpu_torch.models.heads import mask_head, semantic_head
 from aidet_tpu_torch.models.losses import CenterMapLoss, mask_cross_entropy
 from aidet_tpu_torch.ops.nms import nms_cfg_kwargs
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 from torch_port_mask_models import (_centermap_cfg, check_loss,
                                     check_predict, run_pair)
 
@@ -101,10 +102,20 @@ def test_wpsga_head_matches(attention):
 
 
 def test_bilinear_resize_raises_on_a_shrink():
-    """jax.image.resize antialiases a bilinear shrink; the port does not
-    compute that function and says so."""
-    with pytest.raises(NotImplementedError, match="shrink"):
-        semantic_head.resize_bilinear(torch.zeros(1, 1, 8, 8), (4, 4))
+    """jax.image.resize antialiases a bilinear shrink: the port's shrink
+    (HTC's fused semantic head resizes its finer levels down) is that
+    function within 1e-6, at 2x and at a ratio that is no integer; a
+    resize that shrinks one axis and stretches the other, which torch
+    cannot antialias on one axis alone, raises."""
+    x = np.random.RandomState(3).randn(1, 16, 16, 3).astype(np.float32)
+    for hw in ((8, 8), (5, 7)):
+        ref = np.asarray(jax.image.resize(jnp.asarray(x), (1,) + hw + (3,),
+                                          method="bilinear"))
+        got = semantic_head.resize_bilinear(
+            torch.from_numpy(x).permute(0, 3, 1, 2), hw).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(to_np(got), ref, atol=1e-6, rtol=0)
+    with pytest.raises(NotImplementedError, match="shrinks"):
+        semantic_head.resize_bilinear(torch.zeros(1, 1, 8, 8), (4, 16))
 
 
 def _sample(rs, r, g):
@@ -175,8 +186,8 @@ def test_mask_losses_match():
     (True, False, 8)])
 def test_semantic_loss_matches(weighted, focal, size):
     """``size`` 16: the targets at twice the logits' resolution (nearest
-    with half-pixel centres); the weights stay at the logits' size (a
-    bilinear shrink raises)."""
+    with half-pixel centres); the weights stay at the logits' size, as
+    the configs give them."""
     rs = np.random.RandomState(4)
     logits = rs.randn(2, 8, 8, 6).astype(np.float32)
     gt = rs.randint(0, 6, (2, size, size)).astype(np.int32)

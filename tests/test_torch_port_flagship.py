@@ -18,6 +18,7 @@ from __graft_entry__ import _build_flagship
 from aidet_tpu_torch.convert import flax_to_state_dict
 from aidet_tpu_torch.flagship import build_flagship
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMG = 256
 

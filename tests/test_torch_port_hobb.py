@@ -36,6 +36,7 @@ from aidet_tpu_torch.core.targets import rbbox_target
 from aidet_tpu_torch.flagship import keep_every_candidate_cfg
 from aidet_tpu_torch.models.builder import build_detector
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -26,6 +26,7 @@ import torch
 from aidet_tpu_torch.models.backbones.hrnet import HRModule, HRNet
 from aidet_tpu_torch.models.necks.hrfpn import HRFPN
 from torch_port_helpers import load_flax, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -59,6 +59,7 @@ from aidet_tpu_torch.flagship import build_flagship
 from aidet_tpu_torch.models.builder import build_detector
 from aidet_tpu_torch.utils.config import Config
 from torch_port_helpers import perturb_norms
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMG = 256
 LIMITS = dict(boxes=2e-2, scores=1e-4, rboxes=2e-2, rboxes_rel=1e-3,
@@ -155,9 +156,28 @@ def test_config_fromfile_equal_reference(path):
 
 
 def test_registry_names_what_is_not_ported():
-    with pytest.raises(KeyError, match="FasterRCNN.*not yet ported"):
-        build_detector(dict(type="FasterRCNN"), device="cpu")
+    """Unregistered types raise the registry's KeyError naming them (the
+    GridRCNN preset; FasterRCNN, which this test named before it was
+    ported, now builds), the Libra config's list of necks too (FPN,
+    then the unported BFP: built in order, not an AttributeError),
+    unported options raise NotImplementedError (Mask Scoring R-CNN's
+    mask_iou_head, the C4 shared_head, dcn, a mismatched
+    rbbox_encode)."""
+    with pytest.raises(KeyError, match="GridRCNN.*not yet ported"):
+        build_detector(dict(type="GridRCNN"), device="cpu")
+    libra = Config.fromfile("configs/libra_retinanet_r50_fpn_1x.py")
+    assert [n["type"] for n in libra.model.neck] == ["FPN", "BFP"]
+    with pytest.raises(KeyError, match="BFP.*not yet ported"):
+        with torch.device("meta"):
+            build_detector(dict(libra.model), device="meta")
+    with pytest.raises(NotImplementedError, match="MaskIoUHead"):
+        build_detector(dict(type="MaskRCNN", mask_iou_head=dict(
+            type="MaskIoUHead")), device="meta")
     cfg = small_flagship_cfg(IMG)
+    with pytest.raises(NotImplementedError, match="shared_head"):
+        build_detector(dict(cfg, type="FasterRCNN", rbbox_head=None,
+                            shared_head=dict(type="ResLayer", depth=50)),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="dcn"):
         build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
                                                dcn=dict(modulated=True))),
@@ -230,8 +250,19 @@ def _small_rroi_cfgs():
     return first, refine
 
 
+@pytest.fixture(scope="module")
+def rroi_variables():
+    """The reference's variables of the small RBBoxRCNNRRoI, which hold
+    the pointobb RBBoxRCNN's too (its parameters less the refinement
+    head): one init for both."""
+    jm = ref_build_detector(_small_rroi_cfgs()[1])
+    return perturb_norms(jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                          jnp.zeros((1, IMG, IMG, 3))), 1)
+
+
 @pytest.mark.parametrize("which", ["thetaobb", "pointobb", "refined"])
-def test_predict_scale_factors_match_reference(flagship, which):
+def test_predict_scale_factors_match_reference(flagship, rroi_variables,
+                                               which):
     """Boxes / sf; thetaobbs (a thetaobb head's or the refinement
     head's) have centre, w and h / sf and theta kept; pointobbs / sf."""
     imgs = np.random.RandomState(2).randint(0, 256, (2, IMG, IMG, 3),
@@ -242,11 +273,10 @@ def test_predict_scale_factors_match_reference(flagship, which):
         jm, v, tm = flagship
     else:
         cfg = _small_rroi_cfgs()[which == "refined"]
-        jm = ref_build_detector(cfg)
-        v = perturb_norms(jax.jit(jm.init)(jax.random.PRNGKey(0),
-                                           jnp.zeros((1, IMG, IMG, 3))), 1)
+        jm, v = ref_build_detector(cfg), rroi_variables
         tm = build_detector(cfg, device="cpu")
-        tm.load_state_dict(flax_to_state_dict(v, tm)[0], strict=True)
+        sd = flax_to_state_dict(v, tm)[0]
+        tm.load_state_dict({k: sd[k] for k in tm.state_dict()}, strict=True)
     ref = _ref_predict(jm, v, imgs, shapes, sf)
     t_args = (torch.from_numpy(imgs), torch.from_numpy(shapes))
     got = tm.predict(*t_args, torch.from_numpy(sf))

@@ -16,7 +16,10 @@ architecture: the targets of `TrainPipeline`, the mask-to-OBB fit and
 the losses); a third rehearses the single-stage and H-OBB phases
 (retinanet_obb_reference and h_obb_reference CPU against CPU, then
 retinanet_obb and h_obb at the small architecture: predict in stages,
-the rotated NMS, the train steps); a fourth rehearses the GroupNorm,
+the rotated NMS, the train steps) and the HBB family's
+(hbb_reference's five kinds CPU against CPU, then faster, faster_x101,
+rpn_fast, cascade, cascade_mask and htc at the small architecture,
+HTC's train step on `TrainPipeline` batches); a fourth rehearses the GroupNorm,
 OHEM, soft-NMS, HRNet, TTA and learning phases (gn_reference's and
 ohem_reference's models, soft_nms_reference, hrnet_reference and
 tta_reference CPU against CPU, then theta_r18_e2e, rroi_r18_e2e, ohem,
@@ -151,6 +154,17 @@ for kind in ("retinanet_obb", "h_obb"):
         assert set(paths[part]["launches"].values()) == {0}, paths
     assert paths["predict"]["n_valid"] > 0, paths
 assert set(ref["train"]) == {"plain", "robust"}, ref
+for kind in ("faster", "fast", "resnext", "cascade", "htc"):
+    ref = chip_smoke.run_hbb_reference(device="cpu", kind=kind, img=128)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+for kind in ("faster", "faster_x101", "rpn_fast", "cascade",
+             "cascade_mask", "htc"):
+    hbb = chip_smoke.run_hbb_paths(device="cpu", small=True, kind=kind)
+    for part in hbb.values():
+        if isinstance(part, dict):
+            assert set(part["launches"].values()) == {0}, hbb
+assert {"s2.loss_mask", "loss_semantic_seg"} <= set(
+    hbb["train"]["losses"][0]), hbb
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("DETECTOR PHASES", paths["predict"]["n_valid"])
@@ -187,15 +201,17 @@ print("SLICE12 PHASES", hrnet["tta"]["merged_boxes"], learn["obb_map"])
 
 
 def _env():
-    """The subprocesses' environment: no PYTHONPATH, and one OpenMP
-    thread.  Beside the tier-1 run's pytest workers a subprocess with
-    torch's default threads (one per core) spent most of its time in
-    oversubscribed OpenMP waits: the detector phases' rehearsal took
-    218.6 s with them and 74.5 s with one thread, six busy processes
-    beside it on 8 cores."""
+    """The subprocesses' environment: no PYTHONPATH, and in a
+    pytest-xdist worker one OpenMP thread.  Beside the tier-1 run's
+    pytest workers a subprocess with torch's default threads (one per
+    core) spent most of its time in oversubscribed OpenMP waits: the
+    detector phases' rehearsal took 218.6 s with them and 74.5 s with
+    one thread, six busy processes beside it on 8 cores.  Alone, a
+    subprocess runs with the default threads."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    env["OMP_NUM_THREADS"] = "1"
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        env["OMP_NUM_THREADS"] = "1"
     return env
 
 

@@ -55,6 +55,7 @@ from roi_kernel_twins import (BWD_TILE, axis_samples, bin_rows_span,
                               tile_layout, window_axis, window_plan)
 from torch_port_helpers import (STRIDES, make_inputs, make_rroi_inputs,
                                 to_np)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 j_roi_align = importlib.import_module("aidet_tpu.ops.roi_align")
 j_rroi_align = importlib.import_module("aidet_tpu.ops.rroi_align")

@@ -49,6 +49,7 @@ from aidet_tpu_torch.utils.checkpoint import (latest_step, load_checkpoint,
                                               save_checkpoint)
 from aidet_tpu_torch.utils.config import Config
 from torch_port_helpers import perturb_norms
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_LIMITS = dict(boxes=0.25, scores=2e-4, rboxes=0.25,

@@ -30,6 +30,7 @@ from aidet_tpu_torch.models.heads.rpn_head import RPNHead
 from aidet_tpu_torch.models.necks.fpn import FPN
 from aidet_tpu_torch.models.preprocess import device_normalize
 from torch_port_helpers import load_flax, perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

@@ -13,6 +13,7 @@ import torch
 
 from aidet_tpu_torch.ops import nms
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 j_nms = importlib.import_module("aidet_tpu.ops.nms")
 

@@ -22,6 +22,7 @@ import torch
 
 from aidet_tpu_torch.core.sample import ohem_sample, topk_mask_by_score
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax

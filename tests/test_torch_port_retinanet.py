@@ -50,6 +50,7 @@ from aidet_tpu_torch.ops.focal_loss import sigmoid_focal_loss
 from aidet_tpu_torch.utils.config import Config
 from chip_smoke import match_detections
 from torch_port_helpers import load_flax, perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax
@@ -338,7 +339,8 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
     """The reference's parameter tree of the config (its shapes, from
     `jax.eval_shape`, filled with seeded values) carried over by
     `flax_to_state_dict` loads strictly, the GroupNorm r18_e2e
-    RetinaNetOBB's too; a ResNeXt backbone is not registered."""
+    RetinaNetOBB's too; an SSD VGG backbone is not registered (ResNeXt,
+    which this test named before it was ported, now is)."""
     cfg = Config.fromfile(path)
     model_cfg = dict(cfg.model, **extra)
     tm = build_detector(model_cfg, train_cfg=cfg.get("train_cfg"),
@@ -359,8 +361,8 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
             "configs/dota_retinanet_theta_obb_r18_e2e.py")
         assert gn.neck.lateral_norm0.num_groups == 32
         assert gn.neck.extra0.bias is not None
-        with pytest.raises(KeyError, match="ResNeXt.*not yet ported"):
-            build_detector(dict(model_cfg, backbone=dict(type="ResNeXt")),
+        with pytest.raises(KeyError, match="SSDVGG.*not yet ported"):
+            build_detector(dict(model_cfg, backbone=dict(type="SSDVGG")),
                            device="cpu")
 
 

@@ -26,6 +26,7 @@ from aidet_tpu_torch.core import riou
 from aidet_tpu_torch.core.rboxes import thetaobb2pointobb
 from aidet_tpu_torch.ops import nms
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax.numpy as jnp

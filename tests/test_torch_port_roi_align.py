@@ -21,6 +21,7 @@ from aidet_tpu.ops.roi_align_pallas import _prepare
 
 from aidet_tpu_torch.ops import roi_align
 from torch_port_helpers import STRIDES, make_inputs, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 j_roi_align = importlib.import_module("aidet_tpu.ops.roi_align")
 

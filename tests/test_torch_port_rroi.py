@@ -39,6 +39,7 @@ from aidet_tpu_torch.convert import flax_to_state_dict
 from aidet_tpu_torch.rroi import build_rroi
 from test_models_forward import IMG, _small_cfg
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _reference(refine=True):

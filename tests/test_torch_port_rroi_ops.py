@@ -44,6 +44,7 @@ import chip_smoke
 from aidet_tpu_torch.core import rboxes as trb
 from aidet_tpu_torch.ops import roi_align, rroi_align
 from torch_port_helpers import STRIDES, make_inputs, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -42,6 +42,7 @@ from aidet_tpu_torch.data.dota import (merge_patches_to_scenes,
                                        parse_patch_name)
 from aidet_tpu_torch.flagship import build_flagship
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _quads(rs, n, lo=0.0, hi=300.0):

@@ -23,6 +23,7 @@ import torch
 
 from aidet_tpu_torch.ops.nms import multiclass_nms, nms_cfg_kwargs, soft_nms
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -40,6 +40,7 @@ from aidet_tpu_torch.convert import flax_to_state_dict
 from aidet_tpu_torch.flagship import build_flagship, keep_every_candidate_cfg
 from aidet_tpu_torch.parallel import train
 from torch_port_helpers import perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMG, G, MAX_NUM = 128, 4, 64
 LOSSES = ("loss_rpn_cls", "loss_rpn_bbox", "loss_cls", "loss_bbox",

@@ -34,6 +34,7 @@ from aidet_tpu_torch.models.backbones.resnet import ResNet
 from aidet_tpu_torch.models.heads import anchor_head, bbox_head
 from aidet_tpu_torch.parallel import train
 from torch_port_helpers import load_flax, perturb_norms, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 # modules whose names the losses package rebinds to functions
 j_ce = importlib.import_module("aidet_tpu.models.losses.cross_entropy_loss")

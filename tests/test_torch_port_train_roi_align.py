@@ -25,6 +25,7 @@ from aidet_tpu.ops import roi_align_pallas as rap
 
 from aidet_tpu_torch.ops import roi_align
 from torch_port_helpers import STRIDES, make_inputs, to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture()

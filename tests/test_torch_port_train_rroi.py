@@ -69,6 +69,7 @@ from aidet_tpu_torch.rroi import build_rroi
 from test_models_forward import IMG, _small_cfg
 from torch_port_helpers import (EDGE_RROIS, STRIDES, make_rroi_inputs,
                                 perturb_norms, to_np)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 j_rroi_align = importlib.import_module("aidet_tpu.ops.rroi_align")
 

@@ -46,6 +46,7 @@ from aidet_tpu_torch.apis.tta import _variant, aug_test_image
 from aidet_tpu_torch.convert import flax_to_state_dict
 from aidet_tpu_torch.models.builder import build_detector
 from torch_port_helpers import to_np
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 try:
     import jax

@@ -3,12 +3,37 @@
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import os
+
 import numpy as np
+import pytest
 import torch
 
 from aidet_tpu_torch.convert import TOP_LEVEL, flax_to_state_dict
 
 STRIDES = (4, 8, 16, 32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Autouse in the test modules that import it: torch on one thread
+    while the module runs in a pytest-xdist worker, its default thread
+    count restored after.  The workers share the machine's cores, and
+    torch's default of a thread per core then spends most of its time
+    in oversubscribed OpenMP waits (the isolation test's subprocesses
+    run on one thread for the same reason).  Only modules whose limits
+    hold at one thread import it: two tests of test_torch_port_gn.py
+    and test_torch_port_full_models.py pass at the default thread count
+    alone (a loss 2.8e-5 off in relative terms, an rbox tie)."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        yield
+        return
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def perturb_norms(variables, seed):

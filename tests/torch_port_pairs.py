@@ -1,10 +1,12 @@
 """Small detectors of the reference and of the PyTorch port with the same
 weights, shared by tests/test_torch_port_gn.py, test_torch_port_ohem.py,
-test_torch_port_soft_nms.py and test_torch_port_tta.py: the small
-architecture of tests/test_models_forward.py (ResNet-18, a 64-channel
-FPN, 128^2), the reference's variables with seeded norms carried over
-by the weight bridge, and a seeded batch of uint8 images and thetaobb
-gts.
+test_torch_port_soft_nms.py, test_torch_port_tta.py,
+test_torch_port_faster.py, test_torch_port_cascade.py and
+test_torch_port_mmdet_weights.py: the small architecture of
+tests/test_models_forward.py (ResNet-18, a 64-channel FPN, 128^2), the
+reference's variables with seeded norms carried over by the weight
+bridge, and a seeded batch of uint8 images and thetaobb gts (or HBB
+gts, with box masks and a semantic map, for the HBB family).
 """
 
 import functools
@@ -158,3 +160,130 @@ def assert_bridge_loads(path):
     assert not unmapped
     tm.load_state_dict(sd, strict=True)
     return tm, sd
+
+
+# the HBB family (FasterRCNN, RPN, the cascades): proposals capped so
+# that each image keeps at most 50 valid ones (10 a level after NMS) in
+# its 64 rows, so that every cascade stage's valid candidates (the gts,
+# then the previous stage's sample, up to 4 x 4 + 50 in HTC's last
+# interleaved mask sample) fit in the 4 + 64 samples: every stage
+# keeps all its candidates, in candidate order, whatever the random
+# stream
+HBB_MAX_NUM = 64
+HBB_TRAIN_CFG = dict(
+    keep_every_candidate_cfg(IMG, G, HBB_MAX_NUM),
+    rpn_proposal=dict(nms_pre=16, nms_post=10, max_num=HBB_MAX_NUM))
+SMALL_MASK_HEAD = dict(num_convs=2, in_channels=64, conv_out_channels=64,
+                       num_classes=16)
+SMALL_SEMANTIC_HEAD = dict(type="FusedSemanticHead", num_ins=5,
+                           fusion_level=1, in_channels=64,
+                           conv_out_channels=64, num_classes=16)
+
+
+def hbb_cfg(type_name="FasterRCNN", **extra):
+    """The small HBB detector ``type_name`` under `HBB_TRAIN_CFG`; an RPN
+    without its bbox head, its test_cfg its rpn's alone."""
+    cfg = _small_cfg(train_cfg=HBB_TRAIN_CFG)
+    if type_name == "RPN":
+        del cfg["bbox_head"]
+        cfg["test_cfg"] = dict(rpn=cfg["test_cfg"]["rpn"])
+    cfg.update(extra)
+    return dict(type=type_name, **cfg)
+
+
+def hbb_batch(seed=6, masks=False, semantic=False):
+    """Two seeded uint8 images with G gt boxes each (the second image's
+    last invalid), labels 1..15; with ``masks`` each gt's box filled in
+    a [G, IMG, IMG] mask, with ``semantic`` a seeded [IMG / 4]^2 map of
+    classes 0..15 with an ignored (255) band."""
+    rs = np.random.RandomState(seed)
+    xy = rs.uniform(4, IMG - 60, (2, G, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(16, 56, (2, G, 2))], -1)
+    out = dict(
+        imgs=rs.randint(0, 256, (2, IMG, IMG, 3)).astype(np.uint8),
+        gt_boxes=boxes.astype(np.float32),
+        gt_valid=np.asarray([[True] * G, [True] * (G - 1) + [False]]),
+        gt_labels=rs.randint(1, 16, (2, G)).astype(np.int32),
+        img_shapes=np.asarray([[IMG, IMG], [IMG, IMG - 16]], np.float32))
+    if masks:
+        yy, xx = np.mgrid[:IMG, :IMG]
+        b = boxes[..., None, None]
+        out["gt_masks"] = ((xx >= b[:, :, 0]) & (xx <= b[:, :, 2])
+                           & (yy >= b[:, :, 1]) & (yy <= b[:, :, 3])
+                           ).astype(np.float32)
+    if semantic:
+        sem = rs.randint(0, 16, (2, IMG // 4, IMG // 4))
+        sem[:, :3] = 255
+        out["gt_semantic"] = sem.astype(np.int32)
+    return out
+
+
+def shaped_variables(jm, seed=0):
+    """Seeded variables of the reference module ``jm`` from the shapes
+    of its init (`jax.eval_shape`, a trace without a compile): kernels
+    ~ N(0, 1 / fan_in), as its initializer, biases 0, then every norm
+    seeded as `perturb_all_norms` does."""
+    tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, IMG, IMG, 3)))
+    rs = np.random.RandomState(seed)
+
+    def fill(path, s):
+        name = getattr(path[-1], "key", "")
+        if name == "kernel":
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        return np.full(s.shape, 1.0 if name in ("scale", "var") else 0.0,
+                       np.float32)
+    v = jax.tree_util.tree_map_with_path(fill, tree)
+    return perturb_all_norms(v, seed + 9)
+
+
+def shaped_pair(cfg, seed=0):
+    """`pair` with the reference's variables from `shaped_variables`
+    (no compile of its init)."""
+    jm = j_build(cfg)
+    v = shaped_variables(jm, seed)
+    sd, unmapped = flax_to_state_dict(v)
+    assert not unmapped, unmapped
+    tm = build_detector(cfg, device="cpu", train=True)
+    tm.load_state_dict(sd, strict=True)
+    return jm, v, tm.eval()
+
+
+def ref_loss_and_grads(jm, v, batch):
+    """The reference's losses and the gradient of their sum, mapped to
+    the port's parameter names by the weight bridge."""
+    jb = {k: jnp.asarray(x) for k, x in batch.items()}
+
+    def total(params):
+        losses = jm.apply(dict(v, params=params), method="loss",
+                          rngs={"sampling": jax.random.PRNGKey(1)}, **jb)
+        return sum(jax.tree.leaves(losses)), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(total, has_aux=True))(
+        v["params"])
+    return ({k: float(x) for k, x in losses.items()},
+            flax_to_state_dict({"params": grads})[0])
+
+
+def port_loss_and_grads(tm, batch):
+    """The port's losses and the gradient of their sum by parameter."""
+    losses = tm.loss(**{k: torch.from_numpy(x) for k, x in batch.items()},
+                     generator=torch.Generator().manual_seed(0))
+    names, params = zip(*tm.named_parameters())
+    grads = torch.autograd.grad(sum(losses.values()), params,
+                                allow_unused=True)
+    return ({k: float(x.detach()) for k, x in losses.items()},
+            dict(zip(names, grads)))
+
+
+def assert_grads_close(got, ref, rel=1e-3):
+    """Every gradient leaf within ``rel`` of the leaf's largest magnitude
+    (a leaf without a gradient on one side is zero on the other)."""
+    assert set(ref) <= set(got), set(ref) - set(got)
+    for k, r in ref.items():
+        r = to_np(r)
+        g = np.zeros_like(r) if got[k] is None else to_np(got[k])
+        scale = max(np.abs(r).max(), 1e-12)
+        assert np.abs(g - r).max() <= rel * scale, (
+            k, np.abs(g - r).max() / scale)
