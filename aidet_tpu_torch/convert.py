@@ -19,9 +19,11 @@ of the mapping in the reference's `tools/torch2jax.py`:
   ``lateral_norm{i}`` / ``fpn_norm{i}`` under a GN norm_cfg): scale ->
   weight, bias -> bias, no statistics;
 - top-level modules _backbone / _neck / _rpn / _bbox_head / _rbbox_head
-  / _rbbox_refine_head / _mask_head / _semantic_head -> backbone / neck
-  / rpn_head / bbox_head / rbbox_head / rbbox_refine_head / mask_head /
-  semantic_head, a single-stage detector's dense head _head ->
+  / _rbbox_refine_head / _mask_head / _semantic_head / _shared_head /
+  _mask_iou_head / _grid_head -> backbone / neck / rpn_head / bbox_head
+  / rbbox_head / rbbox_refine_head / mask_head / semantic_head /
+  shared_head / mask_iou_head / grid_head, a single-stage detector's
+  dense head _head ->
   bbox_head, and the lists _neck_{i} (a sequence of necks), _heads_{i}
   and _mask_heads_{i} (a cascade's stages) -> neck.{i}, bbox_heads.{i}
   and mask_heads.{i}; the inner names are the same on both sides
@@ -32,7 +34,17 @@ of the mapping in the reference's `tools/torch2jax.py`:
   fpn{i} over the used levels and extra{i}; HRNet's stem1/2,
   stem_bn1/2, layer1_block{k}, t{stage}_{b}, t_bn{stage}_{b} and
   stage{s}_module{m} with its branch{b}_block{k}, fuse{i}_{j}[_{s}] and
-  fuse_bn{i}_{j}[_{s}]; HRFPN's reduce and fpn{i}).
+  fuse_bn{i}_{j}[_{s}]; HRFPN's reduce and fpn{i}; the res5 shared
+  head's layer4_block{b}; BFP's refine; the double head's conv_in,
+  res{i}_reduce / _conv / _expand, cls_fc{i}; the mask IoU head's
+  conv{i}, fc{i} and fc_mask_iou; GA-RPN's conv_loc, conv_shape and
+  adaption_offset; the grid head's conv{i}, GroupNorm_{i},
+  {f,s}order_dw / _pw and deconv_norm);
+- the parameters a reference module declares itself (`RAW_PARAMS`):
+  GA-RPN's ``adapt_kernel`` (HWIO -> OIHW) and the grid head's
+  ``deconv{1,2}_kernel`` (grouped transposed convs, relaid by
+  `grouped_transpose_kernel`, not flipped: the reference flips them in
+  its op) and ``deconv{1,2}_bias``.
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
@@ -60,6 +72,8 @@ TOP_LEVEL = {"_backbone": "backbone", "_neck": "neck", "_rpn": "rpn_head",
              "_bbox_head": "bbox_head", "_rbbox_head": "rbbox_head",
              "_rbbox_refine_head": "rbbox_refine_head",
              "_mask_head": "mask_head", "_semantic_head": "semantic_head",
+             "_shared_head": "shared_head",
+             "_mask_iou_head": "mask_iou_head", "_grid_head": "grid_head",
              "_head": "bbox_head"}
 # flax lists of submodules: _name_{i} -> name.{i}
 TOP_LEVEL_LISTS = {"_neck": "neck", "_heads": "bbox_heads",
@@ -69,6 +83,30 @@ CONV_TRANSPOSE = {"upsample"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
         ("batch_stats", "mean"): "running_mean",
         ("batch_stats", "var"): "running_var"}
+# parameters a reference module declares itself, not through a layer:
+# GA-RPN's adaption conv kernel (HWIO) and the grid head's grouped
+# transposed-conv kernels [kh, kw, in / groups, out] with their biases,
+# by name -> (the port's name, the number of groups of the kernel of
+# that shape, or None for a plain conv kernel)
+RAW_PARAMS = {"adapt_kernel": ("adapt.weight", None),
+              "deconv1_kernel": ("deconv1.weight",
+                                 lambda shape: shape[3] // shape[2]),
+              "deconv1_bias": ("deconv1.bias", None),
+              "deconv2_kernel": ("deconv2.weight", lambda shape: shape[3]),
+              "deconv2_bias": ("deconv2.bias", None)}
+
+
+def grouped_transpose_kernel(arr, groups):
+    """A kernel [kh, kw, in / G, out] of the reference's grouped stride-2
+    transposed conv (`_grouped_deconv2x`: a conv of the dilated input
+    with this kernel flipped in space) as `torch.nn.ConvTranspose2d`'s
+    weight [in, out / G, kh, kw], which that layer flips itself: group
+    g's input channel i and output j take tap [kh, kw, i, g * out / G +
+    j]."""
+    kh, kw, cin_g, cout = arr.shape
+    w = arr.reshape(kh, kw, cin_g, groups, cout // groups)
+    return w.transpose(3, 2, 4, 0, 1).reshape(groups * cin_g,
+                                              cout // groups, kh, kw)
 
 
 def _leaves(tree, prefix=()):
@@ -129,6 +167,14 @@ def flax_to_state_dict(variables, model=None):
         collection, top, *mid, leaf = path
         arr = np.array(value, np.float32)
         top = _top_level(top)
+        if top is not None and not mid and leaf in RAW_PARAMS:
+            name, groups = RAW_PARAMS[leaf]
+            if groups is not None:
+                arr = grouped_transpose_kernel(arr, groups(arr.shape))
+            elif arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            sd[f"{top}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
+            continue
         if top is None or not mid:
             unmapped.append("/".join(path))
             continue

@@ -1,9 +1,10 @@
 """Fixed-size random and OHEM sampling over padded candidate sets.
 
 Port of `random_topk_mask`, `topk_mask_by_score`, `random_sample_masks`,
-`pseudo_sample_masks`, `FixedSample` and `sample_fixed` from
-`aidet_tpu/core/sample.py`, and of the OHEM sampler of its two-stage
-detector (`ohem_sample`).  Anchor heads get
+`pseudo_sample_masks`, `FixedSample`, `sample_fixed`, and Libra
+R-CNN's `instance_balanced_pos_masks`, `iou_balanced_neg_masks` and
+`sample_fixed_combined` from `aidet_tpu/core/sample.py`, and of the
+OHEM sampler of its two-stage detector (`ohem_sample`).  Anchor heads get
 boolean masks, RoI heads fixed-length index arrays with validity
 masks, so shapes stay fixed.  Leading batch dimensions are written out
 ([..., N]).
@@ -117,6 +118,75 @@ def sample_fixed(assigned, num: int, pos_fraction: float,
     neg = random_topk_mask(assigned == 0,
                            _num_neg(num, pos.sum(-1), neg_pos_ub),
                            generator)
+    return _pack(pos, neg, assigned, num)
+
+
+def instance_balanced_pos_masks(assigned, num_pos: int, num_gts: int,
+                                generator: torch.Generator):
+    """Libra R-CNN's instance-balanced positives (reference :141; parity:
+    InstanceBalancedPosSampler): up to max(num_pos // num_gts, 1)
+    positives of each gt at random, the shortfall from the other
+    positives at random, then at most ``num_pos`` of those at random."""
+    n = assigned.shape[-1]
+    pos_cand = assigned > 0
+    per_gt = max(num_pos // max(num_gts, 1), 1)
+    r = torch.rand(assigned.shape, generator=generator,
+                   device=assigned.device)
+    # rank each positive within its gt's group, in random order
+    order = torch.argsort(torch.where(pos_cand, r, r.new_full((), 2.0))
+                          + assigned.float() * 4.0, dim=-1, stable=True)
+    sorted_assigned = torch.gather(assigned, -1, order)
+    idx = torch.arange(n, device=assigned.device).expand_as(order)
+    starts = torch.ones_like(pos_cand)
+    starts[..., 1:] = sorted_assigned[..., 1:] != sorted_assigned[..., :-1]
+    run_start = torch.where(starts, idx, 0).cummax(-1).values
+    rank = torch.empty_like(order).scatter_(-1, order, idx - run_start)
+    sel = pos_cand & (rank < per_gt)
+    sel |= random_topk_mask(pos_cand & ~sel, num_pos - sel.sum(-1),
+                            generator)
+    r2 = torch.rand(assigned.shape, generator=generator,
+                    device=assigned.device)
+    return topk_mask_by_score(sel, r2, num_pos)
+
+
+def iou_balanced_neg_masks(assigned, max_overlaps, num_neg,
+                           generator: torch.Generator, floor_thr=-1.0,
+                           floor_fraction=0.0, num_bins=3, neg_iou_ub=0.5):
+    """Libra R-CNN's IoU-balanced negatives (reference :108; parity:
+    IoUBalancedNegSampler): int(num_neg (1 - floor_fraction) / num_bins)
+    negatives at random from each of ``num_bins`` equal IoU bins over
+    [max(floor_thr, 0), neg_iou_ub), then the shortfall from the other
+    negatives at random: at most ``num_neg`` [...] in all."""
+    neg_cand = assigned == 0
+    floor = max(floor_thr, 0.0)
+    per_bin = (num_neg * (1.0 - floor_fraction) / num_bins).long()
+    width = (neg_iou_ub - floor) / num_bins
+    sel = torch.zeros_like(neg_cand)
+    for i in range(num_bins):
+        lo, hi = floor + i * width, floor + (i + 1) * width
+        in_bin = neg_cand & (max_overlaps >= lo) & (max_overlaps < hi)
+        sel |= random_topk_mask(in_bin, torch.minimum(per_bin, num_neg),
+                                generator)
+    return sel | random_topk_mask(neg_cand & ~sel, num_neg - sel.sum(-1),
+                                  generator)
+
+
+def sample_fixed_combined(assigned, max_overlaps, num: int,
+                          pos_fraction: float, generator: torch.Generator,
+                          neg_pos_ub: float = -1.0, num_gts: int = 256,
+                          floor_thr: float = -1.0,
+                          floor_fraction: float = 0.0,
+                          num_bins: int = 3) -> FixedSample:
+    """Libra R-CNN's fixed-size RoI sample (reference :215; parity:
+    CombinedSampler with InstanceBalancedPosSampler and
+    IoUBalancedNegSampler, the only pair its configs name), packed as
+    `sample_fixed` packs its own."""
+    num_pos_max = int(num * pos_fraction)
+    pos = instance_balanced_pos_masks(assigned, num_pos_max, num_gts,
+                                      generator)
+    neg = iou_balanced_neg_masks(
+        assigned, max_overlaps, _num_neg(num, pos.sum(-1), neg_pos_ub),
+        generator, floor_thr, floor_fraction, num_bins)
     return _pack(pos, neg, assigned, num)
 
 

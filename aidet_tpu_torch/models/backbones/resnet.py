@@ -129,7 +129,8 @@ BASE_CHANNELS = 64
 
 
 class ResNet(nn.Module):
-    """Multi-stage ResNet returning C2..C5 (strides 4, 8, 16, 32).
+    """Multi-stage ResNet returning C2..C5 (strides 4, 8, 16, 32), or
+    the maps of ``out_indices``.
 
     stem_space_to_depth: the 7x7/s2 stem is replaced by a 2x2
     pixel-unshuffle in (row, col, channel) order followed by a 4x4/s1
@@ -147,14 +148,21 @@ class ResNet(nn.Module):
     norm_cfg: None (FrozenBN) or dict(type="GN", num_groups=N), in the
     stem and every block; style: "pytorch" or "caffe" (the
     bottlenecks' stride on the first 1x1).
+
+    num_stages: the first stages built (3 for the C4 detectors, whose
+    res5 is the shared RoI head); out_indices: the stages whose maps
+    are returned (0 -> C2 ... 3 -> C5).
     """
 
     def __init__(self, depth=50, stem_space_to_depth=False,
-                 frozen_stages=1, norm_cfg=None, style="pytorch"):
+                 frozen_stages=1, norm_cfg=None, style="pytorch",
+                 num_stages=4, out_indices=(0, 1, 2, 3)):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
+        stage_blocks = stage_blocks[:num_stages]
         self.stem_space_to_depth = stem_space_to_depth
         self.frozen_stages = frozen_stages
+        self.out_indices = tuple(out_indices)
         if stem_space_to_depth:
             self.stem_conv = nn.Conv2d(12, BASE_CHANNELS, 4, bias=False)
         else:
@@ -197,5 +205,6 @@ class ResNet(nn.Module):
                 x = getattr(self, name)(x)
             if i + 1 <= self.frozen_stages:
                 x = x.detach()
-            outs.append(x.permute(0, 2, 3, 1))
+            if i in self.out_indices:
+                outs.append(x.permute(0, 2, 3, 1))
         return tuple(outs)

@@ -54,6 +54,7 @@ class ResNeXt(ResNet):
         _, stage_blocks = ARCH_SETTINGS[depth]
         self.stem_space_to_depth = False
         self.frozen_stages = frozen_stages
+        self.out_indices = (0, 1, 2, 3)
         self.stem_conv = conv(3, BASE_CHANNELS, 7, 2)
         self.stem_bn = FrozenBN(BASE_CHANNELS)
         self.stage_names = []

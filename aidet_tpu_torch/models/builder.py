@@ -4,12 +4,16 @@ the configs' ``dict(type=..., ...)`` entries.
 Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
 modules under the reference's type names, each behind a factory that
 reads the reference's keyword names: the backbones `ResNet` (FrozenBN
-or GroupNorm, pytorch or caffe style), `ResNeXt` and `HRNet`, the
-necks `FPN` (optionally with GroupNorm) and `HRFPN` (a config's list of
-necks runs them in order), the heads `RPNHead`, `SharedFCBBoxHead` (and
-`ConvFCBBoxHead`), `RBBoxHead`, the mask, semantic and dense heads, and
-the detectors (`RPN`, the two-stage presets from `FasterRCNN` to
-`CenterMapNet`, `CascadeRCNN`, `HTC`, the single-stage ones).  An
+or GroupNorm, pytorch or caffe style, the C4 detectors' 3 stages),
+`ResNeXt` and `HRNet`, the necks `FPN` (optionally with GroupNorm),
+`HRFPN`, `BFP` and `Identity` (a config's list of necks runs them in
+order), the shared head `ResLayer`, the heads `RPNHead`, `GARPNHead`,
+`BBoxHead`, `SharedFCBBoxHead` (and `ConvFCBBoxHead`),
+`DoubleConvFCBBoxHead`, `RBBoxHead`, `MaskIoUHead`, `GridHead`, the
+mask, semantic and dense heads, and the detectors (`RPN`, the
+two-stage presets from `FasterRCNN` to `CenterMapNet`,
+`MaskScoringRCNN`, `GAFasterRCNN`, `GridRCNN`, `DoubleHeadRCNN`,
+`CascadeRCNN`, `HTC`, the single-stage ones).  An
 option the port does not implement raises `NotImplementedError` unless
 it holds the reference's default; a type that is not registered raises
 `KeyError`.
@@ -38,16 +42,21 @@ from .backbones.resnext import ResNeXt
 from .detectors.cascade import CascadeRCNN
 from .detectors.rpn import RPN
 from .detectors.single_stage import SingleStageDetector
-from .detectors.two_stage import AnchorDetector, TwoStageDetector
-from .heads.bbox_head import RBBoxHead, SharedFCBBoxHead
+from .detectors.two_stage import TwoStageDetector
+from .heads.bbox_head import (BBoxHead, DoubleConvFCBBoxHead, MaskIoUHead,
+                              RBBoxHead, SharedFCBBoxHead)
+from .heads.grid_head import GridHead
+from .heads.guided_anchor_head import GARPNHead
 from .heads.mask_head import CenterMapHead, FCNMaskHead, HTCMaskHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .heads.semantic_head import FusedSemanticHead, WPSGAHead
-from .losses import FocalLoss, SmoothL1Loss
-from .necks.fpn import FPN
+from .losses import BalancedL1Loss, FocalLoss, SmoothL1Loss
+from .necks.bfp import BFP
+from .necks.fpn import FPN, Identity
 from .necks.hrfpn import HRFPN
-from .registry import BACKBONES, DETECTORS, HEADS, NECKS
+from .registry import BACKBONES, DETECTORS, HEADS, NECKS, SHARED_HEADS
+from .shared_heads import ResLayer
 
 NOT_PORTED = "not yet ported to aidet_tpu_torch"
 NO_STAGES = (False, False, False, False)
@@ -97,8 +106,8 @@ def _norm_cfg(type_name, norm_cfg):
 
 @BACKBONES.register(name="ResNet")
 def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
-            frozen_stages=1, norm_cfg=None, style="pytorch", dtype=None,
-            **options):
+            frozen_stages=1, norm_cfg=None, style="pytorch", num_stages=4,
+            out_indices=(0, 1, 2, 3), dtype=None, **options):
     # stem_s2d_phase is the same function over the same weight, relaid
     # for the TPU's matrix unit; the port has one s2d stem
     if depth not in ARCH_SETTINGS:
@@ -107,14 +116,15 @@ def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
     if style not in ("pytorch", "caffe"):
         raise ValueError(f"ResNet style {style!r}: 'pytorch' or 'caffe'")
     _only_defaults("ResNet", options, dict(
-        num_stages=4, strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
-        out_indices=(0, 1, 2, 3), base_channels=64, gen_attention=None,
+        strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
+        base_channels=64, gen_attention=None,
         gen_attention_stages=NO_STAGES, dcn=None, stage_with_dcn=NO_STAGES,
         gcb=None, stage_with_gcb=NO_STAGES, conv_cfg=None,
         norm_eval=True, pretrained=None))
     return ResNet(depth=depth, stem_space_to_depth=stem_space_to_depth,
                   frozen_stages=frozen_stages,
-                  norm_cfg=_norm_cfg("ResNet", norm_cfg), style=style)
+                  norm_cfg=_norm_cfg("ResNet", norm_cfg), style=style,
+                  num_stages=num_stages, out_indices=tuple(out_indices))
 
 
 @BACKBONES.register(name="HRNet")
@@ -158,6 +168,31 @@ def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
                norm_cfg=_norm_cfg("FPN", norm_cfg))
 
 
+@NECKS.register(name="Identity")
+def _identity(dtype=None, **options):
+    _only_defaults("Identity", options, {})
+    return Identity()
+
+
+@NECKS.register(name="BFP")
+def _bfp(in_channels=256, num_levels=5, refine_level=2, refine_type="conv",
+         dtype=None, **options):
+    _only_defaults("BFP", options, {})
+    return BFP(in_channels=in_channels, num_levels=num_levels,
+               refine_level=refine_level, refine_type=refine_type)
+
+
+@SHARED_HEADS.register(name="ResLayer")
+def _res_layer(depth=50, stage=3, stride=2, style="pytorch", norm_cfg=None,
+               dtype=None, **options):
+    _only_defaults("ResLayer", options, {})
+    if depth not in ARCH_SETTINGS:
+        raise NotImplementedError(f"ResLayer depth {depth} is {NOT_PORTED}; "
+                                  f"{sorted(ARCH_SETTINGS)} are")
+    return ResLayer(depth=depth, stage=stage, stride=stride, style=style,
+                    norm_cfg=_norm_cfg("ResLayer", norm_cfg))
+
+
 @NECKS.register(name="HRFPN")
 def _hrfpn(in_channels=(32, 64, 128, 256), out_channels=256, num_outs=5,
            dtype=None, **options):
@@ -172,6 +207,61 @@ def _rpn_head(in_channels=256, feat_channels=256, num_anchors=3,
     _only_defaults("RPNHead", options, dict(use_sigmoid_cls=True))
     return RPNHead(in_channels=in_channels, feat_channels=feat_channels,
                    num_anchors=num_anchors)
+
+
+@HEADS.register(name="GARPNHead")
+def _ga_rpn_head(in_channels=256, feat_channels=256, prior_prob=0.01,
+                 loc_filter_thr=0.01, dtype=None, **options):
+    _only_defaults("GARPNHead", options, {})
+    return GARPNHead(in_channels=in_channels, feat_channels=feat_channels,
+                     prior_prob=prior_prob, loc_filter_thr=loc_filter_thr)
+
+
+@HEADS.register(name="BBoxHead")
+def _bbox_head(num_classes=81, in_channels=256, roi_feat_size=7,
+               with_avg_pool=False, reg_class_agnostic=False, dtype=None,
+               **options):
+    _only_defaults("BBoxHead", options, {})
+    return BBoxHead(num_classes=num_classes, in_channels=in_channels,
+                    roi_feat_size=roi_feat_size, with_avg_pool=with_avg_pool,
+                    reg_class_agnostic=reg_class_agnostic)
+
+
+@HEADS.register(name="DoubleConvFCBBoxHead")
+def _double_bbox_head(num_classes=81, in_channels=256, num_convs=4,
+                      num_fcs=2, conv_out_channels=1024,
+                      fc_out_channels=1024, roi_feat_size=7,
+                      reg_class_agnostic=False, dtype=None, **options):
+    _only_defaults("DoubleConvFCBBoxHead", options, {})
+    return DoubleConvFCBBoxHead(
+        num_classes=num_classes, in_channels=in_channels,
+        num_convs=num_convs, num_fcs=num_fcs,
+        conv_out_channels=conv_out_channels,
+        fc_out_channels=fc_out_channels, roi_feat_size=roi_feat_size,
+        reg_class_agnostic=reg_class_agnostic)
+
+
+@HEADS.register(name="MaskIoUHead")
+def _mask_iou_head(num_convs=4, num_fcs=2, in_channels=256,
+                   conv_out_channels=256, fc_out_channels=1024,
+                   num_classes=81, dtype=None, **options):
+    _only_defaults("MaskIoUHead", options, {})
+    return MaskIoUHead(num_convs=num_convs, num_fcs=num_fcs,
+                       in_channels=in_channels,
+                       conv_out_channels=conv_out_channels,
+                       fc_out_channels=fc_out_channels,
+                       num_classes=num_classes)
+
+
+@HEADS.register(name="GridHead")
+def _grid_head(grid_points=9, num_convs=8, in_channels=256,
+               point_feat_channels=64, norm_groups=36, fusion=True,
+               dtype=None, **options):
+    _only_defaults("GridHead", options, {})
+    return GridHead(grid_points=grid_points, num_convs=num_convs,
+                    in_channels=in_channels,
+                    point_feat_channels=point_feat_channels,
+                    norm_groups=norm_groups, fusion=fusion)
 
 
 @HEADS.register(name="ConvFCBBoxHead")
@@ -270,13 +360,28 @@ def _retina_head(num_classes=16, in_channels=256, feat_channels=256,
 # the reference TwoStageDetector's fields that the port's detector
 # implements only at their defaults (roi_align_impl picks among
 # implementations of one function: the port has its own)
-DETECTOR_DEFAULTS = dict(
-    shared_head=None, mask_iou_head=None, grid_head=None,
-    grid_roi_size=14, semantic_fusion="add", semantic_level=0,
-    strides=TwoStageDetector.strides, anchor_scales=(8,),
-    anchor_ratios=(0.5, 1.0, 2.0),
-    ga_target_stds=(0.07, 0.07, 0.14, 0.14), ga_loc_filter_thr=0.01,
-    img_norm=None)
+DETECTOR_DEFAULTS = dict(semantic_fusion="add", semantic_level=0,
+                         img_norm=None)
+
+
+# the anchor keywords of the reference's RPN, two-stage and cascade
+# detectors, with their defaults (strides None: `AnchorDetector`'s)
+ANCHOR_DEFAULTS = dict(strides=None, anchor_scales=(8,),
+                       anchor_ratios=(0.5, 1.0, 2.0),
+                       ga_target_stds=(0.07, 0.07, 0.14, 0.14),
+                       ga_loc_filter_thr=0.01)
+
+
+def _anchor_options(options: dict) -> dict:
+    """Pops the anchor keywords out of ``options``, as `AnchorDetector`
+    takes them."""
+    return {k: tuple(v) if isinstance(v, (list, tuple)) else v
+            for k, v in ((k, options.pop(k, d))
+                         for k, d in ANCHOR_DEFAULTS.items())}
+
+
+def build_shared_head(cfg):
+    return build(cfg, SHARED_HEADS)
 
 
 def _compute_dtype(type_name, dtype, cfgs: dict):
@@ -306,38 +411,41 @@ def _neck(cfg):
 def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
                bbox_head=None, rbbox_head=None, rbbox_refine_head=None,
                mask_head=None, semantic_head=None, mask_loss_type="bce",
-               train_cfg=None, test_cfg=None, img_size=1024,
-               rbbox_encode="thetaobb", roi_align_impl="auto", dtype=None,
-               hobb_robust_loss=False, **options):
+               shared_head=None, mask_iou_head=None, grid_head=None,
+               grid_roi_size=14, train_cfg=None, test_cfg=None,
+               img_size=1024, rbbox_encode="thetaobb", roi_align_impl="auto",
+               dtype=None, hobb_robust_loss=False, **options):
     """A `TwoStageDetector` from the reference's detector keywords, with
     its defaults for the sub-modules a config leaves out
     (two_stage.py:126-177); its ``compute_dtype`` is the config's
     dtype.  Without an rbbox head or a mask head it predicts boxes
     alone (FasterRCNN, FastRCNN)."""
-    if options.get("mask_iou_head"):
-        raise NotImplementedError(f"{type_name}: MaskIoUHead (Mask Scoring "
-                                  f"R-CNN) is {NOT_PORTED}")
+    anchors = _anchor_options(options)
     _only_defaults(type_name, options, DETECTOR_DEFAULTS)
     if roi_align_impl not in ("auto", "xla", "pallas"):
         raise ValueError(f"roi_align_impl {roi_align_impl!r}")
     cfgs = dict(
         backbone=backbone or dict(type="ResNet", depth=50),
         neck=neck or dict(type="FPN", num_outs=5),
-        rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3),
+        rpn_head=rpn_head or dict(type="RPNHead", num_anchors=len(
+            anchors["anchor_scales"]) * len(anchors["anchor_ratios"])),
         bbox_head=bbox_head or dict(type="SharedFCBBoxHead",
                                     num_classes=16))
     for key, cfg in (("rbbox_head", rbbox_head), ("mask_head", mask_head),
-                     ("semantic_head", semantic_head)):
+                     ("semantic_head", semantic_head),
+                     ("shared_head", shared_head), ("grid_head", grid_head)):
         if cfg:
             cfgs[key] = cfg
     if rbbox_refine_head:
         cfgs["rbbox_refine_head"] = dict(rbbox_refine_head)
         cfgs["rbbox_refine_head"].setdefault("type", "RBBoxHead")
         cfgs["rbbox_refine_head"].setdefault("encode", "rtheta")
+    if mask_iou_head:
+        cfgs["mask_iou_head"] = mask_iou_head
     dtype = _compute_dtype(type_name, dtype, cfgs)
-    mods = {k: build_backbone(c) if k == "backbone"
-            else _neck(c) if k == "neck" else build_head(c)
-            for k, c in cfgs.items()}
+    build_fn = dict(backbone=build_backbone, neck=_neck,
+                    shared_head=build_shared_head)
+    mods = {k: build_fn.get(k, build_head)(c) for k, c in cfgs.items()}
     if "rbbox_head" in mods and mods["rbbox_head"].encode != rbbox_encode:
         raise NotImplementedError(
             f"{type_name}: rbbox_encode {rbbox_encode!r} differs from the "
@@ -350,7 +458,11 @@ def _two_stage(type_name, backbone=None, neck=None, rpn_head=None,
         rbbox_refine_head=mods.get("rbbox_refine_head"),
         mask_head=mods.get("mask_head"), mask_loss_type=mask_loss_type,
         semantic_head=mods.get("semantic_head"),
-        hobb_robust_loss=hobb_robust_loss)
+        hobb_robust_loss=hobb_robust_loss,
+        shared_head=mods.get("shared_head"),
+        mask_iou_head=mods.get("mask_iou_head"),
+        grid_head=mods.get("grid_head"), grid_roi_size=grid_roi_size,
+        **anchors)
     return model
 
 
@@ -390,30 +502,32 @@ _preset("CenterMapOBB", mask_head=dict(type="CenterMapHead"),
 _preset("CenterMapNet", mask_head=dict(type="CenterMapHead"),
         mask_loss_type="centermap",
         semantic_head=dict(type="WPSGAHead", channels=256))
-
-
-# the anchor keywords of the reference's RPN, two-stage and cascade
-# detectors, which the port builds at their defaults
-ANCHOR_DEFAULTS = dict(strides=AnchorDetector.strides, anchor_scales=(8,),
-                       anchor_ratios=(0.5, 1.0, 2.0), img_norm=None)
+_preset("MaskScoringRCNN", mask_head=dict(type="FCNMaskHead"),
+        mask_iou_head=dict(type="MaskIoUHead"))
+# GA-Faster R-CNN: the guided-anchoring RPN before the usual second stage
+_preset("GAFasterRCNN", rpn_head=dict(type="GARPNHead"))
+_preset("GridRCNN", grid_head=dict(type="GridHead"))
+_preset("DoubleHeadRCNN", bbox_head=dict(type="DoubleConvFCBBoxHead"))
 
 
 @DETECTORS.register(name="RPN")
 def _rpn(backbone=None, neck=None, rpn_head=None, train_cfg=None,
          test_cfg=None, img_size=1024, dtype=None, **options):
     """The proposal-only RPN (reference detectors/rpn.py) with its
-    defaults for the sub-modules a config leaves out; a `GARPNHead`
-    raises the registry's KeyError."""
-    _only_defaults("RPN", options, dict(
-        ANCHOR_DEFAULTS, ga_target_stds=(0.07, 0.07, 0.14, 0.14),
-        ga_loc_filter_thr=0.01))
+    defaults for the sub-modules a config leaves out: an `RPNHead` over
+    the anchors of its ``strides`` and scales, or a `GARPNHead`."""
+    anchors = _anchor_options(options)
+    _only_defaults("RPN", options, dict(img_norm=None))
     cfgs = dict(backbone=backbone or dict(type="ResNet", depth=50),
                 neck=neck or dict(type="FPN", num_outs=5),
-                rpn_head=rpn_head or dict(type="RPNHead", num_anchors=3))
+                rpn_head=rpn_head or dict(type="RPNHead", num_anchors=len(
+                    anchors["anchor_scales"]) * len(
+                        anchors["anchor_ratios"])))
     dtype = _compute_dtype("RPN", dtype, cfgs)
     return RPN(build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
                build_head(cfgs["rpn_head"]), img_size=img_size,
-               train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype)
+               train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype,
+               **anchors)
 
 
 def _cascade(type_name, backbone=None, neck=None, rpn_head=None,
@@ -429,10 +543,8 @@ def _cascade(type_name, backbone=None, neck=None, rpn_head=None,
     must be an `HTCMaskHead` (the reference calls it with the previous
     stage's feature, which an `FCNMaskHead` does not take: a TypeError
     there too), and every one but the first gets its ``conv_res``."""
-    if shared_head:
-        raise NotImplementedError(f"{type_name}: the C4 shared_head "
-                                  f"(ResLayer) is {NOT_PORTED}")
-    _only_defaults(type_name, options, ANCHOR_DEFAULTS)
+    anchors = _anchor_options(options)
+    _only_defaults(type_name, options, dict(img_norm=None))
     cfgs = dict(
         backbone=backbone or dict(type="ResNet", depth=50),
         neck=neck or dict(type="FPN", num_outs=5),
@@ -458,6 +570,8 @@ def _cascade(type_name, backbone=None, neck=None, rpn_head=None,
         masks.append(c)
     if semantic_head:
         cfgs["semantic_head"] = semantic_head
+    if shared_head:
+        cfgs["shared_head"] = shared_head
     dtype = _compute_dtype(type_name, dtype, dict(cfgs, masks=masks))
     return CascadeRCNN(
         build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
@@ -468,7 +582,9 @@ def _cascade(type_name, backbone=None, neck=None, rpn_head=None,
         per_stage_masks=per_stage_masks, interleaved=interleaved,
         mask_info_flow=mask_info_flow, semantic_fusion=semantic_fusion,
         semantic_level=semantic_level, img_size=img_size,
-        train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype)
+        train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype,
+        shared_head=shared_head and build_shared_head(shared_head),
+        **anchors)
 
 
 _preset("CascadeRCNN", build=_cascade)
@@ -522,8 +638,9 @@ def _single_stage(type_name, backbone=None, neck=None, bbox_head=None,
         train_cfg=train_cfg, test_cfg=test_cfg, with_rbox=with_rbox,
         rbox_encode=rbox_encode, rnms_thr=rnms_thr,
         cls_loss=loss_cls and _loss(loss_cls, dict(FocalLoss=FocalLoss)),
-        bbox_loss=loss_bbox and _loss(loss_bbox,
-                                      dict(SmoothL1Loss=SmoothL1Loss)),
+        bbox_loss=loss_bbox and _loss(
+            loss_bbox, dict(SmoothL1Loss=SmoothL1Loss,
+                            BalancedL1Loss=BalancedL1Loss)),
         compute_dtype=dtype)
 
 

@@ -1,8 +1,7 @@
 """Cascade R-CNN and the Hybrid Task Cascade.
 
 Port of `aidet_tpu/models/detectors/cascade.py` (`CascadeRCNN` :49-460,
-`HTC` :462-472; parity: mmdet's cascade_rcnn.py and htc.py) without its
-C4 shared head:
+`HTC` :462-472; parity: mmdet's cascade_rcnn.py and htc.py):
 
 - three RoI stages at IoU thresholds `STAGE_IOU_THRS`, each with its
   own class-agnostic box head, its loss weight and its target stds;
@@ -22,7 +21,10 @@ C4 shared head:
 - HTC's semantic branch (`FusedSemanticHead`): its map at
   ``semantic_level`` (1, stride 8) cropped by a single-level RoIAlign
   and added to the box crops and the mask crops, and its segmentation
-  loss ``loss_semantic_seg``.
+  loss ``loss_semantic_seg``;
+- the C4 configs' res5 ``shared_head`` (an ``anchor_options`` key, with
+  their strides and anchor scales): every stage's box crops, at the
+  head's size times its stride, and the mask crops run through it.
 
 Every RoI crop is `AnchorDetector._roi_features` (the semantic one
 `_fuse_semantic`): on the card, K1 at predict (one launch per stage,
@@ -67,8 +69,9 @@ class CascadeRCNN(AnchorDetector):
                  interleaved=False, mask_info_flow=False,
                  semantic_fusion=("bbox", "mask"), semantic_level=1,
                  img_size=1024, train_cfg=None, test_cfg=None,
-                 compute_dtype=None):
-        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype)
+                 compute_dtype=None, **anchor_options):
+        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype,
+                         **anchor_options)
         self.bbox_heads = nn.ModuleList(bbox_heads)
         self.num_stages = len(bbox_heads)
         if self.num_stages > len(STAGE_IOU_THRS):
@@ -140,6 +143,7 @@ class CascadeRCNN(AnchorDetector):
         pos = sample._make(x[:, :p_max] for x in sample)
         mcrops = self._crops(feats, sem_feat, pos_rois, MASK_ROI_SIZE, "mask")
         with amp:
+            mcrops = self._apply_shared(mcrops)
             pred = self._mask_forward(
                 stage, mcrops.reshape((b * p_max,) + mcrops.shape[2:]))
         pred = pred.float()
@@ -175,10 +179,10 @@ class CascadeRCNN(AnchorDetector):
         img_shapes = img_shapes.float()
         gt_boxes = gt_boxes.float()
         b, r = imgs.shape[0], rc["num_samples"]
-        feats, cls_flat, reg_flat, losses, amp = self._rpn_loss(
+        feats, rpn_out, losses, amp = self._rpn_loss(
             imgs, gt_boxes, gt_valid, img_shapes, generator, tc["rpn"])
-        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
-                                               img_shapes, tc["rpn_proposal"])
+        props, _, prop_valid = self._proposals(rpn_out, img_shapes,
+                                               tc["rpn_proposal"])
         sem_feat = None
         if self.semantic_head is not None:
             sh = self.semantic_head
@@ -201,8 +205,10 @@ class CascadeRCNN(AnchorDetector):
                     thr, generator)
             with record_function("roi_align"):
                 crops = self._crops(feats, sem_feat, rois,
-                                    head.roi_feat_size, "bbox")
+                                    head.roi_feat_size * self.pool_scale,
+                                    "bbox")
             with amp, record_function("roi_heads"):
+                crops = self._apply_shared(crops)
                 cls_score, bbox_pred = head(
                     crops.reshape((b * r,) + crops.shape[2:]))
             tgt = bbox_target(sample, rois, gt_boxes, gt_labels,
@@ -253,9 +259,8 @@ class CascadeRCNN(AnchorDetector):
         ec = self.test_cfg
         img_shapes = img_shapes.float()
         feats = self.extract_feat(imgs)
-        cls_flat, reg_flat = self._rpn_outputs(feats)
-        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
-                                               img_shapes, ec["rpn"])
+        props, _, prop_valid = self._proposals(
+            self._rpn_outputs(feats, masked=True), img_shapes, ec["rpn"])
         b, p = props.shape[:2]
         max_shape = img_shapes[:, None, :]
         sem_feat = None
@@ -265,8 +270,9 @@ class CascadeRCNN(AnchorDetector):
         rois, scores = props, []
         for stage, head in enumerate(self.bbox_heads):
             with record_function("roi_align"):
-                crops = self._crops(feats, sem_feat, rois,
-                                    head.roi_feat_size, "bbox", infer=True)
+                crops = self._apply_shared(self._crops(
+                    feats, sem_feat, rois, head.roi_feat_size * self.pool_scale,
+                    "bbox", infer=True))
             with record_function("bbox_head"):
                 cls_score, bbox_pred = head(
                     crops.reshape((b * p,) + crops.shape[2:]))
@@ -300,8 +306,8 @@ class CascadeRCNN(AnchorDetector):
         label's channel: [B, K, S, S]."""
         det_rois = dets.boxes[..., :4]
         b, k = det_rois.shape[:2]
-        mcrops = self._crops(feats, sem_feat, det_rois, MASK_ROI_SIZE,
-                             "mask", infer=True)
+        mcrops = self._apply_shared(self._crops(
+            feats, sem_feat, det_rois, MASK_ROI_SIZE, "mask", infer=True))
         x = mcrops.reshape((b * k,) + mcrops.shape[2:])
         n = len(self.mask_heads) if self.per_stage_masks else 1
         probs, last = [], None

@@ -1,11 +1,12 @@
 """The proposal-only RPN detector.
 
 Port of `aidet_tpu/models/detectors/rpn.py::RPN` (:28-215; parity:
-mmdet/models/detectors/rpn.py) without its guided-anchoring branch
-(`GARPNHead` is not registered in the port, so such a config raises
-`build_detector`'s `KeyError`): backbone, neck, `RPNHead` over the pyramid
-anchors; `loss` is the RPN's anchor-target loss, `predict` returns the
-proposals.  The train_cfg and test_cfg may be flat or nested under
+mmdet/models/detectors/rpn.py): backbone, neck, `RPNHead` over the pyramid
+anchors (or the C4 level's), or GA-RPN's `GARPNHead` over its guided
+anchors (`_ga_outputs` :97, `_ga_loss` :123, `predict` :198 with the
+masked head: `AnchorDetector._rpn_outputs` and `_ga_loss`); `loss` is
+the RPN's anchor-target loss (GA-RPN's adds its location and shape
+losses), `predict` returns the proposals.  The train_cfg and test_cfg may be flat or nested under
 ``rpn`` (configs/rpn_r50_fpn_1x.py), as the reference reads them
 (:63-87).
 """
@@ -37,8 +38,10 @@ class RPN(AnchorDetector):
     nms_thr, min_bbox_size)."""
 
     def __init__(self, backbone, neck, rpn_head, img_size=1024,
-                 train_cfg=None, test_cfg=None, compute_dtype=None):
-        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype)
+                 train_cfg=None, test_cfg=None, compute_dtype=None,
+                 **anchor_options):
+        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype,
+                         **anchor_options)
         self.train_cfg = _flat(DEFAULT_TRAIN_CFG, train_cfg)
         self.test_cfg = _flat(DEFAULT_TEST_CFG, test_cfg)
 
@@ -48,10 +51,10 @@ class RPN(AnchorDetector):
         (uint8 BGR or normalized floats), gt_boxes [B, G, 4], gt_valid
         [B, G], img_shapes [B, 2]; no labels.  The anchor sample draws
         from ``generator``.  Returns float32 scalars loss_rpn_cls and
-        loss_rpn_bbox."""
+        loss_rpn_bbox (and GA-RPN's loss_rpn_loc and loss_rpn_shape)."""
         if generator is None:
             raise TypeError("loss needs the sampling generator")
-        _, _, _, losses, _ = self._rpn_loss(
+        _, _, losses, _ = self._rpn_loss(
             imgs, gt_boxes.float(), gt_valid, img_shapes.float(), generator,
             self.train_cfg)
         return losses
@@ -62,7 +65,7 @@ class RPN(AnchorDetector):
         4] (N = max_num), their objectness scores [B, N] and valid [B,
         N]."""
         img_shapes = img_shapes.float()
-        cls_flat, reg_flat = self._rpn_outputs(self.extract_feat(imgs))
-        boxes, scores, valid = self._proposals(cls_flat, reg_flat,
-                                               img_shapes, self.test_cfg)
+        boxes, scores, valid = self._proposals(
+            self._rpn_outputs(self.extract_feat(imgs), masked=True),
+            img_shapes, self.test_cfg)
         return dict(boxes=boxes, scores=scores, valid=valid)

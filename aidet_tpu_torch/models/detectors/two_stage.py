@@ -42,15 +42,33 @@ for those branches of
   the same merged proposals, boxes and softmax scores averaged before
   one multiclass NMS).
 
-The GA-RPN and combined samplers, and the grid, shared-head and Mask
-Scoring (`MaskIoUHead`) branches are not ported; the cascades are
-`detectors/cascade.py`, the proposal-only RPN `detectors/rpn.py`.
+The other branches of this slice:
+
+- the C4 detectors: one backbone level at stride 16, its anchors at
+  the config's scales, crops at the box head's size times the res5
+  ``shared_head``'s stride (14 for 7) run through it before the box
+  head, the mask crops (14) through it before the mask head;
+- GA-RPN (`GARPNHead`; GAFasterRCNN): the guided anchors of each image
+  and the location filter feed the proposals, and its location and
+  shape losses join the RPN's (`AnchorDetector._ga_loss`);
+- Grid R-CNN (``grid_head``): the detections' boxes are replaced by
+  the grid heatmaps' (`_grid_refine`, K1 at ``grid_roi_size``), and the
+  jittered positives train it (`_grid_loss`, K2);
+- Mask Scoring R-CNN (``mask_iou_head``): ``mask_scores``, the
+  detection scores times the predicted mask IoU, and loss_mask_iou;
+- Libra R-CNN's ``sampler="combined"`` (`core.sample.
+  sample_fixed_combined`).
+
+Double-Head R-CNN is a box head (`DoubleConvFCBBoxHead`) and BFP a neck.
+The cascades are `detectors/cascade.py`, the proposal-only RPN
+`detectors/rpn.py`.
 """
 
 from __future__ import annotations
 
 import os
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -58,9 +76,10 @@ from torch.profiler import record_function
 
 from ...core.anchors import build_pyramid_anchors
 from ...core.assign import max_iou_assign
+from ...core.points import build_pyramid_points
 from ...core.rboxes import (RBBOX_CODECS, delta2rtheta, hobb2thetaobb,
                             hobb_rolls, pointobb2thetaobb, rtheta2delta)
-from ...core.sample import ohem_sample, sample_fixed
+from ...core.sample import ohem_sample, sample_fixed, sample_fixed_combined
 from ...core.targets import bbox_target, mask_target, rbbox_target
 from ...ops.nms import (NEG_INF, multiclass_nms, nms, nms_cfg_kwargs,
                         select_parallel_rboxes, topk)
@@ -70,9 +89,11 @@ from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
                                  rpn_proposals)
 from ..heads.bbox_head import (bbox_head_decode, bbox_head_loss,
                                rbbox_head_decode)
+from ..heads.grid_head import grid_loss, grid_target, grid_to_boxes
+from ..heads.guided_anchor_head import GARPNHead, ga_targets
 from ..heads.semantic_head import semantic_loss
-from ..losses import (CenterMapLoss, CrossEntropyLoss, SmoothL1Loss,
-                      mask_cross_entropy)
+from ..losses import (CenterMapLoss, CrossEntropyLoss, FocalLoss,
+                      SmoothL1Loss, mask_cross_entropy)
 from ..preprocess import device_normalize
 
 # the reference's defaults (configs/dota/dota_v002_theta_obb_r50_v1_train.py)
@@ -110,6 +131,33 @@ def _as_thetaobb(rb, encode):
     return rb
 
 
+def _clip_to_image(boxes, img_shapes):
+    """Boxes [B, K, 4] clipped to [0, w - 1] x [0, h - 1] of each image's
+    (h, w) [B, 2]."""
+    w = img_shapes[:, None, 1] - 1
+    h = img_shapes[:, None, 0] - 1
+    zero = boxes.new_zeros(())
+    return torch.stack([
+        torch.minimum(torch.maximum(boxes[..., 0], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 1], zero), h),
+        torch.minimum(torch.maximum(boxes[..., 2], zero), w),
+        torch.minimum(torch.maximum(boxes[..., 3], zero), h)], -1)
+
+
+def jitter_rois(rois, img_shapes, generator: torch.Generator):
+    """Grid R-CNN's training jitter (reference two_stage.py:604-621):
+    each roi [B, R, 4] moved by up to 0.15 of its size and rescaled by a
+    factor in [0.85, 1.15] (uniform draws from ``generator``), then
+    clipped to its image."""
+    off = torch.rand(rois.shape, generator=generator, device=rois.device)
+    off = off * 0.3 - 0.15
+    cxcy = (rois[..., 2:4] + rois[..., :2]) / 2
+    wh = (rois[..., 2:4] - rois[..., :2]).abs()
+    c = cxcy + wh * off[..., :2]
+    half = wh * (1 + off[..., 2:]) / 2
+    return _clip_to_image(torch.cat([c - half, c + half], -1), img_shapes)
+
+
 def _merge(default: dict, override) -> dict:
     out = {k: dict(v) if isinstance(v, Mapping) else v
            for k, v in default.items()}
@@ -129,47 +177,97 @@ def _dq(x):
         else x
 
 
+class RPNOutputs(NamedTuple):
+    """The RPN head's outputs flattened over the levels, and the anchors
+    they regress from."""
+    cls: torch.Tensor            # [B, A, 1] objectness logits
+    reg: torch.Tensor            # [B, A, 4] deltas
+    anchors: torch.Tensor        # [A, 4], or GA-RPN's guided [B, A, 4]
+    loc_keep: torch.Tensor = None    # GA-RPN: [B, A] sigmoid(loc) > thr
+    shape: torch.Tensor = None       # GA-RPN: [B, A, 2] shape logits
+    loc: torch.Tensor = None         # GA-RPN: [B, A] location logits
+
+
 class AnchorDetector(nn.Module):
     """What the RPN, the two-stage detectors and the cascades share: a
     backbone, a neck (a list of necks in the config is an
     `nn.Sequential` that runs them in order, as the reference's
-    two_stage.py:203-211), the RPN head over the pyramid anchors
-    (strides P2..P6, 3 anchors per location: scale 8, ratios 0.5 / 1 /
-    2, the reference's defaults), the uint8 normalize, the mixed
-    precision of `loss`, the RPN's loss and proposals, and the RoI
-    crops.  ``dtype`` is the parameters' (the RPN head's)."""
+    two_stage.py:203-211), the RPN head over the pyramid anchors (by
+    default strides P2..P6, 3 anchors per location: scale 8, ratios 0.5
+    / 1 / 2, the reference's defaults; the C4 detectors' one level at
+    stride 16 with 5 scales), or a `GARPNHead` over one guided anchor
+    per point of each level, the uint8 normalize, the mixed precision
+    of `loss`, the RPN's loss and proposals, the RoI crops, and the C4
+    detectors' res5 ``shared_head`` over them.  ``dtype`` is the
+    parameters' (the RPN head's)."""
 
     strides = (4, 8, 16, 32, 64)
     # the pyramid level of a semantic head's map (`_fuse_semantic`)
     semantic_level = 0
 
     def __init__(self, backbone, neck, rpn_head, img_size=1024,
-                 compute_dtype=None):
+                 compute_dtype=None, strides=None, anchor_scales=(8,),
+                 anchor_ratios=(0.5, 1.0, 2.0), shared_head=None,
+                 ga_target_stds=(0.07, 0.07, 0.14, 0.14),
+                 ga_loc_filter_thr=0.01):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
+        self.shared_head = shared_head
         self.img_size = img_size
         self.compute_dtype = compute_dtype
+        if strides is not None:
+            self.strides = tuple(strides)
+        self.anchor_scales = tuple(anchor_scales)
+        self.anchor_ratios = tuple(anchor_ratios)
         self.rpn_cls_loss = CrossEntropyLoss(use_sigmoid=True)
         self.rpn_bbox_loss = SmoothL1Loss(beta=1.0 / 9.0)
-        anchors, sizes = build_pyramid_anchors(img_size, self.strides)
+        anchors, self.level_sizes = build_pyramid_anchors(
+            img_size, self.strides, self.anchor_scales, self.anchor_ratios)
         self.register_buffer("anchors", anchors, persistent=False)
-        self.level_sizes = sizes
+        self.ga = isinstance(rpn_head, GARPNHead)
+        self.rpn_target_stds = RPN_TARGET_STDS
+        if self.ga:
+            # GA-RPN: one guided anchor per point, its shape predicted
+            pts, sizes, pstrides = build_pyramid_points(img_size,
+                                                        self.strides)
+            self.register_buffer("points", pts, persistent=False)
+            self.register_buffer("pstrides", pstrides, persistent=False)
+            self.level_sizes = sizes
+            self.rpn_target_stds = tuple(ga_target_stds)
+            self.ga_loc_filter_thr = ga_loc_filter_thr
+            self.ga_loc_loss = FocalLoss(gamma=2.0, alpha=0.25)
+            self.ga_shape_loss = SmoothL1Loss(beta=0.2)
+
+    def _pyramid_anchors(self):
+        return build_pyramid_anchors(self.img_size, self.strides,
+                                     self.anchor_scales,
+                                     self.anchor_ratios)[0]
 
     def _apply(self, fn, recurse=True):
-        """Module.to and friends: the anchors follow the device but stay
-        float32 in a bfloat16 model, as the reference's, so that the
-        proposals decode in float32."""
+        """Module.to and friends: the anchors (and GA-RPN's points) follow
+        the device but stay float32 in a bfloat16 model, as the
+        reference's, so that the proposals decode in float32."""
         super()._apply(fn, recurse)
         if self.anchors.dtype != torch.float32:
-            self.anchors = build_pyramid_anchors(
-                self.img_size, self.strides)[0].to(self.anchors.device)
+            self.anchors = self._pyramid_anchors().to(self.anchors.device)
+        if self.ga and self.points.dtype != torch.float32:
+            pts, _, pstrides = build_pyramid_points(self.img_size,
+                                                    self.strides)
+            self.points = pts.to(self.anchors.device)
+            self.pstrides = pstrides.to(self.anchors.device)
         return self
 
     @property
     def dtype(self):
         return self.rpn_head.rpn_cls.weight.dtype
+
+    @property
+    def pool_scale(self):
+        """The factor from a box head's input size to its crop size: the
+        shared head's stride, or 1."""
+        return 1 if self.shared_head is None else self.shared_head.stride
 
     def extract_feat(self, imgs):
         with record_function("backbone"):
@@ -185,52 +283,114 @@ class AnchorDetector(nn.Module):
         return torch.autocast(torch.device(device).type, dtype=cd,
                               enabled=cd != self.dtype)
 
-    def _rpn_outputs(self, feats):
-        """The RPN head's outputs flattened over the levels: (cls [B, A],
-        reg [B, A, 4])."""
+    def _rpn_outputs(self, feats, masked=False):
+        """The RPN head's outputs flattened over the levels, as
+        `RPNOutputs`.  GA-RPN (reference two_stage.py:266-299): the
+        guided anchors of each image, the points' 8-stride base shape
+        scaled by exp of the shape logits, and the location filter;
+        ``masked``, the test path, gates the head's outputs by it."""
         with record_function("rpn_head"):
-            rpn_cls, rpn_reg = self.rpn_head(feats)
-        return flatten_level_outputs(rpn_cls, rpn_reg,
-                                     self.rpn_head.cls_out_channels)
+            if not self.ga:
+                rpn_cls, rpn_reg = self.rpn_head(feats)
+                return RPNOutputs(*flatten_level_outputs(
+                    rpn_cls, rpn_reg, self.rpn_head.cls_out_channels),
+                    self.anchors)
+            cls_out, shape_out, loc_out, reg_out = self.rpn_head(
+                feats, masked=masked)
+        b = cls_out[0].shape[0]
+
+        def flat(xs, d):
+            return torch.cat([x.reshape(b, -1, d) for x in xs], 1)
+        shape, loc = flat(shape_out, 2), flat(loc_out, 1)[..., 0]
+        base = self.pstrides * 8.0
+        w = base * torch.exp(shape[..., 0])
+        h = base * torch.exp(shape[..., 1])
+        cx, cy = self.points[:, 0], self.points[:, 1]
+        anchors = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2,
+                               cy + h / 2], -1)
+        return RPNOutputs(flat(cls_out, 1), flat(reg_out, 4), anchors,
+                          torch.sigmoid(loc) > self.ga_loc_filter_thr,
+                          shape, loc)
 
     def _rpn_loss(self, imgs, gt_boxes, gt_valid, img_shapes, generator,
                   rpn):
         """The features (under `_mixed_precision`), the RPN's float32
-        outputs and its losses under the assigner and sampler of the
-        ``rpn`` train_cfg (loss_rpn_cls, loss_rpn_bbox).  Returns (feats,
-        cls_flat, reg_flat, losses, the autocast context)."""
+        outputs (`RPNOutputs`) and its losses under the assigner and
+        sampler of the ``rpn`` train_cfg (loss_rpn_cls, loss_rpn_bbox;
+        GA-RPN adds loss_rpn_loc and loss_rpn_shape, `_ga_loss`).
+        Returns (feats, outputs, losses, the autocast context)."""
         amp = self._mixed_precision(imgs.device)
         with amp:
             feats = self.extract_feat(imgs)
-            cls_flat, reg_flat = self._rpn_outputs(feats)
-        cls_flat, reg_flat = cls_flat.float(), reg_flat.float()
+            out = self._rpn_outputs(feats)
+        out = out._replace(**{k: getattr(out, k).float() for k in
+                              ("cls", "reg", "shape", "loc")
+                              if getattr(out, k) is not None})
+        if self.ga:
+            with record_function("rpn_loss"):
+                losses = self._ga_loss(out, gt_boxes, gt_valid, img_shapes,
+                                       generator, rpn)
+            return feats, out, losses, amp
         with record_function("rpn_loss"):
-            out = anchor_head_loss(
-                cls_flat, reg_flat, self.anchors, gt_boxes, gt_valid,
+            res = anchor_head_loss(
+                out.cls, out.reg, self.anchors, gt_boxes, gt_valid,
                 img_shapes, generator, target_stds=RPN_TARGET_STDS,
                 cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
-                assigner_cfg=dict(pos_iou_thr=rpn["pos_iou_thr"],
-                                  neg_iou_thr=rpn["neg_iou_thr"],
-                                  min_pos_iou=rpn["min_pos_iou"]),
-                sampler_cfg=dict(num_samples=rpn["num_samples"],
-                                 pos_fraction=rpn["pos_fraction"],
-                                 neg_pos_ub=rpn["neg_pos_ub"]),
+                assigner_cfg=_assigner(rpn), sampler_cfg=_sampler(rpn),
                 allowed_border=rpn["allowed_border"],
                 pos_weight=rpn["pos_weight"])
-        return feats, cls_flat, reg_flat, dict(
-            loss_rpn_cls=out["loss_cls"], loss_rpn_bbox=out["loss_bbox"]), amp
+        return feats, out, dict(loss_rpn_cls=res["loss_cls"],
+                                loss_rpn_bbox=res["loss_bbox"]), amp
 
-    def _proposals(self, cls_flat, reg_flat, img_shapes, cfg):
-        """The RPN's proposals under ``cfg`` (nms_pre, nms_post, max_num,
-        nms_thr, min_bbox_size), without gradient: (boxes [B, N, 4],
-        scores [B, N], valid [B, N])."""
+    def _ga_loss(self, out, gt_boxes, gt_valid, img_shapes, generator, rpn):
+        """GA-RPN's losses (reference two_stage.py:401-450,
+        rpn.py:123-171): the focal location loss and the smooth L1 (beta
+        0.2) shape loss against `ga_targets`, then each image's
+        objectness and delta losses on its guided anchors without
+        gradient (every anchor inside the border rule, the ``rpn``
+        assigner and sampler, averaged by that image's sample count),
+        averaged over the images."""
+        loc_tgt, loc_w, shape_tgt, pos = ga_targets(
+            self.points, self.pstrides, gt_boxes, gt_valid)
+        losses = dict(
+            loss_rpn_loc=self.ga_loc_loss(
+                out.loc[..., None], loc_tgt.long(), weight=loc_w[..., None],
+                avg_factor=loc_tgt.sum().clamp(min=1.0)),
+            loss_rpn_shape=self.ga_shape_loss(
+                out.shape, shape_tgt,
+                weight=pos[..., None].expand_as(out.shape).float(),
+                avg_factor=pos.sum().clamp(min=1.0)))
+        per = [anchor_head_loss(
+            out.cls[i:i + 1], out.reg[i:i + 1], out.anchors[i].detach(),
+            gt_boxes[i:i + 1], gt_valid[i:i + 1], img_shapes[i:i + 1],
+            generator, target_stds=self.rpn_target_stds,
+            cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
+            assigner_cfg=_assigner(rpn), sampler_cfg=_sampler(rpn),
+            allowed_border=-1, pos_weight=rpn["pos_weight"])
+            for i in range(gt_boxes.shape[0])]
+        losses["loss_rpn_cls"] = torch.stack([p["loss_cls"] for p in per]
+                                             ).mean()
+        losses["loss_rpn_bbox"] = torch.stack([p["loss_bbox"] for p in per]
+                                              ).mean()
+        return losses
+
+    def _proposals(self, out, img_shapes, cfg):
+        """The RPN's proposals from `RPNOutputs` under ``cfg`` (nms_pre,
+        nms_post, max_num, nms_thr, min_bbox_size), without gradient;
+        GA-RPN's locations below the filter score -1e4: (boxes [B, N,
+        4], scores [B, N], valid [B, N])."""
+        cls = out.cls
+        if out.loc_keep is not None:
+            cls = torch.where(out.loc_keep[..., None], cls,
+                              cls.new_tensor(-1e4))
         with torch.no_grad(), record_function("rpn_proposals"):
-            return rpn_proposals(cls_flat, reg_flat, self.anchors,
+            return rpn_proposals(cls, out.reg, out.anchors,
                                  self.level_sizes, img_shapes,
-                                 target_stds=RPN_TARGET_STDS, **cfg)
+                                 target_stds=self.rpn_target_stds, **cfg)
 
     def _roi_features(self, feats, rois_b, out_size, infer=False):
-        """Multi-level RoIAlign over the first 4 levels: [B, R, s, s, C].
+        """Multi-level RoIAlign over the first 4 levels (the C4
+        detectors' one): [B, R, s, s, C].
         On CUDA tensors this launches kernel K1 under no_grad and K2
         (forward, then its backward kernel) when the features need a
         gradient; a training pass without gradient (``infer`` False
@@ -246,6 +406,16 @@ class AnchorDetector(nn.Module):
         return roi_align_forward(levels, rois_b.float(), out_size,
                                  self.strides[:4], train=not infer)
 
+    def _apply_shared(self, crops):
+        """The shared head (res5) over crops [B, R, s, s, C] (reference
+        two_stage.py:342-350), or the crops without one."""
+        if self.shared_head is None:
+            return crops
+        b, r = crops.shape[:2]
+        with record_function("shared_head"):
+            out = self.shared_head(crops.reshape((b * r,) + crops.shape[2:]))
+        return out.reshape((b, r) + out.shape[1:])
+
     def _fuse_semantic(self, crops, sem_feat, rois_b, out_size):
         """The semantic map [B, H, W, C] cropped at the rois [B, R, 4] by
         the single-level RoIAlign at the stride of `semantic_level`
@@ -260,6 +430,18 @@ class AnchorDetector(nn.Module):
             sem = roi_align_forward([sem_feat.contiguous()], rois_b.float(),
                                     out_size, self.strides[lvl:lvl + 1])
         return crops + sem
+
+
+def _assigner(rpn):
+    return dict(pos_iou_thr=rpn["pos_iou_thr"],
+                neg_iou_thr=rpn["neg_iou_thr"],
+                min_pos_iou=rpn["min_pos_iou"])
+
+
+def _sampler(rpn):
+    return dict(num_samples=rpn["num_samples"],
+                pos_fraction=rpn["pos_fraction"],
+                neg_pos_ub=rpn["neg_pos_ub"])
 
 
 class TwoStageDetector(AnchorDetector):
@@ -293,8 +475,11 @@ class TwoStageDetector(AnchorDetector):
                  img_size=1024, train_cfg=None, test_cfg=None,
                  compute_dtype=None, rbbox_refine_head=None, mask_head=None,
                  mask_loss_type="bce", semantic_head=None,
-                 hobb_robust_loss=False):
-        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype)
+                 hobb_robust_loss=False, shared_head=None,
+                 mask_iou_head=None, grid_head=None, grid_roi_size=14,
+                 **anchor_options):
+        super().__init__(backbone, neck, rpn_head, img_size, compute_dtype,
+                         shared_head=shared_head, **anchor_options)
         self.bbox_head = bbox_head
         self.rbbox_head = rbbox_head
         if rbbox_refine_head is not None \
@@ -308,15 +493,27 @@ class TwoStageDetector(AnchorDetector):
         if mask_loss_type not in ("bce", "centermap"):
             raise ValueError(f"mask_loss_type {mask_loss_type!r}: 'bce' or "
                              "'centermap'")
+        if mask_iou_head is not None and mask_head is None:
+            raise ValueError("mask_iou_head scores the mask head's masks; it "
+                             "needs a mask_head")
         self.hobb_robust_loss = hobb_robust_loss
         self.mask_head = mask_head
         self.mask_loss_type = mask_loss_type
+        self.mask_iou_head = mask_iou_head
         self.semantic_head = semantic_head
+        self.grid_head = grid_head
+        self.grid_roi_size = grid_roi_size
         self.train_cfg = _merge(DEFAULT_TRAIN_CFG, train_cfg)
         self.test_cfg = _merge(DEFAULT_TEST_CFG, test_cfg)
         self.rcnn_cls_loss = CrossEntropyLoss()
         self.rcnn_bbox_loss = SmoothL1Loss(beta=1.0)
         self.centermap_loss = CenterMapLoss()
+
+    @property
+    def bbox_pool_size(self):
+        """The box crops' size: the box head's input size times the
+        shared head's stride (reference two_stage.py:158-162)."""
+        return self.bbox_head.roi_feat_size * self.pool_scale
 
     @property
     def dtype(self):
@@ -353,9 +550,8 @@ class TwoStageDetector(AnchorDetector):
         ec = self.test_cfg
         img_shapes = img_shapes.float()
         feats = self.extract_feat(imgs)
-        cls_flat, reg_flat = self._rpn_outputs(feats)
-        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
-                                               img_shapes, ec["rpn"])
+        props, _, prop_valid = self._proposals(
+            self._rpn_outputs(feats, masked=True), img_shapes, ec["rpn"])
 
         b, p = props.shape[:2]
         sem_feat = None
@@ -363,12 +559,12 @@ class TwoStageDetector(AnchorDetector):
             with record_function("semantic_head"):
                 sem_feat = self.semantic_head(feats)[1]
         with record_function("roi_align"):
-            crops = self._roi_features(feats, props,
-                                       self.bbox_head.roi_feat_size,
+            crops = self._roi_features(feats, props, self.bbox_pool_size,
                                        infer=True)
         if sem_feat is not None:
             crops = self._fuse_semantic(crops, sem_feat, props,
-                                        self.bbox_head.roi_feat_size)
+                                        self.bbox_pool_size)
+        crops = self._apply_shared(crops)
         with record_function("bbox_head"):
             cls_score, bbox_pred = self.bbox_head(
                 crops.reshape((b * p,) + crops.shape[2:]))
@@ -383,12 +579,17 @@ class TwoStageDetector(AnchorDetector):
                                   valid=prop_valid, **nms_cfg_kwargs(rc))
         out = dict(boxes=dets.boxes, scores=dets.scores,
                    labels=dets.labels, valid=dets.valid)
-
+        if self.grid_head is not None:
+            with record_function("grid_head"):
+                out["boxes"] = self._grid_refine(feats, dets, img_shapes)
         if self.rbbox_head is not None:
             out["rboxes"] = self._predict_rboxes(feats, crops, props, dets)
         if self.mask_head is not None:
             with record_function("mask_head"):
-                out["masks"] = self._predict_masks(feats, sem_feat, dets)
+                out["masks"], iou = self._predict_masks(feats, sem_feat,
+                                                        dets)
+            if iou is not None:
+                out["mask_scores"] = out["scores"] * iou.clamp(0.0, 1.0)
         if scale_factors is not None:
             self._rescale(out, scale_factors)
         return out
@@ -407,8 +608,8 @@ class TwoStageDetector(AnchorDetector):
         b, p = proposals.shape[:2]
         with record_function("roi_align"):
             crops = self._roi_features(feats, proposals,
-                                       self.bbox_head.roi_feat_size,
-                                       infer=True)
+                                       self.bbox_pool_size, infer=True)
+        crops = self._apply_shared(crops)
         with record_function("bbox_head"):
             cls_score, bbox_pred = self.bbox_head(
                 crops.reshape((b * p,) + crops.shape[2:]))
@@ -452,12 +653,8 @@ class TwoStageDetector(AnchorDetector):
         sf = scale_factors.to(img_shapes)
         w_img = img_shapes[:, 1]
         feats = self.extract_feat(imgs)
-        rpn_cls, rpn_reg = self.rpn_head(feats)
-        cls_flat, reg_flat = flatten_level_outputs(
-            rpn_cls, rpn_reg, self.rpn_head.cls_out_channels)
-        props, scores, valid = rpn_proposals(
-            cls_flat, reg_flat, self.anchors, self.level_sizes, img_shapes,
-            target_stds=RPN_TARGET_STDS, **ec["rpn"])
+        props, scores, valid = self._proposals(
+            self._rpn_outputs(feats, masked=True), img_shapes, ec["rpn"])
         a, p = props.shape[:2]
 
         def flipped(boxes, f, w):
@@ -481,8 +678,8 @@ class TwoStageDetector(AnchorDetector):
         merged_valid = top_s > NEG_INF / 2
 
         props_aug = flipped(merged[None] * per_aug(sf), flips, w_img)
-        crops = self._roi_features(feats, props_aug,
-                                   self.bbox_head.roi_feat_size, infer=True)
+        crops = self._apply_shared(self._roi_features(
+            feats, props_aug, self.bbox_pool_size, infer=True))
         cls_score, bbox_pred = self.bbox_head(
             crops.reshape((a * k,) + crops.shape[2:]))
         boxes, cls_prob = bbox_head_decode(
@@ -524,12 +721,15 @@ class TwoStageDetector(AnchorDetector):
         return rboxes
 
     def _predict_masks(self, feats, sem_feat, dets):
-        """The mask branch of predict (reference two_stage.py:1088-1109):
+        """The mask branch of predict (reference two_stage.py:1088-1121):
         the detections' boxes cropped at 14x14 (K1 on the card; with a
-        semantic head its map fused in), the mask head, and each
-        detection's map at its label's channel (0-based labels, clamped
-        to the head's channels): raw for the CenterMap head, sigmoid for
-        the BCE head.  Returns [B, K, S, S] (S = 28)."""
+        semantic head its map fused in; with a shared head through it,
+        to 7x7), the mask head, and each detection's map at its label's
+        channel (0-based labels, clamped to the head's channels): raw
+        for the CenterMap head, sigmoid for the BCE head.  Returns
+        (masks [B, K, S, S] (S = 28, 14 after a shared head), the mask
+        IoU head's IoU of each detection's class [B, K], or None
+        without one)."""
         det_rois = dets.boxes[..., :4]
         b, k = det_rois.shape[:2]
         mcrops = self._roi_features(feats, det_rois, MASK_ROI_SIZE,
@@ -537,14 +737,34 @@ class TwoStageDetector(AnchorDetector):
         if sem_feat is not None:
             mcrops = self._fuse_semantic(mcrops, sem_feat, det_rois,
                                          MASK_ROI_SIZE)
-        pred = self.mask_head(mcrops.reshape((b * k,) + mcrops.shape[2:]))
+        mcrops = self._apply_shared(mcrops)
+        mcrops = mcrops.reshape((b * k,) + mcrops.shape[2:])
+        pred = self.mask_head(mcrops)
         c = pred.shape[-1]
         lbl = dets.labels.reshape(-1).long().clamp(0, c - 1)
         sel = torch.gather(pred, -1, lbl[:, None, None, None].expand(
             pred.shape[:-1] + (1,)))[..., 0]
         if self.mask_loss_type != "centermap":
             sel = torch.sigmoid(sel)
-        return sel.reshape((b, k) + sel.shape[1:])
+        iou = None
+        if self.mask_iou_head is not None:
+            iou = torch.gather(self.mask_iou_head(mcrops, sel), 1,
+                               lbl[:, None])[:, 0].reshape(b, k)
+        return sel.reshape((b, k) + sel.shape[1:]), iou
+
+    def _grid_refine(self, feats, dets, img_shapes):
+        """Grid R-CNN's boxes (reference two_stage.py:1006-1025): the
+        detections cropped at ``grid_roi_size`` (K1 on the card), the grid
+        head's heatmaps, `grid_to_boxes`, clipped to each image; invalid
+        rows keep their boxes."""
+        det_rois = dets.boxes[..., :4]
+        b, k = det_rois.shape[:2]
+        gcrops = self._roi_features(feats, det_rois, self.grid_roi_size,
+                                    infer=True)
+        heat = self.grid_head(gcrops.reshape((b * k,) + gcrops.shape[2:]))
+        refined = _clip_to_image(grid_to_boxes(
+            heat.reshape((b, k) + heat.shape[1:]), det_rois), img_shapes)
+        return torch.where(dets.valid[..., None], refined, dets.boxes)
 
     def _rescale(self, out, scale_factors):
         """Divide ``out``'s boxes and rboxes by each image's scale
@@ -630,9 +850,9 @@ class TwoStageDetector(AnchorDetector):
         tc = self.train_cfg
         rc = tc["rcnn"]
         sampler = rc.get("sampler", "random")
-        if sampler not in ("random", "ohem"):
-            raise NotImplementedError(f"rcnn sampler {sampler!r} is not "
-                                      "ported; 'random' and 'ohem' are")
+        if sampler not in ("random", "ohem", "combined"):
+            raise ValueError(f"rcnn sampler {sampler!r}: 'random', 'ohem' "
+                             "or 'combined'")
         if generator is None:
             raise TypeError("loss needs the sampling generator")
         gt_masks = _dq(gt_masks)
@@ -641,11 +861,11 @@ class TwoStageDetector(AnchorDetector):
         img_shapes = img_shapes.float()
         gt_boxes = gt_boxes.float()
         b = imgs.shape[0]
-        feats, cls_flat, reg_flat, losses, amp = self._rpn_loss(
+        feats, rpn_out, losses, amp = self._rpn_loss(
             imgs, gt_boxes, gt_valid, img_shapes, generator, tc["rpn"])
         # proposals carry no gradient, as in the reference
-        props, _, prop_valid = self._proposals(cls_flat, reg_flat,
-                                               img_shapes, tc["rpn_proposal"])
+        props, _, prop_valid = self._proposals(rpn_out, img_shapes,
+                                               tc["rpn_proposal"])
 
         # the gt boxes join the proposals as candidates
         with record_function("rcnn_sample"):
@@ -660,6 +880,14 @@ class TwoStageDetector(AnchorDetector):
                 sample = ohem_sample(
                     res.gt_inds, self._ohem_loss(feats, cand, res, amp),
                     rc["num_samples"], rc["pos_fraction"])
+            elif sampler == "combined":
+                sample = sample_fixed_combined(
+                    res.gt_inds, res.max_overlaps, rc["num_samples"],
+                    rc["pos_fraction"], generator, rc["neg_pos_ub"],
+                    num_gts=gt_boxes.shape[1],
+                    floor_thr=rc.get("floor_thr", -1.0),
+                    floor_fraction=rc.get("floor_fraction", 0.0),
+                    num_bins=rc.get("num_bins", 3))
             else:
                 sample = sample_fixed(res.gt_inds, rc["num_samples"],
                                       rc["pos_fraction"], generator,
@@ -687,11 +915,12 @@ class TwoStageDetector(AnchorDetector):
         # one RoIAlign: both box heads read the same crops, so the step
         # has one multi-level K2 forward and backward launch for them
         with record_function("roi_align"):
-            crops = self._roi_features(feats, rois,
-                                       self.bbox_head.roi_feat_size)
+            crops = self._roi_features(feats, rois, self.bbox_pool_size)
         if sem_feat is not None:
             crops = self._fuse_semantic(crops, sem_feat, rois,
-                                        self.bbox_head.roi_feat_size)
+                                        self.bbox_pool_size)
+        with amp:
+            crops = self._apply_shared(crops)
         crops = crops.reshape((b * r,) + crops.shape[2:])
         with amp, record_function("roi_heads"):
             cls_score, bbox_pred = self.bbox_head(crops)
@@ -706,6 +935,13 @@ class TwoStageDetector(AnchorDetector):
             cls_score.float(), bbox_pred.float(), tgt,
             self.rcnn_cls_loss, self.rcnn_bbox_loss,
             reg_class_agnostic=self.bbox_head.reg_class_agnostic)
+        if self.grid_head is not None:
+            with record_function("grid_loss"):
+                p_max = int(rc["num_samples"] * rc["pos_fraction"])
+                pos = sample._make(x[:, :p_max] for x in sample)
+                losses["loss_grid"] = self._grid_loss(
+                    feats, jitter_rois(rois[:, :p_max], img_shapes,
+                                       generator), pos, gt_boxes, amp)
         if self.rbbox_head is not None:
             with amp, record_function("roi_heads"):
                 rcls, rreg = self.rbbox_head(crops)
@@ -732,10 +968,27 @@ class TwoStageDetector(AnchorDetector):
                         gt_rboxes.float(), gt_labels, amp))
         if self.mask_head is not None:
             with record_function("mask_loss"):
-                losses["loss_mask"] = self._mask_loss(
+                losses.update(self._mask_loss(
                     feats, sem_feat, rois, sample, gt_masks,
-                    gt_mask_weights, gt_labels, amp)
+                    gt_mask_weights, gt_labels, amp))
         return losses
+
+    def _grid_loss(self, feats, jit_rois, pos, gt_boxes, amp):
+        """The grid branch's loss (reference two_stage.py:599-645) on the
+        jittered positive rois [B, P, 4] of the sample's first rows
+        ``pos``: their crops at ``grid_roi_size`` (K2 on the card), the
+        fused and unfused heatmaps against `grid_target`'s at twice that
+        size, `grid_loss`."""
+        b, p = jit_rois.shape[:2]
+        gcrops = self._roi_features(feats, jit_rois, self.grid_roi_size)
+        with amp:
+            heat, unfused = self.grid_head(
+                gcrops.reshape((b * p,) + gcrops.shape[2:]),
+                return_unfused=True)
+        target = grid_target(pos, jit_rois, gt_boxes, 2 * self.grid_roi_size,
+                             self.grid_head.grid_points)
+        return grid_loss(heat.float(), unfused.float(),
+                         target.reshape(heat.shape), pos.is_pos.reshape(-1))
 
     @torch.no_grad()
     def _ohem_loss(self, feats, cand, res, amp):
@@ -747,8 +1000,9 @@ class TwoStageDetector(AnchorDetector):
         labels), 0 otherwise."""
         b, c = cand.shape[:2]
         crops = self._roi_features([f.detach() for f in feats], cand,
-                                   self.bbox_head.roi_feat_size)
+                                   self.bbox_pool_size)
         with amp:
+            crops = self._apply_shared(crops)
             cls_score, _ = self.bbox_head(
                 crops.reshape((b * c,) + crops.shape[2:]))
         logp = torch.log_softmax(cls_score.float().reshape(b, c, -1), -1)
@@ -766,7 +1020,13 @@ class TwoStageDetector(AnchorDetector):
         output size.  loss_mask, averaged over max(#positives, 1) * S^2:
         the CenterMap loss at each roi's class, with the mask weights
         cropped the same way entering as w + 1, or the class-sliced
-        sigmoid BCE; rois that are not positive weigh 0."""
+        sigmoid BCE; rois that are not positive weigh 0.  With a shared
+        head the crops go through it (14 -> 7) and the targets are at
+        the head's 14.  With a mask IoU head (reference :815-837),
+        loss_mask_iou: half the squared error of its IoU at each
+        positive's class against the IoU of the binarized (0.5) mask
+        and target, over the positives' count.  Returns the losses'
+        dict."""
         rc = self.train_cfg["rcnn"]
         b = rois.shape[0]
         p_max = int(rc["num_samples"] * rc["pos_fraction"])
@@ -777,8 +1037,9 @@ class TwoStageDetector(AnchorDetector):
             mcrops = self._fuse_semantic(mcrops, sem_feat, pos_rois,
                                          MASK_ROI_SIZE)
         with amp:
-            pred = self.mask_head(
-                mcrops.reshape((b * p_max,) + mcrops.shape[2:]))
+            mcrops = self._apply_shared(mcrops)
+            mcrops = mcrops.reshape((b * p_max,) + mcrops.shape[2:])
+            pred = self.mask_head(mcrops)
         pred = pred.float()
         msize = pred.shape[1]
         mrois = pos_rois * (gt_masks.shape[-1] / self.img_size)
@@ -794,11 +1055,30 @@ class TwoStageDetector(AnchorDetector):
             if gt_mask_weights is not None:
                 mw = mask_target(pos, mrois, gt_mask_weights, msize).reshape(
                     tgt.shape) + 1.0
-            return self.centermap_loss(pred, tgt, labels, mask_weight=mw,
-                                       roi_weight=is_pos, avg_factor=navg)
-        return mask_cross_entropy(pred, tgt, labels,
-                                  weight=is_pos[:, None, None],
-                                  avg_factor=navg)
+            return dict(loss_mask=self.centermap_loss(
+                pred, tgt, labels, mask_weight=mw, roi_weight=is_pos,
+                avg_factor=navg))
+        losses = dict(loss_mask=mask_cross_entropy(
+            pred, tgt, labels, weight=is_pos[:, None, None],
+            avg_factor=navg))
+        if self.mask_iou_head is not None:
+            # Mask Scoring R-CNN: regress the IoU of the binarized
+            # class-sliced mask with the binarized target
+            c = pred.shape[-1]
+            idx = (labels - 1).clamp(0, c - 1)
+            pred_c = torch.sigmoid(torch.gather(
+                pred, -1, idx[:, None, None, None].expand(
+                    pred.shape[:-1] + (1,)))[..., 0])
+            pb, tb = pred_c > 0.5, tgt > 0.5
+            iou_tgt = (pb & tb).sum((1, 2)) / (pb | tb).sum((1, 2)).clamp(
+                min=1)
+            with amp:
+                iou_pred = self.mask_iou_head(mcrops, pred_c.detach())
+            iou_pred = torch.gather(iou_pred.float(), 1, idx[:, None])[:, 0]
+            diff = (iou_pred - iou_tgt) * is_pos
+            losses["loss_mask_iou"] = 0.5 * (diff ** 2).sum() \
+                / is_pos.sum().clamp(min=1.0)
+        return losses
 
     def _refine_loss(self, feats, rois, rreg, sample, gt_rboxes, gt_labels,
                      amp):

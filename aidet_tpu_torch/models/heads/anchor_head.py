@@ -89,7 +89,7 @@ def rpn_proposals(cls_flat, box_flat, anchors, level_sizes, img_shapes,
     cls_flat [B, A, 1] (sigmoid objectness logits), box_flat [B, A, 4],
     in the heads' dtype: the scores are computed, ranked and returned
     in cls_flat's dtype, the boxes promote to the anchors' float32;
-    anchors [A, 4],
+    anchors [A, 4], or [B, A, 4] for anchors of each image,
     img_shapes [B, 2] (h, w).  Returns (boxes [B, max_num, 4],
     scores [B, max_num], valid [B, max_num]).
     """
@@ -104,7 +104,11 @@ def rpn_proposals(cls_flat, box_flat, anchors, level_sizes, img_shapes,
         sl = slice(start, start + n_lvl)
         start += n_lvl
         top_s, top_i = topk(scores_all[:, sl], k)
-        a = anchors[sl][top_i]
+        if anchors.dim() == 3:      # each image's own (GA-RPN's guided)
+            a = torch.gather(anchors[:, sl], 1,
+                             top_i[..., None].expand(b, k, 4))
+        else:
+            a = anchors[sl][top_i]
         d = torch.gather(box_flat[:, sl], 1,
                          top_i[..., None].expand(b, k, 4))
         props = delta2bbox(a, d, target_means, target_stds,

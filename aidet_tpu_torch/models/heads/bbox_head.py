@@ -1,11 +1,14 @@
 """RoI box heads, their loss and their decodes.
 
-Port of `SharedFCBBoxHead` (registered as `ConvFCBBoxHead` too, as
-in the reference), `RBBoxHead`, `bbox_head_loss`, `bbox_head_decode`
-and `rbbox_head_decode` from `aidet_tpu/models/heads/bbox_head.py`.
-The heads take roi crops [N, s, s, C] and flatten them in (h, w, c)
-order, the reference's order, so the first FC's weight is the
-reference kernel transposed and needs no row permutation.
+Port of `BBoxHead` (the C4 detectors' average-pooled head),
+`SharedFCBBoxHead` (registered as `ConvFCBBoxHead` too, as in the
+reference), `RBBoxHead`, `DoubleConvFCBBoxHead` (Double-Head R-CNN),
+`MaskIoUHead` (Mask Scoring R-CNN), `bbox_head_loss`,
+`bbox_head_decode` and `rbbox_head_decode` from
+`aidet_tpu/models/heads/bbox_head.py`.  The heads take roi crops [N, s,
+s, C] and flatten them in (h, w, c) order, the reference's order, so
+the first FC's weight is the reference kernel transposed and needs no
+row permutation.
 """
 
 from __future__ import annotations
@@ -17,6 +20,29 @@ from torch import nn
 from ...core.boxes import delta2bbox
 from ...core.rboxes import RBBOX_CODECS
 from ..backbones.resnet import make_norm
+
+
+class BBoxHead(nn.Module):
+    """Classification and box regression straight off the crops: with
+    ``with_avg_pool`` their spatial mean [N, C] (the C4 detectors, after
+    the res5 shared head), else the flattened crop."""
+
+    def __init__(self, num_classes=81, in_channels=256, roi_feat_size=7,
+                 with_avg_pool=False, reg_class_agnostic=False):
+        super().__init__()
+        self.roi_feat_size = roi_feat_size
+        self.with_avg_pool = with_avg_pool
+        self.reg_class_agnostic = reg_class_agnostic
+        cin = in_channels * (1 if with_avg_pool else roi_feat_size ** 2)
+        self.fc_cls = nn.Linear(cin, num_classes)
+        self.fc_reg = nn.Linear(cin, 4 * (1 if reg_class_agnostic
+                                          else num_classes))
+
+    def forward(self, x):
+        """x: [N, s, s, C] -> (cls_score [N, classes], pred [N, D])."""
+        x = x.mean((1, 2)) if self.with_avg_pool else x.reshape(x.shape[0],
+                                                                 -1)
+        return self.fc_cls(x), self.fc_reg(x)
 
 
 class SharedFCBBoxHead(nn.Module):
@@ -86,6 +112,92 @@ class RBBoxHead(SharedFCBBoxHead):
                          num_shared_fcs, roi_feat_size,
                          RBBOX_CODECS[encode][0])
         self.encode = encode
+
+
+class DoubleConvFCBBoxHead(nn.Module):
+    """Double-Head R-CNN's box head (parity: mmdet's
+    double_bbox_head.py): a conv branch regresses (a 1x1 ``conv_in``,
+    then ``num_convs`` bottleneck residual blocks ``res{i}_reduce``,
+    ``res{i}_conv``, ``res{i}_expand`` with a ReLU after each sum, a
+    spatial mean and ``fc_reg``), an FC branch classifies (the flattened
+    crop through ``cls_fc{i}`` and ``fc_cls``)."""
+
+    def __init__(self, num_classes=81, in_channels=256, num_convs=4,
+                 num_fcs=2, conv_out_channels=1024, fc_out_channels=1024,
+                 roi_feat_size=7, reg_class_agnostic=False):
+        super().__init__()
+        self.num_convs = num_convs
+        self.num_fcs = num_fcs
+        self.roi_feat_size = roi_feat_size
+        self.reg_class_agnostic = reg_class_agnostic
+        c, mid = conv_out_channels, conv_out_channels // 4
+        self.conv_in = nn.Conv2d(in_channels, c, 1)
+        for i in range(num_convs):
+            self.add_module(f"res{i}_reduce", nn.Conv2d(c, mid, 1))
+            self.add_module(f"res{i}_conv", nn.Conv2d(mid, mid, 3,
+                                                      padding=1))
+            self.add_module(f"res{i}_expand", nn.Conv2d(mid, c, 1))
+        self.fc_reg = nn.Linear(c, 4 * (1 if reg_class_agnostic
+                                        else num_classes))
+        cin = in_channels * roi_feat_size ** 2
+        for i in range(num_fcs):
+            self.add_module(f"cls_fc{i}", nn.Linear(cin, fc_out_channels))
+            cin = fc_out_channels
+        self.fc_cls = nn.Linear(cin, num_classes)
+
+    def forward(self, x):
+        """x: [N, s, s, C] -> (cls_score [N, classes], pred [N, D])."""
+        c = self.conv_in(x.permute(0, 3, 1, 2))
+        for i in range(self.num_convs):
+            res = F.relu(getattr(self, f"res{i}_reduce")(c))
+            res = F.relu(getattr(self, f"res{i}_conv")(res))
+            c = F.relu(c + getattr(self, f"res{i}_expand")(res))
+        bbox_pred = self.fc_reg(c.mean((2, 3)))
+        f = x.reshape(x.shape[0], -1)
+        for i in range(self.num_fcs):
+            f = F.relu(getattr(self, f"cls_fc{i}")(f))
+        return self.fc_cls(f), bbox_pred
+
+
+class MaskIoUHead(nn.Module):
+    """Mask Scoring R-CNN's mask-IoU head (parity: mmdet's
+    maskiou_head.py): the crop [N, s, s, C] and the 2x2 max-pool of its
+    predicted mask [N, 2s, 2s] (the class's sigmoid) concatenated as
+    one more channel, ``num_convs`` 3x3 convs with ReLU (the last
+    strided 2), ``num_fcs`` FCs with ReLU and ``fc_mask_iou``: one IoU
+    per foreground class [N, num_classes - 1].  ``roi_feat_size``: the
+    crops' size, 14 (the mask branch's RoIAlign)."""
+
+    def __init__(self, num_convs=4, num_fcs=2, in_channels=256,
+                 conv_out_channels=256, fc_out_channels=1024,
+                 num_classes=81, roi_feat_size=14):
+        super().__init__()
+        self.num_convs = num_convs
+        self.num_fcs = num_fcs
+        cin, s = in_channels + 1, roi_feat_size
+        for i in range(num_convs):
+            stride = 2 if i == num_convs - 1 else 1
+            self.add_module(f"conv{i}", nn.Conv2d(
+                cin, conv_out_channels, 3, stride=stride, padding=1))
+            cin = conv_out_channels
+            s = (s - 1) // stride + 1
+        cin = cin * s * s
+        for i in range(num_fcs):
+            self.add_module(f"fc{i}", nn.Linear(cin, fc_out_channels))
+            cin = fc_out_channels
+        self.fc_mask_iou = nn.Linear(cin, num_classes - 1)
+
+    def forward(self, roi_feat, mask_pred):
+        """roi_feat [N, s, s, C], mask_pred [N, 2s, 2s] -> [N, classes -
+        1]."""
+        mp = F.max_pool2d(mask_pred[:, None], 2).to(roi_feat.dtype)
+        x = torch.cat([roi_feat.permute(0, 3, 1, 2), mp], 1)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        for i in range(self.num_fcs):
+            x = F.relu(getattr(self, f"fc{i}")(x))
+        return self.fc_mask_iou(x)
 
 
 def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,

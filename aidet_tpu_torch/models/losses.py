@@ -5,14 +5,18 @@ their weighting and reduction.
 Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 `cross_entropy_loss.py` (`cross_entropy`, `binary_cross_entropy`,
 `mask_cross_entropy`, `CrossEntropyLoss`), `smooth_l1_loss.py`
-(`smooth_l1_loss`, `SmoothL1Loss`), `focal_loss.py` (`FocalLoss`) and
-`centermap_loss.py` (`CenterMapLoss`).  Labels follow the reference: 0 is background,
+(`smooth_l1_loss`, `SmoothL1Loss`), `balanced_l1_loss.py`
+(`balanced_l1_loss`, `BalancedL1Loss`: Libra R-CNN's),
+`focal_loss.py` (`FocalLoss`) and `centermap_loss.py`
+(`CenterMapLoss`).  Labels follow the reference: 0 is background,
 1..C the classes; softmax logits carry C + 1 channels, sigmoid and
 mask logits C.  `CrossEntropyLoss(use_mask=True)` is not ported: the
 detector calls `mask_cross_entropy` itself, as the reference's does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -152,6 +156,38 @@ class SmoothL1Loss:
         return self.loss_weight * smooth_l1_loss(
             pred, target, weight, beta=self.beta, reduction=reduction,
             avg_factor=avg_factor)
+
+
+def balanced_l1_loss(pred, target, weight=None, beta=1.0, alpha=0.5,
+                     gamma=1.5, reduction="mean", avg_factor=None):
+    """Libra R-CNN's balanced L1: with b = e^(gamma / alpha) - 1, alpha /
+    b (b |d| + 1) log(b |d| / beta + 1) - alpha |d| below beta, gamma
+    |d| + gamma / b - alpha beta above."""
+    diff = (pred - target).abs()
+    b = math.e ** (gamma / alpha) - 1
+    loss = torch.where(
+        diff < beta,
+        alpha / b * (b * diff + 1) * torch.log(b * diff / beta + 1)
+        - alpha * diff,
+        gamma * diff + gamma / b - alpha * beta)
+    return weight_reduce_loss(loss, weight, reduction, avg_factor)
+
+
+class BalancedL1Loss:
+    def __init__(self, alpha=0.5, gamma=1.5, beta=1.0, reduction="mean",
+                 loss_weight=1.0):
+        self.alpha = alpha
+        self.gamma = gamma
+        self.beta = beta
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        return self.loss_weight * balanced_l1_loss(
+            pred, target, weight, beta=self.beta, alpha=self.alpha,
+            gamma=self.gamma, reduction=reduction, avg_factor=avg_factor)
 
 
 class FocalLoss:

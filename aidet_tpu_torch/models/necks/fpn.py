@@ -89,3 +89,11 @@ class FPN(nn.Module):
                     src = F.relu(src)
             outs.append(getattr(self, f"extra{i}")(src))
         return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+class Identity(nn.Module):
+    """The C4 detectors' neck (the reference's `necks/fpn.py::Identity`
+    :20): the backbone's maps as they are."""
+
+    def forward(self, feats):
+        return feats

@@ -6,4 +6,5 @@ from ..utils.registry import Registry
 BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 HEADS = Registry("head")
+SHARED_HEADS = Registry("shared_head")
 DETECTORS = Registry("detector")

@@ -191,6 +191,7 @@ script imports nothing of JAX or of the reference package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -507,13 +508,16 @@ def main_path_inputs(gen, shape, dtype, device, strides=MAIN["strides"]):
 
 
 def run_forward_kernel(kernel, name, shape, sizes, device="cuda",
-                       dtype_name="bfloat16", strides=MAIN["strides"]):
+                       dtype_name="bfloat16", strides=MAIN["strides"],
+                       plain_chunks=1):
     """A RoIAlign forward handle (K1, or K2's forward) against the
     plain version at ``shape`` for each out_size in ``sizes``, in
     ``dtype_name`` (limit ATOL_BF16 or ATOL_F32), on the levels of
     ``strides`` (the FPN's four, or the semantic map's one); returns the
     fields of its entry in the kernels line (the first size's), with its
-    share of the bound (bound_ms / ms)."""
+    share of the bound (bound_ms / ms).  The plain version runs on
+    ``plain_chunks`` slices of each image's rois in turn (each roi's
+    crop is its own), its time the whole loop's."""
     import torch
     from aidet_tpu_torch.ops.roi_align import batched_multilevel_roi_align
     dtype = getattr(torch, dtype_name)
@@ -529,7 +533,9 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda",
             kernel(feats, rois, bidx, lvls, out, strides, 2, True)
 
         def plain():
-            return batched_multilevel_roi_align(feats, rois_b, s, strides)
+            return torch.cat([batched_multilevel_roi_align(
+                feats, part, s, strides) for part in rois_b.chunk(
+                    plain_chunks, 1)], 1)
 
         launch()
         ref = plain()
@@ -548,7 +554,8 @@ def run_forward_kernel(kernel, name, shape, sizes, device="cuda",
         fields["bound_share"] = bound_ms / fields["ms"]
         phase("kernels", kernel=name, out_size=s, rois=rois.shape[0],
               levels=len(strides), channels=shape["channels"],
-              img=shape["img"], dtype=dtype_name, atol=atol, **fields)
+              img=shape["img"], dtype=dtype_name, atol=atol,
+              plain_chunks=plain_chunks, **fields)
         result = result or fields
     return result
 
@@ -838,6 +845,7 @@ def run_kernels():
     run_centermap_kernels(roi_align_kernel, roi_align_train_kernel)
     run_e2e_kernels(roi_align_kernel, roi_align_train_kernel)
     run_hbb_kernels(roi_align_kernel, roi_align_train_kernel)
+    run_slice14_kernels(roi_align_kernel, roi_align_train_kernel)
     return dict(
         roi_align=run_forward_kernel(roi_align_kernel, "roi_align", MAIN,
                                      (7, 14)),
@@ -3704,13 +3712,15 @@ HBB_KINDS = dict(
     cascade_mask=dict(
         small=dict(type="CascadeRCNN", mask_head=dict(
             type="FCNMaskHead", **SMALL_HBB_MASK_HEAD)),
-        config=CASCADE_MASK_CONFIG, predict=dict(roi_align=4), train=None),
+        config=CASCADE_MASK_CONFIG, predict=dict(roi_align=4), train=None,
+        masks=True),
     htc=dict(
         small=dict(type="HTC", mask_head=dict(type="HTCMaskHead",
                                               **SMALL_HBB_MASK_HEAD),
                    semantic_head=SMALL_HBB_SEMANTIC_HEAD),
         config=HTC_CONFIG, predict=dict(roi_align=8),
-        train=dict(roi_align_train_forward=12, roi_align_backward=12)))
+        train=dict(roi_align_train_forward=12, roi_align_backward=12),
+        masks=True, pipeline=HTC_CONFIG))
 
 
 def hbb_cfg(kind, small, img=256, train_cfg=None):
@@ -3729,9 +3739,13 @@ def hbb_cfg(kind, small, img=256, train_cfg=None):
         model.update(type="RPN" if kind == "rpn" else "FastRCNN")
         if kind in HBB_KINDS:
             model.update(HBB_KINDS[kind]["small"])
-        test = (dict(rpn=SMALL_TEST_CFG["rpn"]) if kind == "rpn"
-                else SMALL_TEST_CFG)
-        train = SMALL_TRAIN_CFG
+        if model["type"] == "RPN":
+            model.pop("bbox_head", None)
+        spec = HBB_KINDS.get(kind, {})
+        test = _merge(dict(rpn=SMALL_TEST_CFG["rpn"]) if model["type"]
+                      == "RPN" else SMALL_TEST_CFG,
+                      spec.get("small_test_cfg"))
+        train = _merge(SMALL_TRAIN_CFG, spec.get("small_train_cfg"))
     else:
         path = dict(rpn=RPN_CONFIG, fast=FAST_CONFIG).get(kind) or \
             HBB_KINDS[kind]["config"]
@@ -3746,11 +3760,21 @@ def hbb_cfg(kind, small, img=256, train_cfg=None):
 def hbb_model(kind, device, small, img=256, train=False, train_cfg=None,
               seed=0):
     """`build_detector` of `hbb_cfg` on ``device`` with seeded weights
-    (the same on every device)."""
+    (the same on every device).  A GA-RPN's offset conv, which starts at
+    zero (the adaption is then a plain conv), gets seeded N(0, 0.5)
+    weights too, so that the deformable conv samples off the grid, as a
+    trained one does."""
+    import torch
     from aidet_tpu_torch.models.builder import build_detector
     model, train_c, test_c = hbb_cfg(kind, small, img, train_cfg)
-    return build_detector(model, train_cfg=train_c, test_cfg=test_c,
-                          device=device, seed=seed, train=train)
+    net = build_detector(model, train_cfg=train_c, test_cfg=test_c,
+                         device=device, seed=seed, train=train)
+    if getattr(net, "ga", False):
+        w = net.rpn_head.adaption_offset.weight
+        with torch.no_grad():
+            w.copy_(0.5 * torch.randn(w.shape, generator=torch.Generator()
+                                      .manual_seed(seed + 1)))
+    return net
 
 
 def mmdet_named(model):
@@ -3819,9 +3843,10 @@ def hbb_step_once(kind, device, img, seed=0):
                                                 build_optimizer,
                                                 create_train_state,
                                                 make_train_step)
-    cfg = dict(keep_every_candidate_cfg(img, HBB_REF_GTS,
-                                        HBB_REF_PROPOSALS["max_num"]),
-               rpn_proposal=HBB_REF_PROPOSALS)
+    spec = HBB_KINDS.get(kind, {})
+    props = spec.get("ref_proposals", HBB_REF_PROPOSALS)
+    cfg = dict(keep_every_candidate_cfg(img, HBB_REF_GTS, props["max_num"]),
+               rpn_proposal=props)
     net = hbb_model(kind, device, True, img, train=True, train_cfg=cfg,
                     seed=seed)
     params = list(net.parameters())
@@ -3829,10 +3854,11 @@ def hbb_step_once(kind, device, img, seed=0):
     optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
     state = create_train_state(net, optimizer)
     batch = hbb_train_batch(2, img, HBB_REF_GTS, seed, device,
-                            masks=kind in ("cascade_mask", "htc"),
+                            masks=spec.get("masks", False),
                             semantic=kind == "htc")
-    _, metrics = make_train_step(net, optimizer)(
-        state, batch, torch.Generator(device=device).manual_seed(seed))
+    with cpu_jitter(seed):
+        _, metrics = make_train_step(net, optimizer)(
+            state, batch, torch.Generator(device=device).manual_seed(seed))
     return ({k: float(v) for k, v in metrics.items()}, before,
             [p.detach().cpu() for p in params])
 
@@ -3853,8 +3879,8 @@ def run_hbb_reference(device="cuda", kind="faster", img=256):
     from aidet_tpu_torch.convert import mmdet_to_state_dict
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    arch = dict(resnext="faster_x101", cascade="cascade_mask").get(kind,
-                                                                   kind)
+    arch = dict(resnext="faster_x101", cascade="cascade_mask",
+                c4="c4_mask").get(kind, kind)
     imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(1))
     shapes = torch.full((2, 2), float(img))
@@ -3913,12 +3939,13 @@ def run_hbb_reference(device="cuda", kind="faster", img=256):
                            **t))
 
 
-def hbb_pipeline_batches(root, sizes, seed):
+def hbb_pipeline_batches(root, sizes, seed, config=HTC_CONFIG):
     """``sizes["steps"] + 1`` batches of ``sizes["batch"]`` made by the
-    port's `TrainPipeline` (HTC's train_pipeline: masks and the pseudo
-    segmentation, uint8 transfer) from seeded synthetic PNG patches
-    (`write_patch_set`) read back by `DOTADataset` (the repo has no
-    COCO images); and the pipeline's host ms per image."""
+    port's `TrainPipeline` (the train_pipeline of ``config``: HTC's masks
+    and pseudo segmentation, or Mask Scoring R-CNN's masks; uint8
+    transfer) from seeded synthetic PNG patches (`write_patch_set`) read
+    back by `DOTADataset` (the repo has no COCO images); and the
+    pipeline's host ms per image."""
     from aidet_tpu_torch.data.builder import build_dataset
     from aidet_tpu_torch.data.imio import imread
     from aidet_tpu_torch.data.pipeline import TrainPipeline, collate_batch
@@ -3928,7 +3955,7 @@ def hbb_pipeline_batches(root, sizes, seed):
                                      sizes["objects"], seed)
     dataset = build_dataset(dict(type="DOTADataset", ann_file=ann,
                                  img_prefix=prefix))
-    pipe_cfg = Config.fromfile(HTC_CONFIG).to_dict()["train_pipeline"]
+    pipe_cfg = Config.fromfile(config).to_dict()["train_pipeline"]
     pipe = TrainPipeline(**dict(pipe_cfg, img_size=sizes["img"],
                                 max_gt=sizes["max_gt"],
                                 device_normalize=True, seed=seed))
@@ -4037,10 +4064,10 @@ def run_hbb_paths(device="cuda", small=False, kind="faster", seed=0):
         state = create_train_state(net, optimizer)
         step = make_train_step(net, optimizer)
         pipeline_ms = None
-        if kind == "htc":
+        if "pipeline" in spec:
             with tempfile.TemporaryDirectory() as root:
-                batches, pipeline_ms = hbb_pipeline_batches(root, sizes,
-                                                            seed)
+                batches, pipeline_ms = hbb_pipeline_batches(
+                    root, sizes, seed, spec["pipeline"])
             batches = [{k: (torch.from_numpy(v).long() if v.dtype.kind == "i"
                             else torch.from_numpy(v)).to(device)
                         for k, v in x.items()} for x in batches]
@@ -4078,9 +4105,9 @@ def run_hbb_paths(device="cuda", small=False, kind="faster", seed=0):
         steps=len(times), losses=losses, first_step_ms=first_ms,
         step_ms=times, ms_per_step=ms, images_per_s=b * 1e3 / ms,
         launches=launches, peak_memory_gib=peak(),
-        batches=("TrainPipeline (masks, pseudo segmentation) on seeded "
-                 f"PNG patches, {pipeline_ms} host ms an image"
-                 if kind == "htc" else
+        batches=(f"TrainPipeline ({spec['pipeline']}) on seeded PNG "
+                 f"patches, {pipeline_ms} host ms an image"
+                 if "pipeline" in spec else
                  f"synthetic, {sizes['max_gt']} gts an image"))
     return out
 
@@ -4136,6 +4163,153 @@ def run_slice13(card):
             if part in paths:
                 runs[f"{kind}_{part}".replace("rpn_fast_", "")] = \
                     paths[part]
+        phase(kind, model=title, card=card, **paths)
+    return runs
+
+
+# Slice 14: the rest of the two-stage zoo as the COCO configs write
+# them (float32, 81 classes): the C4 detectors (res5 as the shared RoI
+# head on one 1024-channel level at stride 16), Mask Scoring R-CNN,
+# GA-RPN and GA-Faster R-CNN, Grid R-CNN, Double-Head R-CNN and Libra
+# R-CNN (BFP and the combined sampler)
+C4_CONFIG = "configs/faster_rcnn_r50_caffe_c4_1x.py"
+C4_MASK_CONFIG = "configs/mask_rcnn_r50_caffe_c4_1x.py"
+MS_CONFIG = "configs/ms_rcnn_r50_fpn_1x.py"
+GA_RPN_CONFIG = "configs/ga_rpn_r50_caffe_fpn_1x.py"
+GA_FASTER_CONFIG = "configs/ga_faster_rcnn_r50_fpn_1x.py"
+GRID_CONFIG = "configs/grid_rcnn_r50_fpn_2x.py"
+DH_CONFIG = "configs/dh_faster_rcnn_r50_fpn_1x.py"
+LIBRA_CONFIG = "configs/libra_faster_rcnn_r50_fpn_1x.py"
+SMALL_C4 = dict(
+    backbone=dict(type="ResNet", depth=18, num_stages=3, out_indices=(2,),
+                  style="caffe"),
+    neck=dict(type="Identity"),
+    shared_head=dict(type="ResLayer", depth=18, stage=3, stride=2,
+                     style="caffe"),
+    rpn_head=dict(type="RPNHead", in_channels=256, feat_channels=64,
+                  num_anchors=6),
+    bbox_head=dict(type="BBoxHead", with_avg_pool=True, num_classes=16,
+                   in_channels=512, roi_feat_size=7),
+    strides=(16,), anchor_scales=(4, 8))
+SMALL_GA_RPN = dict(type="GARPNHead", in_channels=64, feat_channels=64)
+# C4's one level: 16 proposals after NMS, so that the 4 gts and them fill
+# the 20 samples of the reference steps' keep-every-candidate train_cfg
+# (the plain RoIAlign's gathers and their gradient at 256 channels take
+# most of a CPU step)
+C4_REF_PROPOSALS = dict(nms_pre=16, nms_post=16, max_num=16)
+# and the small C4 models' predict: 16 proposals an image
+C4_SMALL_TEST_CFG = dict(rpn=dict(nms_pre=16, nms_post=16, max_num=16))
+HBB_KINDS.update(
+    c4=dict(small=dict(type="FasterRCNN", **SMALL_C4), config=C4_CONFIG,
+            predict=K1, train=K2, ref_proposals=C4_REF_PROPOSALS,
+            small_test_cfg=C4_SMALL_TEST_CFG),
+    c4_mask=dict(
+        small=dict(type="MaskRCNN", **SMALL_C4, mask_head=dict(
+            type="FCNMaskHead", num_convs=0, in_channels=512,
+            conv_out_channels=64, num_classes=16)),
+        config=C4_MASK_CONFIG, predict=dict(roi_align=2), train=None,
+        ref_proposals=C4_REF_PROPOSALS, masks=True,
+        small_test_cfg=C4_SMALL_TEST_CFG),
+    ms=dict(
+        small=dict(type="MaskScoringRCNN", mask_head=dict(
+            type="FCNMaskHead", **SMALL_HBB_MASK_HEAD), mask_iou_head=dict(
+                type="MaskIoUHead", num_convs=2, num_fcs=1, in_channels=64,
+                conv_out_channels=32, fc_out_channels=64, num_classes=16)),
+        config=MS_CONFIG, predict=dict(roi_align=2),
+        train=dict(roi_align_train_forward=2, roi_align_backward=2),
+        masks=True, pipeline=MS_CONFIG),
+    ga_rpn=dict(small=dict(type="RPN", rpn_head=SMALL_GA_RPN),
+                config=GA_RPN_CONFIG, predict={}, train=None),
+    ga_faster=dict(small=dict(type="GAFasterRCNN", rpn_head=SMALL_GA_RPN),
+                   config=GA_FASTER_CONFIG, predict=K1, train=K2),
+    grid=dict(
+        small=dict(type="GridRCNN", grid_head=dict(
+            type="GridHead", num_convs=2, in_channels=64,
+            point_feat_channels=8, norm_groups=9)),
+        config=GRID_CONFIG, predict=dict(roi_align=2),
+        train=dict(roi_align_train_forward=2, roi_align_backward=2)),
+    dh=dict(
+        small=dict(type="DoubleHeadRCNN", bbox_head=dict(
+            type="DoubleConvFCBBoxHead", num_classes=16, in_channels=64,
+            num_convs=2, conv_out_channels=128, fc_out_channels=128)),
+        config=DH_CONFIG, predict=K1, train=K2),
+    libra=dict(
+        small=dict(type="FasterRCNN", neck=[
+            SMALL_MODEL["neck"], dict(type="BFP", in_channels=64,
+                                      num_levels=5)]),
+        small_train_cfg=dict(rcnn=dict(sampler="combined")),
+        config=LIBRA_CONFIG, predict=K1, train=K2))
+
+
+@contextlib.contextmanager
+def cpu_jitter(seed):
+    """Grid R-CNN's training jitter drawn on the CPU from a generator
+    seeded with ``seed`` + 2 and moved to the rois' device, while the
+    context lasts: the card's and the CPU's generators draw different
+    streams, and the reference steps must jitter alike to be compared."""
+    import torch
+    from aidet_tpu_torch.models.detectors import two_stage
+    own = two_stage.jitter_rois
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def jitter(rois, img_shapes, generator):
+        return own(rois.cpu(), img_shapes.cpu(), gen).to(rois.device)
+    two_stage.jitter_rois = jitter
+    try:
+        yield
+    finally:
+        two_stage.jitter_rois = own
+
+
+# K1 and K2 at the C4 detectors' shapes, float32: one 1024-channel level
+# at stride 16 ([2, 64, 64, 1024] at 1024^2) cropped at 14x14, the 2 x
+# 1000 proposals of predict and the 2 x 512 samples of a train step; and
+# K1 at Grid R-CNN's 14x14 on the 2 x 100 detections over four levels
+C4_STRIDES = (16,)
+C4_PREDICT = dict(batch=2, rois=1000, img=1024, channels=1024)
+C4_TRAIN = dict(batch=2, rois=512, img=1024, channels=1024)
+
+
+def run_slice14_kernels(k1, k2_forward):
+    """K1 (14x14 on 2 x 1000 proposals of the C4 level; 14x14 on 2 x 100
+    detections, four levels) and K2 (forward and backward, 14x14 on 2 x
+    512 samples of the C4 level) in float32, each against its plain
+    version with its bound, on its own line; the plain version of the
+    C4 predict shape runs in 4 chunks of rois (one call would hold ~30
+    GB of corner gathers)."""
+    run_forward_kernel(k1, "roi_align", C4_PREDICT, (14,),
+                       dtype_name="float32", strides=C4_STRIDES,
+                       plain_chunks=4)
+    run_forward_kernel(k2_forward, "roi_align_train_forward", C4_TRAIN,
+                       (14,), dtype_name="float32", strides=C4_STRIDES)
+    run_backward_kernel(shape=C4_TRAIN, s=14, dtype_names=("float32",),
+                        strides=C4_STRIDES)
+    run_forward_kernel(k1, "roi_align", HBB_DETS, (14,),
+                       dtype_name="float32")
+
+
+def run_slice14(card):
+    """The reference phases of slice 14's families (C4 with its mask
+    branch, Mask Scoring R-CNN, GA-Faster R-CNN, Grid R-CNN, Double-Head
+    R-CNN, Libra R-CNN), then the configs as written: predict of all
+    eight, and the train steps of FasterRCNN C4, MS, GA-Faster, Grid,
+    Double-Head and Libra.  Returns the runs' fields by path name."""
+    for kind in ("c4", "ms", "ga_faster", "grid", "dh", "libra"):
+        phase(f"hbb_reference_{kind}", card=card,
+              **run_hbb_reference(kind=kind))
+    runs = {}
+    for kind, title in (("c4", "FasterRCNN R50-C4 caffe"),
+                        ("c4_mask", "Mask R-CNN R50-C4 caffe"),
+                        ("ms", "Mask Scoring R-CNN R50-FPN"),
+                        ("ga_rpn", "GA-RPN R50-FPN caffe"),
+                        ("ga_faster", "GA-Faster R-CNN R50-FPN"),
+                        ("grid", "Grid R-CNN R50-FPN"),
+                        ("dh", "Double-Head R-CNN R50-FPN"),
+                        ("libra", "Libra R-CNN R50-FPN-BFP")):
+        paths = run_hbb_paths(kind=kind)
+        for part in ("predict", "train"):
+            if part in paths:
+                runs[f"{kind}_{part}"] = paths[part]
         phase(kind, model=title, card=card, **paths)
     return runs
 
@@ -4265,6 +4439,7 @@ def main() -> int:
               **paths)
     runs.update(run_slice12(info["nvidia_smi"], runs["loop"]["ms_per_step"]))
     runs.update(run_slice13(info["nvidia_smi"]))
+    runs.update(run_slice14(info["nvidia_smi"]))
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

@@ -4,6 +4,10 @@ reference on the CPU: FasterRCNN (predict and loss), FastRCNN's
 the ResNeXt backbone and the GN conv box head, and every config of
 the five new detector types built on the meta device.
 
+`test_every_config_of_the_slice_builds` takes in the two-stage types of
+the later slices too (MaskRCNN, MaskScoringRCNN, GAFasterRCNN,
+GridRCNN, DoubleHeadRCNN) and RetinaNet's (libra_retinanet).
+
 The models are tests/torch_port_pairs.py's small architecture
 (ResNet-18, a 64-channel FPN, 128^2 images, 16 classes; the ResNeXt
 a depth-50 one with groups 4) with the reference's seeded variables
@@ -208,16 +212,13 @@ def test_gn_conv_bbox_head_matches_the_reference(agnostic):
         assert np.abs(to_np(g) - r).max() <= 1e-5 * np.abs(r).max()
 
 
-# the configs of the slice's detector types; those that still raise
-# are listed with the type or option that stops them
-TYPES = ("FasterRCNN", "FastRCNN", "RPN", "CascadeRCNN", "HTC")
+# the configs of the two-stage detector types (and RetinaNet's, for
+# libra_retinanet); those that still raise are listed with the type or
+# option that stops them
+TYPES = ("FasterRCNN", "FastRCNN", "RPN", "CascadeRCNN", "HTC", "MaskRCNN",
+         "MaskScoringRCNN", "GAFasterRCNN", "GridRCNN", "DoubleHeadRCNN",
+         "RetinaNet")
 STILL_RAISE = {
-    "cascade_mask_rcnn_r50_caffe_c4_1x.py": "shared_head",
-    "cascade_rcnn_r50_caffe_c4_1x.py": "shared_head",
-    "fast_mask_rcnn_r50_caffe_c4_1x.py": "shared_head",
-    "fast_rcnn_r50_caffe_c4_1x.py": "shared_head",
-    "faster_rcnn_r50_caffe_c4_1x.py": "shared_head",
-    "rpn_r50_caffe_c4_1x.py": "strides",
     "faster_rcnn_attention_0010_dcn_r50_fpn_1x.py": "gen_attention",
     "faster_rcnn_attention_0010_r50_fpn_1x.py": "gen_attention",
     "faster_rcnn_attention_1111_dcn_r50_fpn_1x.py": "gen_attention",
@@ -225,13 +226,6 @@ STILL_RAISE = {
     "faster_rcnn_carafe_r50_fpn_1x.py": "FPN_CARAFE",
     "faster_rcnn_dconv_c3-c5_r50_fpn_1x.py": "dcn",
     "faster_rcnn_r50_fpn_gn_ws_1x.py": "ConvWS",
-    "ga_rpn_r101_caffe_fpn_1x.py": "GARPNHead",
-    "ga_rpn_r50_caffe_fpn_1x.py": "GARPNHead",
-    "ga_rpn_x101_32x4d_fpn_1x.py": "GARPNHead",
-    "libra_fast_rcnn_r50_fpn_1x.py": "BFP",
-    "libra_faster_rcnn_r101_fpn_1x.py": "BFP",
-    "libra_faster_rcnn_r50_fpn_1x.py": "BFP",
-    "libra_faster_rcnn_x101_64x4d_fpn_1x.py": "BFP",
     # an FCNMaskHead under HTC's mask information flow: the reference
     # raises too (its FCNMaskHead takes no previous-stage feature)
     "htc_dconv_c3-c5_mstrain_400_1400_x101_64x4d_fpn_20e.py": "FCNMaskHead",
@@ -241,6 +235,22 @@ STILL_RAISE = {
     "htc_without_semantic_r50_fpn_1x.py": "FCNMaskHead",
     "htc_x101_32x4d_fpn_20e.py": "FCNMaskHead",
     "htc_x101_64x4d_fpn_20e.py": "FCNMaskHead",
+    "mask_rcnn_mdconv_c3-c5_r50_fpn_1x.py": "dcn",
+    "mask_rcnn_r101_fpn_gn_2x.py": "FCNMaskHead norm_cfg",
+    "mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py": "gcb",
+    "mask_rcnn_r4_gcb_c3-c5_r50_fpn_1x.py": "gcb",
+    "mask_rcnn_r50_fpn_carafe_1x.py": "FPN_CARAFE",
+    "mask_rcnn_r50_fpn_gn_2x.py": "FCNMaskHead norm_cfg",
+    "mask_rcnn_r50_fpn_gn_contrib_2x.py": "FCNMaskHead norm_cfg",
+    "mask_rcnn_r50_fpn_gn_ws_20_23_24e.py": "ConvWS",
+    "mask_rcnn_r50_fpn_gn_ws_2x.py": "ConvWS",
+    "mask_rcnn_x101_32x4d_fpn_gn_ws_2x.py": "ResNeXt option 'norm_cfg'",
+    "retinanet_crop640_r50_fpn_50e.py": "RetinaSepBNHead",
+    "retinanet_crop640_r50_nasfpn_50e.py": "NASFPN",
+    "retinanet_ghm_r50_fpn_1x.py": "GHMC",
+    "retinanet_nasfpn_r50_1x.py": "NASFPN",
+    "retinanet_sepbn_r50_fpn_1x.py": "RetinaSepBNHead",
+    "scratch_mask_rcnn_r50_fpn_gn_6x.py": "FCNMaskHead norm_cfg",
 }
 SLICE_CONFIGS = sorted(
     os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs",

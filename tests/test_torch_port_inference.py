@@ -157,26 +157,40 @@ def test_config_fromfile_equal_reference(path):
 
 def test_registry_names_what_is_not_ported():
     """Unregistered types raise the registry's KeyError naming them (the
-    GridRCNN preset; FasterRCNN, which this test named before it was
-    ported, now builds), the Libra config's list of necks too (FPN,
-    then the unported BFP: built in order, not an AttributeError),
-    unported options raise NotImplementedError (Mask Scoring R-CNN's
-    mask_iou_head, the C4 shared_head, dcn, a mismatched
-    rbbox_encode)."""
-    with pytest.raises(KeyError, match="GridRCNN.*not yet ported"):
-        build_detector(dict(type="GridRCNN"), device="cpu")
+    GARetinaNet detector; FasterRCNN and GridRCNN, which this test named
+    before they were ported, now build), a config's list of necks too
+    (Libra's FPN then BFP now builds; FPN then the unported NASFPN is
+    built in order and raises the KeyError, not an AttributeError),
+    unported options raise NotImplementedError (the FCN mask head's GN
+    norm_cfg, the ResNet's gcb, dcn, a mismatched rbbox_encode; Mask
+    Scoring R-CNN's mask_iou_head and the C4 shared_head, which it named
+    before they were ported, now build)."""
+    with pytest.raises(KeyError, match="GARetinaNet.*not yet ported"):
+        build_detector(dict(type="GARetinaNet"), device="cpu")
+    build_detector(dict(type="GridRCNN"), device="meta")
     libra = Config.fromfile("configs/libra_retinanet_r50_fpn_1x.py")
     assert [n["type"] for n in libra.model.neck] == ["FPN", "BFP"]
-    with pytest.raises(KeyError, match="BFP.*not yet ported"):
+    with torch.device("meta"):
+        built = build_detector(dict(libra.model), device="meta")
+    assert [type(n).__name__ for n in built.neck] == ["FPN", "BFP"]
+    with pytest.raises(KeyError, match="NASFPN.*not yet ported"):
         with torch.device("meta"):
-            build_detector(dict(libra.model), device="meta")
-    with pytest.raises(NotImplementedError, match="MaskIoUHead"):
-        build_detector(dict(type="MaskRCNN", mask_iou_head=dict(
-            type="MaskIoUHead")), device="meta")
+            build_detector(dict(libra.model, neck=[
+                libra.model.neck[0], dict(type="NASFPN")]), device="meta")
+    build_detector(dict(type="MaskScoringRCNN", mask_head=dict(
+        type="FCNMaskHead"), mask_iou_head=dict(type="MaskIoUHead")),
+        device="meta")
+    with pytest.raises(NotImplementedError, match="norm_cfg"):
+        build_detector(dict(type="MaskRCNN", mask_head=dict(
+            type="FCNMaskHead", norm_cfg=dict(type="GN", num_groups=32))),
+            device="meta")
     cfg = small_flagship_cfg(IMG)
-    with pytest.raises(NotImplementedError, match="shared_head"):
-        build_detector(dict(cfg, type="FasterRCNN", rbbox_head=None,
-                            shared_head=dict(type="ResLayer", depth=50)),
+    build_detector(dict(cfg, type="FasterRCNN", rbbox_head=None,
+                        shared_head=dict(type="ResLayer", depth=18)),
+                   device="meta")
+    with pytest.raises(NotImplementedError, match="gcb"):
+        build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
+                                               gcb=dict(ratio=0.25))),
                        device="cpu")
     with pytest.raises(NotImplementedError, match="dcn"):
         build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,

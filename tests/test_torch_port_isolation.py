@@ -25,7 +25,11 @@ ohem_reference's models, soft_nms_reference, hrnet_reference and
 tta_reference CPU against CPU, then theta_r18_e2e, rroi_r18_e2e, ohem,
 soft_nms, hrnet and learn at the small architecture, and
 rroi_reference_train CPU against CPU with its plain versions swapped
-in).  pandas and
+in); a fifth rehearses slice 14's (hbb_reference's Mask Scoring,
+GA-Faster, Grid, Double-Head and Libra kinds CPU against CPU, then the
+eight kinds of its configs at the small architecture; the C4 kind's
+reference phase runs on the card; tests/test_torch_port_c4.py holds
+its model to the reference).  pandas and
 matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
@@ -200,6 +204,30 @@ print("SLICE12 PHASES", hrnet["tta"]["merged_boxes"], learn["obb_map"])
 """
 
 
+RUN_SLICE14_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] \
+    + """
+import chip_smoke
+# (the C4 kind's reference, res5 on every crop, is the slowest on one
+# CPU thread: its paths below rehearse the same code)
+for kind in ("ms", "ga_faster", "grid", "dh", "libra"):
+    ref = chip_smoke.run_hbb_reference(device="cpu", kind=kind, img=128)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+for kind in ("c4", "c4_mask", "ms", "ga_rpn", "ga_faster", "grid", "dh",
+             "libra"):
+    hbb = chip_smoke.run_hbb_paths(device="cpu", small=True, kind=kind)
+    for part in hbb.values():
+        if isinstance(part, dict):
+            assert set(part["launches"].values()) == {0}, hbb
+            assert part.get("n_valid", 1) > 0, hbb
+    if kind == "ms":
+        assert "loss_mask_iou" in hbb["train"]["losses"][0], hbb
+assert "loss_grid" not in hbb["train"]["losses"][0], hbb
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("SLICE14 PHASES", hbb["predict"]["n_valid"])
+"""
+
+
 def _env():
     """The subprocesses' environment: no PYTHONPATH, and in a
     pytest-xdist worker one OpenMP thread.  Beside the tier-1 run's
@@ -247,6 +275,14 @@ def test_slice12_phases_run_with_reference_imports_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("SLICE12 PHASES")
+
+
+def test_slice14_phases_run_with_reference_imports_blocked():
+    proc = subprocess.run([sys.executable, "-c", RUN_SLICE14_PHASES],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("SLICE14 PHASES")
 
 
 def _imports(path):

@@ -123,13 +123,22 @@ def test_ohem_step_backpropagates_and_combined_raises(ohem_pair):
                  "neck.fpn0.weight"):
         assert tm.get_parameter(name).grad.abs().sum() > 0, name
     tm.zero_grad()
-    tm.train_cfg["rcnn"]["sampler"] = "combined"
-    try:
-        with pytest.raises(NotImplementedError, match="combined"):
-            tm.loss(**{k: T(x) for k, x in batch.items()},
-                    generator=torch.Generator().manual_seed(0))
-    finally:
-        tm.train_cfg["rcnn"]["sampler"] = "ohem"
+    # Libra R-CNN's combined sampler, which this test named as unported
+    # before it was ported, now samples; a sampler of no known kind
+    # raises
+    for sampler, raises in (("combined", None), ("pseudo", ValueError)):
+        tm.train_cfg["rcnn"]["sampler"] = sampler
+        try:
+            if raises is None:
+                assert torch.isfinite(sum(tm.loss(
+                    **{k: T(x) for k, x in batch.items()},
+                    generator=torch.Generator().manual_seed(0)).values()))
+                continue
+            with pytest.raises(raises, match=sampler):
+                tm.loss(**{k: T(x) for k, x in batch.items()},
+                        generator=torch.Generator().manual_seed(0))
+        finally:
+            tm.train_cfg["rcnn"]["sampler"] = "ohem"
 
 
 @pytest.mark.gpu

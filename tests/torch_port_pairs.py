@@ -1,8 +1,10 @@
 """Small detectors of the reference and of the PyTorch port with the same
 weights, shared by tests/test_torch_port_gn.py, test_torch_port_ohem.py,
 test_torch_port_soft_nms.py, test_torch_port_tta.py,
-test_torch_port_faster.py, test_torch_port_cascade.py and
-test_torch_port_mmdet_weights.py: the small architecture of
+test_torch_port_faster.py, test_torch_port_cascade.py,
+test_torch_port_mmdet_weights.py, test_torch_port_c4.py,
+test_torch_port_ga.py, test_torch_port_zoo_heads.py and
+test_torch_port_libra.py: the small architecture of
 tests/test_models_forward.py (ResNet-18, a 64-channel FPN, 128^2), the
 reference's variables with seeded norms carried over by the weight
 bridge, and a seeded batch of uint8 images and thetaobb gts (or HBB
@@ -221,7 +223,8 @@ def hbb_batch(seed=6, masks=False, semantic=False):
 def shaped_variables(jm, seed=0):
     """Seeded variables of the reference module ``jm`` from the shapes
     of its init (`jax.eval_shape`, a trace without a compile): kernels
-    ~ N(0, 1 / fan_in), as its initializer, biases 0, then every norm
+    ~ N(0, 1 / fan_in), as its initializer, other leaves 0 (scales and
+    variances 1), then every norm
     seeded as `perturb_all_norms` does."""
     tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
                           jnp.zeros((1, IMG, IMG, 3)))
@@ -229,7 +232,9 @@ def shaped_variables(jm, seed=0):
 
     def fill(path, s):
         name = getattr(path[-1], "key", "")
-        if name == "kernel":
+        # a layer's "kernel", or one a module declares itself
+        # ("adapt_kernel", "deconv1_kernel")
+        if name.endswith("kernel"):
             fan_in = int(np.prod(s.shape[:-1]))
             return (rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
         return np.full(s.shape, 1.0 if name in ("scale", "var") else 0.0,
@@ -287,3 +292,62 @@ def assert_grads_close(got, ref, rel=1e-3):
         scale = max(np.abs(r).max(), 1e-12)
         assert np.abs(g - r).max() <= rel * scale, (
             k, np.abs(g - r).max() / scale)
+
+
+# the C4 detectors (slice 14): ResNet-18's first 3 stages (caffe style),
+# no neck, the RPN on C4 at stride 16 with 2 scales, crops of 14 through
+# ResNet-18's res5 (512 channels, 7x7) into an average-pooled box head;
+# one level gives up to 60 proposals, so that the 4 gts and them fill
+# the 64 samples of a train_cfg that keeps every candidate
+C4_SMALL = dict(
+    backbone=dict(type="ResNet", depth=18, num_stages=3, out_indices=(2,),
+                  style="caffe"),
+    neck=dict(type="Identity"),
+    shared_head=dict(type="ResLayer", depth=18, stage=3, stride=2,
+                     style="caffe"),
+    rpn_head=dict(type="RPNHead", in_channels=256, feat_channels=64,
+                  num_anchors=6),
+    bbox_head=dict(type="BBoxHead", with_avg_pool=True, num_classes=16,
+                   in_channels=512, roi_feat_size=7),
+    strides=(16,), anchor_scales=(4, 8))
+C4_MAX_NUM = 60
+C4_TRAIN_CFG = dict(
+    keep_every_candidate_cfg(IMG, G, C4_MAX_NUM),
+    rpn_proposal=dict(nms_pre=C4_MAX_NUM, nms_post=C4_MAX_NUM,
+                      max_num=C4_MAX_NUM))
+
+
+def c4_cfg(type_name="FasterRCNN", **extra):
+    """`hbb_cfg` of the small C4 detector ``type_name`` under
+    `C4_TRAIN_CFG` (an RPN without its shared and box heads)."""
+    cfg = hbb_cfg(type_name, **dict(C4_SMALL, train_cfg=C4_TRAIN_CFG))
+    if type_name == "RPN":
+        del cfg["shared_head"], cfg["bbox_head"]
+    cfg.update(extra)
+    return cfg
+
+
+def assert_pairs(got, ref, limits):
+    """Every detection of ``got`` equal to ``ref``'s in valid and labels,
+    each other key of ``limits`` within its bound, some valid."""
+    assert got["valid"].sum() > 0
+    np.testing.assert_array_equal(got["valid"], ref["valid"])
+    np.testing.assert_array_equal(got["labels"], ref["labels"])
+    for k, lim in limits.items():
+        assert np.abs(got[k] - ref[k]).max() <= lim, (
+            k, np.abs(got[k] - ref[k]).max())
+
+
+def seeded_variables(jm, *args, seed=0):
+    """Variables of the reference module ``jm`` from the shapes of its
+    init on ``args``: every kernel (a layer's, or one the module declares
+    itself) ~ N(0, 1 / fan_in), every other leaf ~ N(0, 0.1)."""
+    tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *args)
+    rs = np.random.RandomState(seed)
+
+    def fill(path, s):
+        if getattr(path[-1], "key", "").endswith("kernel"):
+            fan_in = int(np.prod(s.shape[:-1]))
+            return (rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        return (0.1 * rs.randn(*s.shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(fill, tree)
