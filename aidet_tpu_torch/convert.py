@@ -41,10 +41,19 @@ of the mapping in the reference's `tools/torch2jax.py`:
   adaption_offset; the grid head's conv{i}, GroupNorm_{i},
   {f,s}order_dw / _pw and deconv_norm);
 - the parameters a reference module declares itself (`RAW_PARAMS`):
-  GA-RPN's ``adapt_kernel`` (HWIO -> OIHW) and the grid head's
-  ``deconv{1,2}_kernel`` (grouped transposed convs, relaid by
-  `grouped_transpose_kernel`, not flipped: the reference flips them in
-  its op) and ``deconv{1,2}_bias``.
+  GA-RPN's ``adapt_kernel`` and GA-RetinaNet's ``adapt_{cls,reg}_kernel``,
+  RepPoints' ``cls_dconv_kernel`` and ``refine_dconv_kernel`` (HWIO ->
+  OIHW), the grid head's ``deconv{1,2}_kernel`` (grouped transposed
+  convs, relaid by `grouped_transpose_kernel`, not flipped: the
+  reference flips them in its op) and ``deconv{1,2}_bias``; and by
+  pattern (`RAW_PATTERNS`) the FCOS and ATSS heads' per-level
+  ``scale{l}`` scalars and RetinaSepBNHead's per-level norms
+  ``{cls,reg}_bn_l{l}_{i}_{scale,bias}`` -> ``{cls,reg}_bn_l{l}_{i}``'s
+  weight and bias;
+- a detector's own parameter (RepPoints' ``moment_transfer``) keeps its
+  name; each `DeformConv2d` (ResNet's dcn conv2: ``conv_offset``,
+  ``kernel``, ``bias``) maps through the layer names above, and
+  SSD-VGG's ``l2norm.gamma`` keeps its leaf name.
 
 The first FC after the RoI crop needs no row permutation: the port's
 heads flatten [s, s, C] crops in (h, w, c) order, as the reference
@@ -82,18 +91,29 @@ TOP_LEVEL_LISTS = {"_neck": "neck", "_heads": "bbox_heads",
 CONV_TRANSPOSE = {"upsample"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
         ("batch_stats", "mean"): "running_mean",
-        ("batch_stats", "var"): "running_var"}
+        ("batch_stats", "var"): "running_var",
+        ("params", "gamma"): "gamma"}
 # parameters a reference module declares itself, not through a layer:
 # GA-RPN's adaption conv kernel (HWIO) and the grid head's grouped
 # transposed-conv kernels [kh, kw, in / groups, out] with their biases,
 # by name -> (the port's name, the number of groups of the kernel of
 # that shape, or None for a plain conv kernel)
 RAW_PARAMS = {"adapt_kernel": ("adapt.weight", None),
+              "adapt_cls_kernel": ("adapt_cls.weight", None),
+              "adapt_reg_kernel": ("adapt_reg.weight", None),
+              "cls_dconv_kernel": ("cls_dconv.weight", None),
+              "refine_dconv_kernel": ("refine_dconv.weight", None),
               "deconv1_kernel": ("deconv1.weight",
                                  lambda shape: shape[3] // shape[2]),
               "deconv1_bias": ("deconv1.bias", None),
               "deconv2_kernel": ("deconv2.weight", lambda shape: shape[3]),
               "deconv2_bias": ("deconv2.bias", None)}
+# a module's own parameters by name pattern -> the port's name
+RAW_PATTERNS = ((r"scale(\d+)", r"scale\1"),
+                (r"(cls|reg)_bn_l(\d+)_(\d+)_scale", r"\1_bn_l\2_\3.weight"),
+                (r"(cls|reg)_bn_l(\d+)_(\d+)_bias", r"\1_bn_l\2_\3.bias"))
+# a detector's own parameters (no module above them)
+DETECTOR_PARAMS = {"moment_transfer"}
 
 
 def grouped_transpose_kernel(arr, groups):
@@ -158,15 +178,31 @@ def _top_level(name):
     return None
 
 
+def _raw_pattern(leaf):
+    """The port's name of a leaf that matches `RAW_PATTERNS`, or None."""
+    for pattern, repl in RAW_PATTERNS:
+        m = re.fullmatch(pattern, leaf)
+        if m:
+            return m.expand(repl)
+    return None
+
+
 def flax_to_state_dict(variables, model=None):
     """Returns (state_dict of float32 tensors, unmapped leaf paths).
     With ``model``, a 7x7 stem kernel is relaid when ``model``'s stem
     is space-to-depth."""
     sd, unmapped = {}, []
     for path, value in _leaves(variables):
-        collection, top, *mid, leaf = path
         arr = np.array(value, np.float32)
+        if len(path) == 2 and path[1] in DETECTOR_PARAMS:
+            sd[path[1]] = torch.from_numpy(arr)
+            continue
+        collection, top, *mid, leaf = path
         top = _top_level(top)
+        raw = _raw_pattern(leaf)
+        if top is not None and not mid and raw is not None:
+            sd[f"{top}.{raw}"] = torch.from_numpy(arr)
+            continue
         if top is not None and not mid and leaf in RAW_PARAMS:
             name, groups = RAW_PARAMS[leaf]
             if groups is not None:

@@ -24,12 +24,17 @@ from .sample import pseudo_sample_masks, random_sample_masks
 
 
 class AnchorGenerator:
-    """Rounded base anchors centred at (base - 1) / 2."""
+    """Rounded base anchors centred at (base - 1) / 2, or at ``ctr`` (x,
+    y); ``scale_major`` orders them ratios outer, scales inner, else
+    scales outer (SSD's)."""
 
-    def __init__(self, base_size, scales, ratios):
+    def __init__(self, base_size, scales, ratios, scale_major=True,
+                 ctr=None):
         self.base_size = base_size
         self.scales = np.asarray(scales, np.float32)
         self.ratios = np.asarray(ratios, np.float32)
+        self.scale_major = scale_major
+        self.ctr = ctr
         self.base_anchors = self._gen_base_anchors()
 
     @property
@@ -38,12 +43,15 @@ class AnchorGenerator:
 
     def _gen_base_anchors(self):
         w = h = self.base_size
-        x_ctr, y_ctr = 0.5 * (w - 1), 0.5 * (h - 1)
+        x_ctr, y_ctr = self.ctr or (0.5 * (w - 1), 0.5 * (h - 1))
         h_ratios = np.sqrt(self.ratios)
         w_ratios = 1.0 / h_ratios
-        # scale-major order: ratios outer, scales inner
-        ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
-        hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        if self.scale_major:
+            ws = (w * w_ratios[:, None] * self.scales[None, :]).reshape(-1)
+            hs = (h * h_ratios[:, None] * self.scales[None, :]).reshape(-1)
+        else:
+            ws = (w * self.scales[:, None] * w_ratios[None, :]).reshape(-1)
+            hs = (h * self.scales[:, None] * h_ratios[None, :]).reshape(-1)
         return np.round(np.stack([
             x_ctr - 0.5 * (ws - 1), y_ctr - 0.5 * (hs - 1),
             x_ctr + 0.5 * (ws - 1), y_ctr + 0.5 * (hs - 1)], -1))

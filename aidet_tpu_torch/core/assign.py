@@ -78,3 +78,52 @@ def max_iou_assign(boxes, gt_boxes, gt_valid, gt_labels=None,
                                                -1, safe), 0)
     return AssignResult(assigned, max_overlaps.clamp(min=0.0).float(),
                         labels.to(torch.int32))
+
+
+def _claim_closest(dist, k):
+    """[..., G, N] bool: each gt's ``k`` closest entries of ``dist`` (a
+    stable sort, ties to the lower index, as the reference's top_k)."""
+    idx = torch.sort(dist, dim=-1, stable=True).indices[..., :k]
+    return torch.zeros_like(dist, dtype=torch.bool).scatter_(-1, idx, True)
+
+
+def point_assign(points, point_strides, gt_boxes, gt_valid, gt_labels=None,
+                 scale=4.0, pos_num=1) -> AssignResult:
+    """RepPoints' init-stage PointAssigner (reference
+    `core/assign.py::point_assign` :128): each valid gt goes to the
+    pyramid level floor(log2(sqrt(w h) / scale)), clamped into the
+    levels of ``point_strides``; its ``pos_num`` closest points of that
+    level claim it, and a point claimed by several gts takes the closest
+    (the first of equal distances).
+
+    points [P, 2]; point_strides [P]; gt_boxes [B, G, 4], gt_valid [B,
+    G], gt_labels [B, G] or None.  Returns an `AssignResult` [B, P]
+    (``max_overlaps`` zero)."""
+    gw = gt_boxes[..., 2] - gt_boxes[..., 0]
+    gh = gt_boxes[..., 3] - gt_boxes[..., 1]
+    gt_scale = torch.sqrt((gw * gh).clamp(min=1e-6))
+    pt_lvl = torch.log2(point_strides)
+    gt_lvl = torch.minimum(torch.maximum(
+        torch.floor(torch.log2(gt_scale / scale + 1e-6)), pt_lvl.min()),
+        pt_lvl.max())                                       # [B, G]
+    cx = (gt_boxes[..., 0] + gt_boxes[..., 2]) / 2
+    cy = (gt_boxes[..., 1] + gt_boxes[..., 3]) / 2
+    dist = torch.sqrt((points[:, 0] - cx[..., None]) ** 2
+                      + (points[:, 1] - cy[..., None]) ** 2)  # [B, G, P]
+    lvl_match = (pt_lvl - gt_lvl[..., None]).abs() < 0.5
+    dist = torch.where(lvl_match & gt_valid.bool()[..., None], dist,
+                       dist.new_tensor(1e10))
+    claim = _claim_closest(dist, pos_num) & (dist < 1e9)
+    claimed = torch.where(claim, dist, dist.new_tensor(1e10))
+    best, best_gt = claimed.min(-2)                          # [B, P]
+    assigned = torch.where(best < 1e9, best_gt.to(torch.int32) + 1, 0)
+    pos = assigned > 0
+    if gt_labels is None:
+        labels = pos.to(torch.int32)
+    else:
+        safe = (assigned.long() - 1).clamp(0, gt_boxes.shape[-2] - 1)
+        labels = torch.where(pos, torch.gather(gt_labels.to(torch.int32),
+                                               -1, safe), 0)
+    return AssignResult(assigned.to(torch.int32),
+                        torch.zeros(assigned.shape, device=points.device),
+                        labels.to(torch.int32))

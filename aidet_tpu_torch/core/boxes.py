@@ -2,8 +2,8 @@
 convention: a box [x1, y1, x2, y2] has width x2 - x1 + 1.
 
 Port of `aidet_tpu/core/boxes.py` (bbox_wh, bbox_area, bbox_center,
-bbox2delta, delta2bbox, bbox_overlaps).  Boxes are float tensors
-[..., 4].
+bbox2delta, delta2bbox, bbox_overlaps, distance2bbox).  Boxes are float
+tensors [..., 4].
 """
 
 from __future__ import annotations
@@ -110,3 +110,24 @@ def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
     area1 = bbox_area(boxes1)
     union = area1 + bbox_area(boxes2) - inter if mode == "iou" else area1
     return inter / union.clamp(min=torch.finfo(inter.dtype).tiny)
+
+
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape=None):
+    """(l, t, r, b) distances [..., 4] from points [..., 2] -> boxes
+    [..., 4] (the FCOS family's decode).  ``max_shape`` None, or an (h,
+    w) tensor [..., 2] whose leading dims broadcast against the points'
+    leading dims: boxes are clipped to [0, w] x [0, h] (no - 1, unlike
+    `delta2bbox`)."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        h = max_shape[..., 0].to(x1.dtype)
+        w = max_shape[..., 1].to(x1.dtype)
+        x1 = torch.minimum(x1.clamp(min=0), w)
+        y1 = torch.minimum(y1.clamp(min=0), h)
+        x2 = torch.minimum(x2.clamp(min=0), w)
+        y2 = torch.minimum(y2.clamp(min=0), h)
+    return torch.stack([x1, y1, x2, y2], dim=-1)

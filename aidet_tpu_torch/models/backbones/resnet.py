@@ -4,9 +4,11 @@ Port of `aidet_tpu/models/backbones/resnet.py` (FrozenBN, `make_norm`,
 BasicBlock, Bottleneck, ResNet): pytorch-style bottlenecks (stride on
 the 3x3) or caffe-style ones (stride on the first 1x1), stage strides
 (1, 2, 2, 2), symmetric padding (k - 1) // 2 as in its `conv`, the
-optional space-to-depth stem, `frozen_stages`, and FrozenBN or, with
+optional space-to-depth stem, `frozen_stages`, FrozenBN or, with
 ``norm_cfg=dict(type="GN", num_groups=N)``, GroupNorm (epsilon 1e-5,
-its own weight and bias) in every norm slot.  Submodule names follow
+its own weight and bias) in every norm slot, and the deformable 3x3
+(``dcn``, `ops.deform_conv.DeformConv2d`) as the bottlenecks' conv2 in
+the stages ``stage_with_dcn`` names (reference resnet.py:114-145).  Submodule names follow
 the reference's parameter tree (`stem_conv`, `layer1_block0.conv1`,
 ...), so `aidet_tpu_torch.convert` maps weights one to one.
 
@@ -21,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.deform_conv import DeformConv2d
 
 
 class FrozenBN(nn.Module):
@@ -68,12 +72,12 @@ def conv(cin, cout, kernel, stride=1):
 
 
 class BasicBlock(nn.Module):
-    """``style`` is taken for a uniform signature: a BasicBlock has no
-    1x1 to stride."""
+    """``style`` and ``dcn`` are taken for a uniform signature: a
+    BasicBlock has no 1x1 to stride, and `ResNet` gives it no dcn."""
     expansion = 1
 
     def __init__(self, cin, planes, stride=1, downsample=False,
-                 norm_cfg=None, style="pytorch"):
+                 norm_cfg=None, style="pytorch", dcn=None):
         super().__init__()
         self.conv1 = conv(cin, planes, 3, stride)
         self.bn1 = make_norm(planes, norm_cfg)
@@ -95,13 +99,14 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin, planes, stride=1, downsample=False,
-                 norm_cfg=None, style="pytorch"):
+                 norm_cfg=None, style="pytorch", dcn=None):
         super().__init__()
         # 'caffe' strides the first 1x1, 'pytorch' the 3x3
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
         self.conv1 = conv(cin, planes, 1, s1)
         self.bn1 = make_norm(planes, norm_cfg)
-        self.conv2 = conv(planes, planes, 3, s2)
+        self.conv2 = (conv(planes, planes, 3, s2) if dcn is None else
+                      DeformConv2d(planes, planes, 3, s2, 1, **dcn))
         self.bn2 = make_norm(planes, norm_cfg)
         self.conv3 = conv(planes, planes * 4, 1)
         self.bn3 = make_norm(planes * 4, norm_cfg)
@@ -152,13 +157,22 @@ class ResNet(nn.Module):
     num_stages: the first stages built (3 for the C4 detectors, whose
     res5 is the shared RoI head); out_indices: the stages whose maps
     are returned (0 -> C2 ... 3 -> C5).
+
+    dcn: None, or dict(modulated=...) (the `DeformConv2d` keywords) for
+    the 3x3 of every bottleneck of each stage whose ``stage_with_dcn``
+    entry is true; BasicBlocks take none (a ValueError, as the
+    reference's).
     """
 
     def __init__(self, depth=50, stem_space_to_depth=False,
                  frozen_stages=1, norm_cfg=None, style="pytorch",
-                 num_stages=4, out_indices=(0, 1, 2, 3)):
+                 num_stages=4, out_indices=(0, 1, 2, 3), dcn=None,
+                 stage_with_dcn=(False, False, False, False)):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
+        if dcn is not None and block_cls is not Bottleneck:
+            raise ValueError(f"dcn needs bottleneck blocks (depth >= 50), "
+                             f"not depth {depth}, as in the reference")
         stage_blocks = stage_blocks[:num_stages]
         self.stem_space_to_depth = stem_space_to_depth
         self.frozen_stages = frozen_stages
@@ -178,8 +192,9 @@ class ResNet(nn.Module):
                 stride = 2 if b == 0 and i > 0 else 1
                 ds = b == 0 and (stride != 1 or cur != out_c)
                 name = f"layer{i + 1}_block{b}"
-                self.add_module(name, block_cls(cur, planes, stride, ds,
-                                                norm_cfg, style))
+                self.add_module(name, block_cls(
+                    cur, planes, stride, ds, norm_cfg, style,
+                    dcn if stage_with_dcn[i] else None))
                 names.append(name)
                 cur = out_c
             self.stage_names.append(names)

@@ -4,16 +4,22 @@ the configs' ``dict(type=..., ...)`` entries.
 Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
 modules under the reference's type names, each behind a factory that
 reads the reference's keyword names: the backbones `ResNet` (FrozenBN
-or GroupNorm, pytorch or caffe style, the C4 detectors' 3 stages),
-`ResNeXt` and `HRNet`, the necks `FPN` (optionally with GroupNorm),
-`HRFPN`, `BFP` and `Identity` (a config's list of necks runs them in
-order), the shared head `ResLayer`, the heads `RPNHead`, `GARPNHead`,
-`BBoxHead`, `SharedFCBBoxHead` (and `ConvFCBBoxHead`),
-`DoubleConvFCBBoxHead`, `RBBoxHead`, `MaskIoUHead`, `GridHead`, the
-mask, semantic and dense heads, and the detectors (`RPN`, the
-two-stage presets from `FasterRCNN` to `CenterMapNet`,
-`MaskScoringRCNN`, `GAFasterRCNN`, `GridRCNN`, `DoubleHeadRCNN`,
-`CascadeRCNN`, `HTC`, the single-stage ones).  An
+or GroupNorm, pytorch or caffe style, the C4 detectors' 3 stages, the
+deformable ``dcn`` stages), `ResNeXt`, `HRNet` and `SSDVGG`, the necks
+`FPN` (optionally with GroupNorm), `HRFPN`, `BFP`, `NASFPN` and
+`Identity` (a config's list of necks runs them in order), the shared
+head `ResLayer`, the heads `RPNHead`, `GARPNHead`, `BBoxHead`,
+`SharedFCBBoxHead` (and `ConvFCBBoxHead`), `DoubleConvFCBBoxHead`,
+`RBBoxHead`, `MaskIoUHead`, `GridHead`, the mask and semantic heads,
+the dense heads (`RetinaHead`, `RetinaSepBNHead`, `FCOSHead`,
+`ATSSHead`, `FoveaHead`, `RepPointsHead`, `GARetinaHead`, `SSDHead`),
+and the detectors (`RPN`, the two-stage presets from `FasterRCNN` to
+`CenterMapNet`, `MaskScoringRCNN`, `GAFasterRCNN`, `GridRCNN`,
+`DoubleHeadRCNN`, `CascadeRCNN`, `HTC`, the single-stage ones with
+`FreeAnchorRetinaNet`, `FCOS`, `ATSS`, `FOVEA`, `RepPointsDetector`,
+`GARetinaNet` and `SSD`).  The reference's own build failures stay
+failures: ResNeXt takes no ``dcn`` (a TypeError), and SSD at an
+``input_size`` whose maps are not SSD300's raises a ValueError.  An
 option the port does not implement raises `NotImplementedError` unless
 it holds the reference's default; a type that is not registered raises
 `KeyError`.
@@ -43,18 +49,26 @@ from .detectors.cascade import CascadeRCNN
 from .detectors.rpn import RPN
 from .detectors.single_stage import SingleStageDetector
 from .detectors.two_stage import TwoStageDetector
+from .backbones.ssd_vgg import SSDVGG
+from .heads.atss_head import ATSS, ATSSHead
 from .heads.bbox_head import (BBoxHead, DoubleConvFCBBoxHead, MaskIoUHead,
                               RBBoxHead, SharedFCBBoxHead)
+from .heads.fcos_head import FCOS, FCOSHead
+from .heads.fovea_head import FOVEA, FoveaHead
 from .heads.grid_head import GridHead
-from .heads.guided_anchor_head import GARPNHead
+from .heads.guided_anchor_head import GARetinaHead, GARetinaNet, GARPNHead
 from .heads.mask_head import CenterMapHead, FCNMaskHead, HTCMaskHead
-from .heads.retina_head import RetinaHead
+from .heads.reppoints_head import RepPointsDetector, RepPointsHead
+from .heads.retina_head import RetinaHead, RetinaSepBNHead
 from .heads.rpn_head import RPNHead
 from .heads.semantic_head import FusedSemanticHead, WPSGAHead
-from .losses import BalancedL1Loss, FocalLoss, SmoothL1Loss
+from .heads.ssd_head import SSD, SSDHead
+from .losses import (GHMC, GHMR, BalancedL1Loss, BoundedIoULoss, FocalLoss,
+                     GIoULoss, IoULoss, SmoothL1Loss)
 from .necks.bfp import BFP
 from .necks.fpn import FPN, Identity
 from .necks.hrfpn import HRFPN
+from .necks.nas_fpn import NASFPN
 from .registry import BACKBONES, DETECTORS, HEADS, NECKS, SHARED_HEADS
 from .shared_heads import ResLayer
 
@@ -107,7 +121,8 @@ def _norm_cfg(type_name, norm_cfg):
 @BACKBONES.register(name="ResNet")
 def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
             frozen_stages=1, norm_cfg=None, style="pytorch", num_stages=4,
-            out_indices=(0, 1, 2, 3), dtype=None, **options):
+            out_indices=(0, 1, 2, 3), dcn=None, stage_with_dcn=NO_STAGES,
+            dtype=None, **options):
     # stem_s2d_phase is the same function over the same weight, relaid
     # for the TPU's matrix unit; the port has one s2d stem
     if depth not in ARCH_SETTINGS:
@@ -118,13 +133,14 @@ def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
     _only_defaults("ResNet", options, dict(
         strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
         base_channels=64, gen_attention=None,
-        gen_attention_stages=NO_STAGES, dcn=None, stage_with_dcn=NO_STAGES,
+        gen_attention_stages=NO_STAGES,
         gcb=None, stage_with_gcb=NO_STAGES, conv_cfg=None,
         norm_eval=True, pretrained=None))
     return ResNet(depth=depth, stem_space_to_depth=stem_space_to_depth,
                   frozen_stages=frozen_stages,
                   norm_cfg=_norm_cfg("ResNet", norm_cfg), style=style,
-                  num_stages=num_stages, out_indices=tuple(out_indices))
+                  num_stages=num_stages, out_indices=tuple(out_indices),
+                  dcn=dcn, stage_with_dcn=tuple(stage_with_dcn))
 
 
 @BACKBONES.register(name="HRNet")
@@ -141,6 +157,11 @@ def _hrnet(width=32, stage_modules=(1, 1, 4, 3), stage_blocks=4,
 @BACKBONES.register(name="ResNeXt")
 def _resnext(depth=101, groups=32, base_width=4, frozen_stages=1,
              style="pytorch", dtype=None, **options):
+    if "dcn" in options or "stage_with_dcn" in options:
+        # a field the reference's ResNeXt does not have: it raises the
+        # same TypeError when it builds
+        raise TypeError("ResNeXt got an unexpected keyword argument 'dcn' "
+                        "(the reference's ResNeXt has no deformable stages)")
     if depth not in (50, 101):
         raise NotImplementedError(f"ResNeXt depth {depth} is {NOT_PORTED}; "
                                   "50 and 101 are")
@@ -166,6 +187,26 @@ def _fpn(in_channels=(256, 512, 1024, 2048), out_channels=256, num_outs=5,
                extra_convs_on_inputs=extra_convs_on_inputs,
                relu_before_extra_convs=relu_before_extra_convs,
                norm_cfg=_norm_cfg("FPN", norm_cfg))
+
+
+@NECKS.register(name="NASFPN")
+def _nas_fpn(in_channels=(256, 512, 1024, 2048), out_channels=256,
+             num_outs=5, stack_times=7, start_level=0, dtype=None,
+             **options):
+    _only_defaults("NASFPN", options, {})
+    return NASFPN(in_channels=tuple(in_channels), out_channels=out_channels,
+                  num_outs=num_outs, stack_times=stack_times,
+                  start_level=start_level)
+
+
+@BACKBONES.register(name="SSDVGG")
+def _ssd_vgg(input_size=300, dtype=None, **options):
+    # depth and out_feature_indices are fields the reference's SSDVGG
+    # does not read: it builds VGG-16 and its two taps
+    _only_defaults("SSDVGG", options, dict(depth=16,
+                                           out_feature_indices=(22, 34),
+                                           pretrained=None))
+    return SSDVGG(input_size=input_size)
 
 
 @NECKS.register(name="Identity")
@@ -355,6 +396,52 @@ def _retina_head(num_classes=16, in_channels=256, feat_channels=256,
                       feat_channels=feat_channels,
                       stacked_convs=stacked_convs, num_anchors=num_anchors,
                       prior_prob=prior_prob, reg_dim=reg_dim)
+
+
+@HEADS.register(name="RetinaSepBNHead")
+def _retina_sepbn_head(num_classes=16, num_ins=5, in_channels=256,
+                       feat_channels=256, stacked_convs=4, num_anchors=9,
+                       prior_prob=0.01, with_norm=True, dtype=None,
+                       **options):
+    _only_defaults("RetinaSepBNHead", options, {})
+    return RetinaSepBNHead(
+        num_classes=num_classes, num_ins=num_ins, in_channels=in_channels,
+        feat_channels=feat_channels, stacked_convs=stacked_convs,
+        num_anchors=num_anchors, prior_prob=prior_prob, with_norm=with_norm)
+
+
+def _towers_head(cls, type_name, defaults=None):
+    """Register ``cls`` (a head over `Towers`) under ``type_name``: its
+    keywords as they are, ``dtype`` dropped, any other option raising
+    unless it is one of ``defaults`` at its value there."""
+    import inspect
+    names = set(inspect.signature(cls).parameters)
+
+    def factory(dtype=None, **kwargs):
+        _only_defaults(type_name, {k: v for k, v in kwargs.items()
+                                   if k not in names}, defaults or {})
+        return cls(**{k: v for k, v in kwargs.items() if k in names})
+    HEADS.register(factory, name=type_name)
+
+
+_towers_head(FCOSHead, "FCOSHead")
+_towers_head(ATSSHead, "ATSSHead")
+_towers_head(FoveaHead, "FoveaHead")
+_towers_head(GARetinaHead, "GARetinaHead", dict(deformable_groups=1))
+
+
+@HEADS.register(name="RepPointsHead")
+def _reppoints_head(norm_cfg=None, dtype=None, **kwargs):
+    return RepPointsHead(norm_cfg=_norm_cfg("RepPointsHead", norm_cfg),
+                         **kwargs)
+
+
+@HEADS.register(name="SSDHead")
+def _ssd_head(num_classes=21, in_channels=(512, 1024, 512, 256, 256, 256),
+              num_anchors=(4, 6, 6, 6, 4, 4), dtype=None, **options):
+    _only_defaults("SSDHead", options, {})
+    return SSDHead(num_classes=num_classes, in_channels=tuple(in_channels),
+                   num_anchors=tuple(num_anchors))
 
 
 # the reference TwoStageDetector's fields that the port's detector
@@ -613,15 +700,14 @@ def _single_stage(type_name, backbone=None, neck=None, bbox_head=None,
                   target_means=(0., 0., 0., 0.),
                   target_stds=(1., 1., 1., 1.), with_rbox=False,
                   rbox_encode="thetaobb", rnms_thr=0.1, loss_cls=None,
-                  loss_bbox=None, dtype=None, **options):
+                  loss_bbox=None, loss_type="standard", free_anchor_cfg=None,
+                  dtype=None, **options):
     """A `SingleStageDetector` from the reference's keywords, with its
     defaults for the sub-modules a config leaves out
     (single_stage.py:70-79): ResNet-50, FPN P3-P7 with extra convs, a
     16-class RetinaHead with one anchor per scale and ratio; the losses
     default to the detector's (the focal loss, smooth L1 at beta 0.11)."""
-    _only_defaults(type_name, options, dict(loss_type="standard",
-                                            free_anchor_cfg=None,
-                                            img_norm=None))
+    _only_defaults(type_name, options, dict(img_norm=None))
     num_anchors = len(anchor_scales) * len(anchor_ratios)
     cfgs = dict(
         backbone=backbone or dict(type="ResNet", depth=50),
@@ -637,17 +723,85 @@ def _single_stage(type_name, backbone=None, neck=None, bbox_head=None,
         target_means=target_means, target_stds=target_stds,
         train_cfg=train_cfg, test_cfg=test_cfg, with_rbox=with_rbox,
         rbox_encode=rbox_encode, rnms_thr=rnms_thr,
-        cls_loss=loss_cls and _loss(loss_cls, dict(FocalLoss=FocalLoss)),
+        cls_loss=loss_cls and _loss(loss_cls, dict(FocalLoss=FocalLoss,
+                                                   GHMC=GHMC)),
         bbox_loss=loss_bbox and _loss(
             loss_bbox, dict(SmoothL1Loss=SmoothL1Loss,
-                            BalancedL1Loss=BalancedL1Loss)),
-        compute_dtype=dtype)
+                            BalancedL1Loss=BalancedL1Loss, GHMR=GHMR,
+                            IoULoss=IoULoss, BoundedIoULoss=BoundedIoULoss,
+                            GIoULoss=GIoULoss)),
+        compute_dtype=dtype, loss_type=loss_type,
+        free_anchor_cfg=free_anchor_cfg)
 
 
 _preset("SingleStageDetector", build=_single_stage)
 _preset("RetinaNet", build=_single_stage)
 # the rotated RetinaNet: the head regresses rbox_encode's deltas
 _preset("RetinaNetOBB", build=_single_stage, with_rbox=True)
+# RetinaNet trained by FreeAnchor's bag likelihood
+_preset("FreeAnchorRetinaNet", build=_single_stage, loss_type="free_anchor",
+        target_stds=(0.1, 0.1, 0.2, 0.2))
+
+# the reference's default neck of its anchor-free detectors: P3-P7, the
+# extra levels by convs on P5
+DENSE_NECK = dict(type="FPN", num_outs=5, start_level=1,
+                  add_extra_convs=True, extra_convs_on_inputs=False)
+# the heads whose per-level scales need the number of levels
+LEVEL_HEADS = ("FCOSHead", "ATSSHead")
+
+
+def _dense(type_name, cls, backbone=None, neck=None, bbox_head=None,
+           train_cfg=None, test_cfg=None, img_size=1024,
+           strides=(8, 16, 32, 64, 128), dtype=None, default_neck=DENSE_NECK,
+           default_head=None, **options):
+    """A `DenseDetector` subclass ``cls`` from the reference's keywords,
+    with its defaults for the sub-modules a config leaves out (a
+    ResNet-50, ``default_neck``, ``default_head``); ``options`` are
+    ``cls``'s own keywords (FCOS's center_sampling, RepPoints'
+    transform_method, ...)."""
+    cfgs = dict(backbone=backbone or dict(type="ResNet", depth=50),
+                neck=neck or default_neck,
+                bbox_head=dict(bbox_head or default_head))
+    if cfgs["bbox_head"]["type"] in LEVEL_HEADS:
+        cfgs["bbox_head"].setdefault("num_levels", len(strides))
+    dtype = _compute_dtype(type_name, dtype, cfgs)
+    return cls(build_backbone(cfgs["backbone"]), _neck(cfgs["neck"]),
+               build_head(cfgs["bbox_head"]), img_size=img_size,
+               strides=strides, train_cfg=train_cfg, test_cfg=test_cfg,
+               compute_dtype=dtype, **options)
+
+
+_preset("FCOS", build=_dense, cls=FCOS,
+        default_neck=dict(DENSE_NECK, relu_before_extra_convs=True),
+        default_head=dict(type="FCOSHead", num_classes=16))
+_preset("ATSS", build=_dense, cls=ATSS,
+        default_head=dict(type="ATSSHead", num_classes=16))
+_preset("FOVEA", build=_dense, cls=FOVEA,
+        default_head=dict(type="FoveaHead", num_classes=16))
+_preset("RepPointsDetector", build=_dense, cls=RepPointsDetector,
+        default_head=dict(type="RepPointsHead", num_classes=16))
+_preset("GARetinaNet", build=_dense, cls=GARetinaNet,
+        default_neck=dict(type="FPN", num_outs=5, start_level=1,
+                          add_extra_convs=True),
+        default_head=dict(type="GARetinaHead", num_classes=16))
+
+
+@DETECTORS.register(name="SSD")
+def _ssd(backbone=None, bbox_head=None, neck=None, train_cfg=None,
+         test_cfg=None, input_size=300, img_size=300, dtype=None,
+         **options):
+    """SSD from the reference's keywords: SSDVGG at ``input_size`` and a
+    21-class SSDHead unless the config names others; ``neck`` is a field
+    the reference keeps and does not read, and ``img_size`` its alias of
+    ``input_size``."""
+    _only_defaults("SSD", options, {})
+    cfgs = dict(backbone=backbone or dict(type="SSDVGG",
+                                          input_size=input_size),
+                bbox_head=bbox_head or dict(type="SSDHead", num_classes=21))
+    dtype = _compute_dtype("SSD", dtype, cfgs)
+    return SSD(build_backbone(cfgs["backbone"]),
+               build_head(cfgs["bbox_head"]), input_size=input_size,
+               train_cfg=train_cfg, test_cfg=test_cfg, compute_dtype=dtype)
 
 
 def build(cfg, registry, default_args=None):

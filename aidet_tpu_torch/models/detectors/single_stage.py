@@ -15,9 +15,14 @@ its `RetinaNet` and `RetinaNetOBB` presets:
   positives, the rotated codec's deltas as the regression targets with
   ``with_rbox``.
 
+With ``loss_type="free_anchor"`` (the `FreeAnchorRetinaNet` preset,
+reference single_stage.py:159-168) the loss is FreeAnchor's bag
+likelihood (`heads.free_anchor.free_anchor_loss`).  The cls loss is the
+focal loss or GHMC, the box loss smooth L1, balanced L1 or GHMR; each
+weighs every anchor (no sampler).
+
 No RoIAlign runs on these paths, so none of the port's kernels is
-launched.  FreeAnchor's bag likelihood (``loss_type="free_anchor"``),
-GHMC and the other cls losses than the focal loss are not ported.
+launched.
 """
 
 from __future__ import annotations
@@ -31,9 +36,10 @@ from ...core.rboxes import RBBOX_CODECS, pointobb2bbox
 from ...ops.nms import nms_cfg_kwargs
 from ..heads.anchor_head import (anchor_head_bboxes, anchor_head_loss,
                                  anchor_head_rboxes, flatten_level_outputs)
+from ..heads.free_anchor import free_anchor_loss
 from ..losses import FocalLoss, SmoothL1Loss
 from ..preprocess import device_normalize
-from .two_stage import _merge
+from .dense import _merge
 
 DEFAULT_TRAIN_CFG = dict(
     assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0),
@@ -61,8 +67,16 @@ class SingleStageDetector(nn.Module):
                  target_stds=(1., 1., 1., 1.), train_cfg=None,
                  test_cfg=None, with_rbox=False, rbox_encode="thetaobb",
                  rnms_thr=0.1, cls_loss=None, bbox_loss=None,
-                 compute_dtype=None):
+                 compute_dtype=None, loss_type="standard",
+                 free_anchor_cfg=None):
         super().__init__()
+        if loss_type not in ("standard", "free_anchor"):
+            raise ValueError(f"loss_type {loss_type!r}: 'standard' or "
+                             "'free_anchor'")
+        if loss_type == "free_anchor" and with_rbox:
+            raise ValueError("free_anchor regresses boxes: no with_rbox")
+        self.loss_type = loss_type
+        self.free_anchor_cfg = dict(free_anchor_cfg or {})
         self.backbone = backbone
         self.neck = neck
         self.bbox_head = bbox_head
@@ -177,6 +191,13 @@ class SingleStageDetector(nn.Module):
                             enabled=cd != self.dtype):
             cls_flat, reg_flat = self._head(self.extract_feat(imgs))
         tc = self.train_cfg
+        if self.loss_type == "free_anchor":
+            with record_function("free_anchor_loss"):
+                return free_anchor_loss(
+                    cls_flat.float(), reg_flat.float(), self.anchors,
+                    gt_boxes.float(), gt_valid, gt_labels,
+                    target_means=self.target_means,
+                    target_stds=self.target_stds, **self.free_anchor_cfg)
         with record_function("retina_loss"):
             return anchor_head_loss(
                 cls_flat.float(), reg_flat.float(), self.anchors,

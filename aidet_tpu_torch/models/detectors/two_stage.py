@@ -67,7 +67,6 @@ The cascades are `detectors/cascade.py`, the proposal-only RPN
 from __future__ import annotations
 
 import os
-from collections.abc import Mapping
 from typing import NamedTuple
 
 import torch
@@ -95,6 +94,7 @@ from ..heads.semantic_head import semantic_loss
 from ..losses import (CenterMapLoss, CrossEntropyLoss, FocalLoss,
                       SmoothL1Loss, mask_cross_entropy)
 from ..preprocess import device_normalize
+from .dense import _merge
 
 # the reference's defaults (configs/dota/dota_v002_theta_obb_r50_v1_train.py)
 DEFAULT_TRAIN_CFG: dict = dict(
@@ -156,17 +156,6 @@ def jitter_rois(rois, img_shapes, generator: torch.Generator):
     c = cxcy + wh * off[..., :2]
     half = wh * (1 + off[..., 2:]) / 2
     return _clip_to_image(torch.cat([c - half, c + half], -1), img_shapes)
-
-
-def _merge(default: dict, override) -> dict:
-    out = {k: dict(v) if isinstance(v, Mapping) else v
-           for k, v in default.items()}
-    for k, v in (override or {}).items():
-        if isinstance(v, Mapping) and isinstance(out.get(k), dict):
-            out[k].update(v)
-        else:
-            out[k] = v
-    return out
 
 
 def _dq(x):

@@ -7,8 +7,11 @@ Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 `mask_cross_entropy`, `CrossEntropyLoss`), `smooth_l1_loss.py`
 (`smooth_l1_loss`, `SmoothL1Loss`), `balanced_l1_loss.py`
 (`balanced_l1_loss`, `BalancedL1Loss`: Libra R-CNN's),
-`focal_loss.py` (`FocalLoss`) and `centermap_loss.py`
-(`CenterMapLoss`).  Labels follow the reference: 0 is background,
+`focal_loss.py` (`FocalLoss`), `centermap_loss.py`
+(`CenterMapLoss`), `iou_loss.py` (`IoULoss` :62, `BoundedIoULoss` :80,
+`GIoULoss` :90) and `ghm_loss.py` (`GHMC` :48 and `GHMR` :83, which
+recompute the bins' density on each batch: the reference's ignore
+``momentum``, and so do these).  Labels follow the reference: 0 is background,
 1..C the classes; softmax logits carry C + 1 channels, sigmoid and
 mask logits C.  `CrossEntropyLoss(use_mask=True)` is not ported: the
 detector calls `mask_cross_entropy` itself, as the reference's does.
@@ -21,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.boxes import bbox_overlaps
 from ..ops.focal_loss import sigmoid_focal_loss
 
 
@@ -212,3 +216,168 @@ class FocalLoss:
             weight = weight[..., None]
         return self.loss_weight * weight_reduce_loss(
             loss, weight, reduction, avg_factor)
+
+
+def iou_loss(pred, target, eps=1e-6):
+    """-log IoU of aligned boxes [..., 4] (legacy +1 sizes), the IoU
+    clamped at ``eps``."""
+    return -torch.log(bbox_overlaps(pred, target, aligned=True)
+                      .clamp(min=eps))
+
+
+def bounded_iou_loss(pred, target, beta=0.2, eps=1e-3):
+    """The bounded IoU loss of aligned boxes: smooth L1 at ``beta`` of
+    the centre and size terms, summed over the four."""
+    def centre_size(b):
+        return ((b[..., 0] + b[..., 2]) * 0.5, (b[..., 1] + b[..., 3]) * 0.5,
+                b[..., 2] - b[..., 0] + 1.0, b[..., 3] - b[..., 1] + 1.0)
+    px, py, pw, ph = centre_size(pred)
+    tx, ty, tw, th = centre_size(target)
+    dx, dy = (tx - px).abs(), (ty - py).abs()
+    comb = torch.stack([
+        1 - ((tw - 2 * dx) / (tw + 2 * dx + eps)).clamp(min=0),
+        1 - ((th - 2 * dy) / (th + 2 * dy + eps)).clamp(min=0),
+        1 - torch.minimum(tw / (pw + eps), pw / (tw + eps)),
+        1 - torch.minimum(th / (ph + eps), ph / (th + eps))], -1)
+    return torch.where(comb < beta, 0.5 * comb * comb / beta,
+                       comb - 0.5 * beta).sum(-1)
+
+
+def giou_loss(pred, target, eps=1e-7):
+    """1 - GIoU of aligned boxes [..., 4] (legacy +1 sizes)."""
+    lt = torch.minimum(pred[..., :2], target[..., :2])
+    rb = torch.maximum(pred[..., 2:], target[..., 2:])
+    wh = (rb - lt + 1.0).clamp(min=0)
+    enclose = wh[..., 0] * wh[..., 1]
+    area_p = ((pred[..., 2] - pred[..., 0] + 1)
+              * (pred[..., 3] - pred[..., 1] + 1))
+    area_t = ((target[..., 2] - target[..., 0] + 1)
+              * (target[..., 3] - target[..., 1] + 1))
+    inter_wh = (torch.minimum(pred[..., 2:], target[..., 2:])
+                - torch.maximum(pred[..., :2], target[..., :2])
+                + 1.0).clamp(min=0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    union = (area_p + area_t - inter).clamp(min=eps)
+    return 1 - (inter / union - (enclose - union) / enclose.clamp(min=eps))
+
+
+class IoULoss:
+    """A box-IoU loss over aligned boxes [..., 4]; a ``weight`` of the
+    boxes' shape [..., 4] is averaged over the last dim first."""
+
+    def __init__(self, eps=1e-6, reduction="mean", loss_weight=1.0):
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def _loss(self, pred, target):
+        return iou_loss(pred, target, self.eps)
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        if weight is not None and weight.dim() > 1:
+            weight = weight.mean(-1)
+        return self.loss_weight * weight_reduce_loss(
+            self._loss(pred, target), weight, reduction, avg_factor)
+
+
+class BoundedIoULoss(IoULoss):
+    def __init__(self, beta=0.2, eps=1e-3, reduction="mean",
+                 loss_weight=1.0):
+        super().__init__(eps, reduction, loss_weight)
+        self.beta = beta
+
+    def _loss(self, pred, target):
+        return bounded_iou_loss(pred, target, self.beta, self.eps)
+
+
+class GIoULoss(IoULoss):
+    def __init__(self, eps=1e-7, reduction="mean", loss_weight=1.0):
+        super().__init__(eps, reduction, loss_weight)
+
+    def _loss(self, pred, target):
+        return giou_loss(pred, target, self.eps)
+
+
+def ghm_edges(bins):
+    """[bins + 1] float32 bin edges i / bins (each quotient rounded once,
+    as the reference's)."""
+    return torch.tensor([i / bins for i in range(bins + 1)],
+                        dtype=torch.float32)
+
+
+def ghm_weights(g, valid, edges, tot):
+    """Each valid element's harmonizing weight: ``tot`` over the count
+    of its gradient-length bin (``edges`` [bins + 1], bins half-open),
+    divided by the number of non-empty bins; invalid elements 0.  ``g``
+    carries no gradient."""
+    idx = torch.bucketize(g, edges, right=True) - 1       # bin of each g
+    inbin = valid & (idx >= 0) & (idx < edges.numel() - 1)
+    idx = torch.where(inbin, idx, 0)
+    counts = torch.zeros(edges.numel() - 1, dtype=g.dtype,
+                         device=g.device).index_add_(
+        0, idx.reshape(-1), inbin.reshape(-1).to(g.dtype))
+    per_bin = torch.where(counts > 0, tot / counts.clamp(min=1.0), 0.0)
+    n_nonempty = (counts > 0).sum().to(g.dtype).clamp(min=1.0)
+    return torch.where(inbin, per_bin[idx], 0.0) / n_nonempty
+
+
+class GHMC:
+    """The gradient-harmonized sigmoid cross entropy over [..., C]
+    logits; integer labels (1-based) expand to one-hot over the C
+    channels, a per-anchor ``weight`` broadcasts over them.  Normalized
+    by the count of weighted elements; ``avg_factor`` is not read."""
+
+    def __init__(self, bins=10, momentum=0.0, use_sigmoid=True,
+                 loss_weight=1.0):
+        if not use_sigmoid:
+            raise ValueError("GHMC is a sigmoid loss")
+        self.bins = bins
+        self.momentum = momentum
+        self.loss_weight = loss_weight
+        self.edges = ghm_edges(bins)
+        self.edges[-1] += 1e-6
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        if target.dim() != pred.dim():
+            classes = torch.arange(1, pred.shape[-1] + 1,
+                                   device=target.device)
+            target = target[..., None] == classes
+            if weight is not None:
+                weight = weight[..., None]
+        target = target.to(pred.dtype)
+        weight = (torch.ones_like(pred) if weight is None
+                  else weight.to(pred.dtype).expand_as(pred))
+        valid = weight > 0
+        tot = valid.sum().to(pred.dtype).clamp(min=1.0)
+        g = (torch.sigmoid(pred) - target).abs().detach()
+        w = ghm_weights(g, valid, self.edges.to(pred.device), tot)
+        ce = (pred.clamp(min=0) - pred * target
+              + torch.log1p(torch.exp(-pred.abs())))
+        return (ce * w).sum() / tot * self.loss_weight
+
+
+class GHMR:
+    """The gradient-harmonized authentic smooth L1 (sqrt(d^2 + mu^2) -
+    mu), normalized by the weights' sum; ``avg_factor`` is not read."""
+
+    def __init__(self, mu=0.02, bins=10, momentum=0.0, loss_weight=1.0):
+        self.mu = mu
+        self.bins = bins
+        self.momentum = momentum
+        self.loss_weight = loss_weight
+        self.edges = ghm_edges(bins)
+        self.edges[-1] = 1e3
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        mu = self.mu
+        diff = pred - target
+        loss = torch.sqrt(diff * diff + mu * mu) - mu
+        weight = (torch.ones_like(pred) if weight is None
+                  else weight.to(pred.dtype).expand_as(pred))
+        valid = weight > 0
+        tot = weight.sum().clamp(min=1.0)
+        g = (diff / torch.sqrt(mu * mu + diff * diff)).abs().detach()
+        w = ghm_weights(g, valid, self.edges.to(pred.device), tot)
+        return (loss * w).sum() / tot * self.loss_weight

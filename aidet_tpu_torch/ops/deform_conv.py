@@ -1,16 +1,18 @@
 """Deformable convolution (v1, and v2's modulation) as a bilinear gather
 and a matrix product.
 
-Port of `aidet_tpu/ops/deform_conv.py::deform_conv2d` :40 and
-`_bilinear` :19, which the JAX package writes as XLA code, not as a
-Pallas kernel: each output pixel's kh x kw taps are sampled at their
-offset positions by bilinear interpolation, then contracted with the
-weight.  Batched over images; NHWC maps.
+Port of `aidet_tpu/ops/deform_conv.py::deform_conv2d` :40, `_bilinear`
+:19 and the `DeformConv2d` layer :74, which the JAX package writes as
+XLA code, not as a Pallas kernel: each output pixel's kh x kw taps are
+sampled at their offset positions by bilinear interpolation, then
+contracted with the weight.  Batched over images; NHWC maps, but the
+layer's NCHW.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 
 def bilinear(img, ys, xs):
@@ -69,3 +71,40 @@ def deform_conv2d(x, offset, weight, mask=None, stride=1, padding=1,
     w_flat = weight.permute(2, 3, 1, 0).reshape(kh * kw * cin, cout)
     return patches.reshape(b, ho, wo, kh * kw * cin) @ w_flat.to(
         patches.dtype)
+
+
+class DeformConv2d(nn.Conv2d):
+    """The reference's DCN layer (DeformConvPack; with ``modulated``
+    DCNv2's ModulatedDeformConvPack): a conv ``conv_offset`` (same
+    kernel, stride, padding and dilation, with bias) predicts each
+    output pixel's 2 kh kw tap offsets, and with ``modulated`` kh kw
+    more channels whose sigmoid is the modulation; then `deform_conv2d`
+    with this layer's weight and bias.  `init_prior` zeroes the offset
+    conv, as the reference initializes it: the layer then starts as the
+    plain conv.  NCHW in and out, as a `torch.nn.Conv2d`."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 padding=1, dilation=1, modulated=False):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, bias=True)
+        k = kernel_size
+        self.modulated = modulated
+        self.conv_offset = nn.Conv2d(
+            in_channels, (3 if modulated else 2) * k * k, k, stride,
+            padding, dilation)
+        self.init_prior()
+
+    @torch.no_grad()
+    def init_prior(self):
+        self.conv_offset.weight.zero_()
+        self.conv_offset.bias.zero_()
+
+    def forward(self, x):
+        kk = self.kernel_size[0] * self.kernel_size[1]
+        out = self.conv_offset(x).permute(0, 2, 3, 1)
+        offset, mask = out[..., :2 * kk], None
+        if self.modulated:
+            mask = torch.sigmoid(out[..., 2 * kk:])
+        y = deform_conv2d(x.permute(0, 2, 3, 1), offset, self.weight, mask,
+                          self.stride[0], self.padding[0], self.dilation[0])
+        return (y + self.bias.to(y.dtype)).permute(0, 3, 1, 2).to(x.dtype)

@@ -3731,6 +3731,10 @@ def hbb_cfg(kind, small, img=256, train_cfg=None):
     merged over the train_cfg."""
     from aidet_tpu_torch.models.detectors.two_stage import _merge
     from aidet_tpu_torch.utils.config import Config
+    if small and HBB_KINDS.get(kind, {}).get("dense"):
+        spec = HBB_KINDS[kind]
+        return (dict(spec["small"], img_size=spec.get("img", img)),
+                _merge({}, train_cfg), DENSE_SMALL_TEST_CFG)
     if small:
         model = dict(SMALL_MODEL, img_size=img)
         del model["rbbox_head"], model["rbbox_encode"]
@@ -3760,20 +3764,31 @@ def hbb_cfg(kind, small, img=256, train_cfg=None):
 def hbb_model(kind, device, small, img=256, train=False, train_cfg=None,
               seed=0):
     """`build_detector` of `hbb_cfg` on ``device`` with seeded weights
-    (the same on every device).  A GA-RPN's offset conv, which starts at
-    zero (the adaption is then a plain conv), gets seeded N(0, 0.5)
-    weights too, so that the deformable conv samples off the grid, as a
-    trained one does."""
+    (the same on every device).  The offset convs that start at zero
+    (the deformable conv is then a plain conv) get seeded weights, so
+    that the deformable convs sample off the grid, as trained ones do: a
+    GA head's N(0, 0.5), a `DeformConv2d`'s (ResNet's dcn) N(0, 1 /
+    fan_in).  The dense kinds' class and location prior biases are set to
+    0 (at the focal loss's prior every sigmoid score lies under the
+    score_thr of random weights' predict)."""
     import torch
     from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.ops.deform_conv import DeformConv2d
     model, train_c, test_c = hbb_cfg(kind, small, img, train_cfg)
     net = build_detector(model, train_cfg=train_c, test_cfg=test_c,
                          device=device, seed=seed, train=train)
-    if getattr(net, "ga", False):
-        w = net.rpn_head.adaption_offset.weight
-        with torch.no_grad():
-            w.copy_(0.5 * torch.randn(w.shape, generator=torch.Generator()
-                                      .manual_seed(seed + 1)))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if isinstance(m, DeformConv2d):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w[0].numel()))
+            elif name.endswith("adaption_offset"):
+                m.weight.copy_(0.5 * torch.randn(m.weight.shape,
+                                                 generator=gen))
+            elif name.split(".")[-1] in PRIOR_CONVS:
+                m.bias.zero_()
     return net
 
 
@@ -3881,8 +3896,14 @@ def run_hbb_reference(device="cuda", kind="faster", img=256):
     torch.backends.cuda.matmul.allow_tf32 = False
     arch = dict(resnext="faster_x101", cascade="cascade_mask",
                 c4="c4_mask").get(kind, kind)
+    spec = HBB_KINDS.get(kind, {})
+    dense = spec.get("dense", False)
+    img = spec.get("img") or spec.get("ref_img") or img
     imgs = torch.randint(0, 256, (2, img, img, 3), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(1))
+    if dense:   # these detectors read their images as they are
+        imgs = torch.randn((2, img, img, 3),
+                           generator=torch.Generator().manual_seed(1))
     shapes = torch.full((2, 2), float(img))
     devices = (device, "cpu")
     models = [hbb_model(arch, d, True, img) for d in devices]
@@ -4032,8 +4053,14 @@ def run_hbb_paths(device="cuda", small=False, kind="faster", seed=0):
             raise AssertionError(f"{kind} {name}: {fields}")
         return res, dict(fields, n_valid=int(res["valid"].sum()))
 
+    spec = HBB_KINDS.get(kind, {})
+    if spec.get("img"):
+        img = spec["img"]
     imgs = torch.randint(0, 256, (b, img, img, 3), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(seed))
+    if spec.get("dense"):      # these detectors read their images as they are
+        imgs = torch.randn((b, img, img, 3),
+                           generator=torch.Generator().manual_seed(seed))
     imgs = imgs.to(device)
     shapes = torch.full((b, 2), float(img), device=device)
     out = dict(config=(f"{kind} (small architecture)" if small else
@@ -4096,8 +4123,12 @@ def run_hbb_paths(device="cuda", small=False, kind="faster", seed=0):
     if bad:
         raise AssertionError(f"{kind} train: not finite {bad}")
     names = [nm for nm, _ in net.named_parameters()]
+    # a dense head's leaf that no positive anchor reaches (SepBN's
+    # regression norms of a level whose anchors match no gt) keeps its
+    # zero bias: weight decay moves only what is not zero
     still = [nm for nm, a, p in zip(names, before, params)
-             if torch.equal(a, p.detach()) and "_head" in nm.split(".")[0]]
+             if torch.equal(a, p.detach()) and "_head" in nm.split(".")[0]
+             and (a.any() or not spec.get("dense"))]
     if still:
         raise AssertionError(f"{kind} train: heads did not move: {still}")
     ms = sum(times) / len(times)
@@ -4314,6 +4345,148 @@ def run_slice14(card):
     return runs
 
 
+# Slice 15: the single-stage zoo (FCOS, ATSS, FoveaBox, RepPoints,
+# GA-RetinaNet, FreeAnchor, RetinaNet with the SepBN head, GHM and
+# NAS-FPN, SSD300) and ResNet's deformable stages, as the COCO configs
+# write them (float32, 81 classes); the dense detectors launch no
+# RoIAlign, the dcn R-CNNs K1 and K2 on a deformable backbone
+FCOS_CONFIG = "configs/fcos_r50_fpn_1x.py"
+ATSS_CONFIG = "configs/atss_r50_fpn_1x.py"
+FOVEA_CONFIG = "configs/fovea_r50_fpn_1x.py"
+REPPOINTS_CONFIG = "configs/reppoints_moment_r50_fpn_1x.py"
+REPPOINTS_DCN_CONFIG = "configs/reppoints_moment_r101_dcn_fpn_2x.py"
+GA_RETINA_CONFIG = "configs/ga_retinanet_r50_fpn_1x.py"
+FREE_ANCHOR_CONFIG = "configs/retinanet_free_anchor_r50_fpn_1x.py"
+SEPBN_CONFIG = "configs/retinanet_sepbn_r50_fpn_1x.py"
+GHM_CONFIG = "configs/retinanet_ghm_r50_fpn_1x.py"
+NASFPN_CONFIG = "configs/retinanet_nasfpn_r50_1x.py"
+SSD_CONFIG = "configs/ssd300_coco.py"
+DCN_CONFIG = "configs/faster_rcnn_dconv_c3-c5_r50_fpn_1x.py"
+MDCONV_CONFIG = "configs/mask_rcnn_mdconv_c3-c5_r50_fpn_1x.py"
+# the output convs whose bias starts at the focal loss's prior (and GA's
+# location prior); `hbb_model` sets them to 0 in the dense kinds
+PRIOR_CONVS = ("fcos_cls", "atss_cls", "fovea_cls", "cls_out", "ga_cls",
+               "conv_loc", "retina_cls")
+DENSE_SMALL_TEST_CFG = dict(nms_pre=200, score_thr=0.05, nms_thr=0.5,
+                            max_per_img=50)
+SMALL_DENSE_NECK = dict(type="FPN", in_channels=(64, 128, 256, 512),
+                        out_channels=64, num_outs=5, start_level=1,
+                        add_extra_convs=True, extra_convs_on_inputs=False)
+SMALL_RETINA_NECK = dict(SMALL_DENSE_NECK, extra_convs_on_inputs=True)
+SMALL_RETINA_HEAD = dict(type="RetinaHead", num_anchors=9)
+SMALL_SEPBN_HEAD = dict(type="RetinaSepBNHead", num_anchors=9, num_ins=5)
+GHM_LOSSES = dict(
+    loss_cls=dict(type="GHMC", bins=30, momentum=0.75, use_sigmoid=True,
+                  loss_weight=1.0),
+    loss_bbox=dict(type="GHMR", mu=0.02, bins=10, momentum=0.7,
+                   loss_weight=10.0))
+# the small dcn R-CNN: ResNet-50 with DCNv2 in C4 and C5 under the
+# small 64-channel FPN, at 128^2 (the plain deformable conv's gathers
+# and their gradient lead a CPU step)
+SMALL_DCN_BACKBONE = dict(
+    backbone=dict(type="ResNet", depth=50, dcn=dict(modulated=True),
+                  stage_with_dcn=(False, False, True, True)),
+    neck=dict(SMALL_MODEL["neck"], in_channels=(256, 512, 1024, 2048)))
+
+
+def small_dense(type_name, head, neck=SMALL_DENSE_NECK, **extra):
+    """A small dense detector: ResNet-18, a 64-channel FPN P3-P7, ``head``
+    at 64 channels with 2 tower convs, 16 classes."""
+    return dict(type=type_name, backbone=dict(type="ResNet", depth=18),
+                neck=neck, bbox_head=dict(dict(
+                    num_classes=16, in_channels=64, feat_channels=64,
+                    stacked_convs=2), **head), **extra)
+
+
+SMALL_SEPBN_GHM = small_dense("RetinaNet", SMALL_SEPBN_HEAD,
+                              SMALL_RETINA_NECK, **GHM_LOSSES)
+SMALL_REPPOINTS = small_dense(
+    "RepPointsDetector", dict(type="RepPointsHead", point_feat_channels=64),
+    transform_method="moment")
+HBB_KINDS.update(
+    fcos=dict(small=small_dense("FCOS", dict(type="FCOSHead"),
+                                center_sampling=True),
+              config=FCOS_CONFIG),
+    atss=dict(small=small_dense("ATSS", dict(type="ATSSHead")),
+              config=ATSS_CONFIG),
+    fovea=dict(small=small_dense("FOVEA", dict(type="FoveaHead")),
+               config=FOVEA_CONFIG),
+    reppoints=dict(small=SMALL_REPPOINTS, config=REPPOINTS_CONFIG),
+    reppoints_dcn=dict(small=SMALL_REPPOINTS, config=REPPOINTS_DCN_CONFIG,
+                       train=None),
+    ga_retina=dict(small=small_dense("GARetinaNet",
+                                     dict(type="GARetinaHead"),
+                                     SMALL_RETINA_NECK),
+                   config=GA_RETINA_CONFIG),
+    free_anchor=dict(small=small_dense(
+        "FreeAnchorRetinaNet", SMALL_RETINA_HEAD, SMALL_RETINA_NECK,
+        free_anchor_cfg=dict(pre_anchor_topk=20)),
+        config=FREE_ANCHOR_CONFIG),
+    sepbn=dict(small=SMALL_SEPBN_GHM, config=SEPBN_CONFIG),
+    ghm=dict(small=SMALL_SEPBN_GHM, config=GHM_CONFIG),
+    sepbn_ghm=dict(small=SMALL_SEPBN_GHM, config=None),
+    nasfpn=dict(small=small_dense(
+        "RetinaNet", SMALL_SEPBN_HEAD, dict(
+            type="NASFPN", in_channels=(64, 128, 256, 512), out_channels=64,
+            num_outs=5, stack_times=2, start_level=1)),
+        config=NASFPN_CONFIG),
+    ssd=dict(small=dict(type="SSD", input_size=300,
+                        bbox_head=dict(type="SSDHead", num_classes=21)),
+             config=SSD_CONFIG, img=300))
+# the dense kinds: float images (they read them as they are), no
+# RoIAlign launch a call or a step
+for _spec in HBB_KINDS.values():
+    if _spec.get("small", {}).get("type") in (
+            "FCOS", "ATSS", "FOVEA", "RepPointsDetector", "GARetinaNet",
+            "FreeAnchorRetinaNet", "RetinaNet", "SSD"):
+        _spec.update(dense=True, predict={})
+        _spec.setdefault("train", {})
+HBB_KINDS.update(
+    dcn=dict(small=dict(type="FasterRCNN", **SMALL_DCN_BACKBONE),
+             config=DCN_CONFIG, predict=K1, train=K2, ref_img=128),
+    mdconv=dict(small=dict(type="MaskRCNN", **SMALL_DCN_BACKBONE,
+                           mask_head=dict(type="FCNMaskHead",
+                                          **SMALL_HBB_MASK_HEAD)),
+                config=MDCONV_CONFIG, predict=dict(roi_align=2), train=None,
+                masks=True, ref_img=128))
+# each reference phase's kind, and the configs as written with their titles
+SLICE15_REFERENCES = ("fcos", "atss", "fovea", "reppoints", "ga_retina",
+                      "free_anchor", "sepbn_ghm", "nasfpn", "ssd", "dcn")
+SLICE15_PATHS = (
+    ("fcos", "FCOS R50-FPN"), ("atss", "ATSS R50-FPN"),
+    ("fovea", "FoveaBox R50-FPN"),
+    ("reppoints", "RepPoints moment R50-FPN-GN"),
+    ("ga_retina", "GA-RetinaNet R50-FPN"),
+    ("free_anchor", "FreeAnchor RetinaNet R50-FPN"),
+    ("sepbn", "RetinaNet R50-FPN SepBN head"),
+    ("ghm", "RetinaNet R50-FPN GHMC + GHMR"),
+    ("nasfpn", "RetinaNet R50-NAS-FPN SepBN head"),
+    ("ssd", "SSD300 VGG-16"),
+    ("dcn", "FasterRCNN R50-FPN dconv C3-C5"),
+    ("mdconv", "Mask R-CNN R50-FPN mdconv C3-C5"),
+    ("reppoints_dcn", "RepPoints moment R101-FPN-GN dconv C3-C5"))
+
+
+def run_slice15(card):
+    """The reference phases of slice 15's families (small models, the card
+    against the CPU: FCOS with centre sampling, ATSS, FoveaBox, RepPoints
+    moment, GA-RetinaNet, FreeAnchor, RetinaNet with the SepBN head and
+    the GHM losses, NAS-FPN, SSD300, a FasterRCNN with DCNv2 stages),
+    then the configs as written: predict of all thirteen, and the train
+    steps of all but Mask R-CNN mdconv and RepPoints R101 dcn.  Returns
+    the runs' fields by path name."""
+    for kind in SLICE15_REFERENCES:
+        phase(f"{kind}_reference", card=card, **run_hbb_reference(kind=kind))
+    runs = {}
+    for kind, title in SLICE15_PATHS:
+        paths = run_hbb_paths(kind=kind)
+        for part in ("predict", "train"):
+            if part in paths:
+                runs[f"{kind}_{part}"] = paths[part]
+        phase(kind, model=title, card=card, **paths)
+    return runs
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -4440,6 +4613,11 @@ def main() -> int:
     runs.update(run_slice12(info["nvidia_smi"], runs["loop"]["ms_per_step"]))
     runs.update(run_slice13(info["nvidia_smi"]))
     runs.update(run_slice14(info["nvidia_smi"]))
+    slice15 = run_slice15(info["nvidia_smi"])
+    # the dense detectors launch no kernel: the kernels line counts the
+    # dcn R-CNNs' paths
+    runs.update({k: v for k, v in slice15.items()
+                 if k.split("_")[0] in ("dcn", "mdconv")})
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

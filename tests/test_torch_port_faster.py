@@ -224,7 +224,6 @@ STILL_RAISE = {
     "faster_rcnn_attention_1111_dcn_r50_fpn_1x.py": "gen_attention",
     "faster_rcnn_attention_1111_r50_fpn_1x.py": "gen_attention",
     "faster_rcnn_carafe_r50_fpn_1x.py": "FPN_CARAFE",
-    "faster_rcnn_dconv_c3-c5_r50_fpn_1x.py": "dcn",
     "faster_rcnn_r50_fpn_gn_ws_1x.py": "ConvWS",
     # an FCNMaskHead under HTC's mask information flow: the reference
     # raises too (its FCNMaskHead takes no previous-stage feature)
@@ -235,7 +234,6 @@ STILL_RAISE = {
     "htc_without_semantic_r50_fpn_1x.py": "FCNMaskHead",
     "htc_x101_32x4d_fpn_20e.py": "FCNMaskHead",
     "htc_x101_64x4d_fpn_20e.py": "FCNMaskHead",
-    "mask_rcnn_mdconv_c3-c5_r50_fpn_1x.py": "dcn",
     "mask_rcnn_r101_fpn_gn_2x.py": "FCNMaskHead norm_cfg",
     "mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py": "gcb",
     "mask_rcnn_r4_gcb_c3-c5_r50_fpn_1x.py": "gcb",
@@ -245,11 +243,6 @@ STILL_RAISE = {
     "mask_rcnn_r50_fpn_gn_ws_20_23_24e.py": "ConvWS",
     "mask_rcnn_r50_fpn_gn_ws_2x.py": "ConvWS",
     "mask_rcnn_x101_32x4d_fpn_gn_ws_2x.py": "ResNeXt option 'norm_cfg'",
-    "retinanet_crop640_r50_fpn_50e.py": "RetinaSepBNHead",
-    "retinanet_crop640_r50_nasfpn_50e.py": "NASFPN",
-    "retinanet_ghm_r50_fpn_1x.py": "GHMC",
-    "retinanet_nasfpn_r50_1x.py": "NASFPN",
-    "retinanet_sepbn_r50_fpn_1x.py": "RetinaSepBNHead",
     "scratch_mask_rcnn_r50_fpn_gn_6x.py": "FCNMaskHead norm_cfg",
 }
 SLICE_CONFIGS = sorted(

@@ -157,26 +157,31 @@ def test_config_fromfile_equal_reference(path):
 
 def test_registry_names_what_is_not_ported():
     """Unregistered types raise the registry's KeyError naming them (the
-    GARetinaNet detector; FasterRCNN and GridRCNN, which this test named
-    before they were ported, now build), a config's list of necks too
-    (Libra's FPN then BFP now builds; FPN then the unported NASFPN is
-    built in order and raises the KeyError, not an AttributeError),
+    FPN_CARAFE neck; FasterRCNN, GridRCNN and GARetinaNet, which this
+    test named before they were ported, now build), a config's list of
+    necks too (Libra's FPN then BFP now builds; FPN then the unported
+    FPN_CARAFE is built in order and raises the KeyError, not an
+    AttributeError; NASFPN, which it named before, now builds),
     unported options raise NotImplementedError (the FCN mask head's GN
-    norm_cfg, the ResNet's gcb, dcn, a mismatched rbbox_encode; Mask
-    Scoring R-CNN's mask_iou_head and the C4 shared_head, which it named
-    before they were ported, now build)."""
-    with pytest.raises(KeyError, match="GARetinaNet.*not yet ported"):
-        build_detector(dict(type="GARetinaNet"), device="cpu")
+    norm_cfg, the ResNet's gcb, its gen_attention, a mismatched
+    rbbox_encode; Mask Scoring R-CNN's mask_iou_head, the C4
+    shared_head and the ResNet's dcn, which it named before they were
+    ported, now build)."""
+    with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
+        build_detector(dict(type="FasterRCNN", neck=dict(
+            type="FPN_CARAFE")), device="cpu")
+    build_detector(dict(type="GARetinaNet"), device="meta")
     build_detector(dict(type="GridRCNN"), device="meta")
     libra = Config.fromfile("configs/libra_retinanet_r50_fpn_1x.py")
     assert [n["type"] for n in libra.model.neck] == ["FPN", "BFP"]
     with torch.device("meta"):
         built = build_detector(dict(libra.model), device="meta")
     assert [type(n).__name__ for n in built.neck] == ["FPN", "BFP"]
-    with pytest.raises(KeyError, match="NASFPN.*not yet ported"):
+    with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
         with torch.device("meta"):
             build_detector(dict(libra.model, neck=[
-                libra.model.neck[0], dict(type="NASFPN")]), device="meta")
+                libra.model.neck[0], dict(type="FPN_CARAFE")]),
+                device="meta")
     build_detector(dict(type="MaskScoringRCNN", mask_head=dict(
         type="FCNMaskHead"), mask_iou_head=dict(type="MaskIoUHead")),
         device="meta")
@@ -192,10 +197,15 @@ def test_registry_names_what_is_not_ported():
         build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
                                                gcb=dict(ratio=0.25))),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="dcn"):
-        build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
-                                               dcn=dict(modulated=True))),
-                       device="cpu")
+    with pytest.raises(NotImplementedError, match="gen_attention"):
+        build_detector(dict(cfg, backbone=dict(
+            type="ResNet", depth=50, gen_attention=dict(
+                attention_type="1111"),
+            gen_attention_stages=(False, False, True, True))),
+            device="cpu")
+    build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
+                                           dcn=dict(modulated=True))),
+                   device="meta")
     with pytest.raises(NotImplementedError, match="rbbox_encode"):
         build_detector(dict(cfg, rbbox_encode="pointobb"), device="cpu")
     hrnet = build_detector(dict(

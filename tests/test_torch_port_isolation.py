@@ -29,7 +29,10 @@ in); a fifth rehearses slice 14's (hbb_reference's Mask Scoring,
 GA-Faster, Grid, Double-Head and Libra kinds CPU against CPU, then the
 eight kinds of its configs at the small architecture; the C4 kind's
 reference phase runs on the card; tests/test_torch_port_c4.py holds
-its model to the reference).  pandas and
+its model to the reference); a sixth rehearses slice 15's (the
+reference phases of the single-stage zoo and the dcn FasterRCNN CPU
+against CPU; then ten kinds of its configs at the small
+architecture, in a seventh).  pandas and
 matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
@@ -228,6 +231,39 @@ print("SLICE14 PHASES", hbb["predict"]["n_valid"])
 """
 
 
+RUN_SLICE15_REFERENCES = RUN_BLOCKED[:RUN_BLOCKED.index(
+    "import chip_smoke")] + """
+import chip_smoke
+for kind in chip_smoke.SLICE15_REFERENCES:
+    ref = chip_smoke.run_hbb_reference(device="cpu", kind=kind)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("SLICE15 REFERENCES", ref["n_valid"])
+"""
+
+
+RUN_SLICE15_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] \
+    + """
+import chip_smoke
+# (sepbn, ghm and reppoints_dcn share the small models of sepbn_ghm's
+# reference and of reppoints)
+for kind, _ in chip_smoke.SLICE15_PATHS:
+    if kind in ("sepbn", "ghm", "reppoints_dcn"):
+        continue
+    paths = chip_smoke.run_hbb_paths(device="cpu", small=True, kind=kind)
+    for part in paths.values():
+        if isinstance(part, dict):
+            assert set(part["launches"].values()) == {0}, paths
+            assert part.get("n_valid", 1) > 0, paths
+    if kind == "free_anchor":
+        assert "positive_bag_loss" in paths["train"]["losses"][0], paths
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("SLICE15 PHASES", paths["predict"]["n_valid"])
+"""
+
+
 def _env():
     """The subprocesses' environment: no PYTHONPATH, and in a
     pytest-xdist worker one OpenMP thread.  Beside the tier-1 run's
@@ -283,6 +319,17 @@ def test_slice14_phases_run_with_reference_imports_blocked():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("SLICE14 PHASES")
+
+
+@pytest.mark.parametrize("script,last", [
+    (RUN_SLICE15_REFERENCES, "SLICE15 REFERENCES"),
+    (RUN_SLICE15_PHASES, "SLICE15 PHASES")], ids=["references", "paths"])
+def test_slice15_phases_run_with_reference_imports_blocked(script, last):
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith(last)
 
 
 def _imports(path):

@@ -339,8 +339,9 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
     """The reference's parameter tree of the config (its shapes, from
     `jax.eval_shape`, filled with seeded values) carried over by
     `flax_to_state_dict` loads strictly, the GroupNorm r18_e2e
-    RetinaNetOBB's too; an SSD VGG backbone is not registered (ResNeXt,
-    which this test named before it was ported, now is)."""
+    RetinaNetOBB's too; an FPN_CARAFE neck is not registered (ResNeXt
+    and the SSD VGG backbone, which this test named before they were
+    ported, now are)."""
     cfg = Config.fromfile(path)
     model_cfg = dict(cfg.model, **extra)
     tm = build_detector(model_cfg, train_cfg=cfg.get("train_cfg"),
@@ -361,8 +362,8 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
             "configs/dota_retinanet_theta_obb_r18_e2e.py")
         assert gn.neck.lateral_norm0.num_groups == 32
         assert gn.neck.extra0.bias is not None
-        with pytest.raises(KeyError, match="SSDVGG.*not yet ported"):
-            build_detector(dict(model_cfg, backbone=dict(type="SSDVGG")),
+        with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
+            build_detector(dict(model_cfg, neck=dict(type="FPN_CARAFE")),
                            device="cpu")
 
 

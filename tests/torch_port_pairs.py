@@ -3,8 +3,10 @@ weights, shared by tests/test_torch_port_gn.py, test_torch_port_ohem.py,
 test_torch_port_soft_nms.py, test_torch_port_tta.py,
 test_torch_port_faster.py, test_torch_port_cascade.py,
 test_torch_port_mmdet_weights.py, test_torch_port_c4.py,
-test_torch_port_ga.py, test_torch_port_zoo_heads.py and
-test_torch_port_libra.py: the small architecture of
+test_torch_port_ga.py, test_torch_port_zoo_heads.py,
+test_torch_port_libra.py and slice 15's test_torch_port_points_heads.py,
+test_torch_port_retina_zoo.py, test_torch_port_ssd.py and
+test_torch_port_dcn.py: the small architecture of
 tests/test_models_forward.py (ResNet-18, a 64-channel FPN, 128^2), the
 reference's variables with seeded norms carried over by the weight
 bridge, and a seeded batch of uint8 images and thetaobb gts (or HBB
@@ -156,7 +158,7 @@ def assert_bridge_loads(path):
     tm = build_detector(dict(cfg.model), train_cfg=cfg.get("train_cfg"),
                         test_cfg=cfg.get("test_cfg"), device="cpu")
     rs = np.random.RandomState(0)
-    v = jax.tree.map(lambda s: rs.randn(*s.shape).astype(np.float32),
+    v = jax.tree.map(lambda s: np.asarray(rs.randn(*s.shape), np.float32),
                      reference_tree(path))
     sd, unmapped = flax_to_state_dict(v, tm)
     assert not unmapped
@@ -220,14 +222,14 @@ def hbb_batch(seed=6, masks=False, semantic=False):
     return out
 
 
-def shaped_variables(jm, seed=0):
+def shaped_variables(jm, seed=0, img=IMG):
     """Seeded variables of the reference module ``jm`` from the shapes
-    of its init (`jax.eval_shape`, a trace without a compile): kernels
-    ~ N(0, 1 / fan_in), as its initializer, other leaves 0 (scales and
-    variances 1), then every norm
+    of its init on an ``img``^2 input (`jax.eval_shape`, a trace without
+    a compile): kernels ~ N(0, 1 / fan_in), as its initializer, other
+    leaves 0 (scales and variances 1), then every norm
     seeded as `perturb_all_norms` does."""
     tree = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
-                          jnp.zeros((1, IMG, IMG, 3)))
+                          jnp.zeros((1, img, img, 3)))
     rs = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -349,5 +351,100 @@ def seeded_variables(jm, *args, seed=0):
         if getattr(path[-1], "key", "").endswith("kernel"):
             fan_in = int(np.prod(s.shape[:-1]))
             return (rs.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
-        return (0.1 * rs.randn(*s.shape)).astype(np.float32)
+        return np.asarray(0.1 * rs.randn(*s.shape), np.float32)
     return jax.tree_util.tree_map_with_path(fill, tree)
+
+
+# the single-stage zoo (slice 15): ResNet-18, a 64-channel FPN P3-P7
+# with its extra levels by convs on P5, a dense head of 64 channels and
+# one tower conv, 16 classes, 128^2 images
+DENSE_NECK = dict(type="FPN", in_channels=(64, 128, 256, 512),
+                  out_channels=64, num_outs=5, start_level=1,
+                  add_extra_convs=True, extra_convs_on_inputs=False)
+
+
+def dense_cfg(type_name, head, **extra):
+    """The small ``type_name`` detector with the head config ``head`` (its
+    type and own keywords) at 64 channels."""
+    cfg = dict(type=type_name, backbone=dict(type="ResNet", depth=18),
+               neck=dict(DENSE_NECK),
+               bbox_head=dict(dict(num_classes=16, in_channels=64,
+                                   feat_channels=64, stacked_convs=1),
+                              **head),
+               img_size=IMG)
+    cfg.update(extra)
+    return cfg
+
+
+def dense_variables(jm, seed=0, img=IMG):
+    """`shaped_variables`, then the leaves it would leave at 0 that scale a
+    whole map set to values near the reference's initial ones: the FCOS
+    and ATSS heads' per-level ``scale{l}`` in [0.8, 1.2], SepBN's per-level
+    norms (scales in [0.5, 1.5], biases N(0, 0.1)), SSD's L2Norm ``gamma``
+    in [16, 24], RepPoints' ``moment_transfer`` N(0, 0.2)."""
+    import re
+    v = shaped_variables(jm, seed, img)
+    rs = np.random.RandomState(seed + 1)
+
+    def fix(tree):
+        for k, x in tree.items():
+            if hasattr(x, "items"):
+                fix(x)
+            elif re.fullmatch(r"scale\d+", k):
+                tree[k] = rs.uniform(0.8, 1.2, np.shape(x)).astype(np.float32)
+            elif re.fullmatch(r"\w+_bn_l\d+_\d+_scale", k):
+                tree[k] = rs.uniform(0.5, 1.5, np.shape(x)).astype(np.float32)
+            elif re.fullmatch(r"\w+_bn_l\d+_\d+_bias", k):
+                tree[k] = rs.normal(0, 0.1, np.shape(x)).astype(np.float32)
+            elif k == "gamma":
+                tree[k] = rs.uniform(16, 24, np.shape(x)).astype(np.float32)
+            elif k == "moment_transfer":
+                tree[k] = rs.normal(0, 0.2, np.shape(x)).astype(np.float32)
+    fix(v)
+    return v
+
+
+def dense_pair(cfg, seed=0, img=IMG):
+    """`shaped_pair` with `dense_variables`."""
+    jm = j_build(cfg)
+    v = dense_variables(jm, seed, img)
+    sd, unmapped = flax_to_state_dict(v)
+    assert not unmapped, unmapped
+    tm = build_detector(cfg, device="cpu", train=True)
+    tm.load_state_dict(sd, strict=True)
+    return jm, v, tm.eval()
+
+
+def dense_batch(seed=6, img=IMG, n_gt=G, boxes=None):
+    """Two images of zero-mean float32 noise (the anchor-free detectors
+    and SSD read their images as they are: floats keep flax's and torch's
+    GroupNorm within their bounds) with ``n_gt`` gts each (the second
+    image's last invalid; ``boxes`` [2, n_gt, 4] replaces the seeded
+    ones), labels 1..15."""
+    rs = np.random.RandomState(seed)
+    if boxes is None:
+        xy = rs.uniform(4, img - img * 0.45, (2, n_gt, 2))
+        boxes = np.concatenate(
+            [xy, xy + rs.uniform(img / 8, img * 0.43, (2, n_gt, 2))], -1)
+    return dict(
+        imgs=rs.randn(2, img, img, 3).astype(np.float32),
+        gt_boxes=np.asarray(boxes, np.float32),
+        gt_valid=np.asarray([[True] * n_gt, [True] * (n_gt - 1) + [False]]),
+        gt_labels=rs.randint(1, 16, (2, n_gt)).astype(np.int32),
+        img_shapes=np.asarray([[img, img], [img, img - 16]], np.float32))
+
+
+def assert_matched(got, ref, limits):
+    """Every valid detection of ``got`` paired with one of ``ref`` of the
+    same image and label, scores and boxes within ``limits``, in any
+    order (`chip_smoke.match_detections`: random weights give scores a
+    rounding apart, which the two runs may rank either way); some
+    valid."""
+    import chip_smoke
+
+    def t(d):
+        return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    assert got["valid"].sum() > 0
+    errs = chip_smoke.match_detections(t(got), t(ref), limits)
+    assert errs["unpaired"] == 0, errs
+    return errs
