@@ -27,7 +27,13 @@ of the mapping in the reference's `tools/torch2jax.py`:
   bbox_head, and the lists _neck_{i} (a sequence of necks), _heads_{i}
   and _mask_heads_{i} (a cascade's stages) -> neck.{i}, bbox_heads.{i}
   and mask_heads.{i}; the inner names are the same on both sides
-  (ResNeXt's as ResNet's; the GN conv head's shared_conv{i} and
+  (the plug-ins' too: ConvWS's ``kernel`` as any conv's; ContextBlock's
+  conv_mask, channel_add_conv{1,2} and LayerNorm ``ln``, scale ->
+  weight; GeneralizedAttention's query/key/value/proj convs, its Dense
+  ``appr_geom_fc_{x,y}`` and its own ``appr_bias``, ``geom_bias`` and
+  scalar ``gamma``, which keep their names; FPN_CARAFE's carafe{i}
+  with channel_compressor and content_encoder; the GN mask head's
+  norm{i}; ResNeXt's as ResNet's; the GN conv head's shared_conv{i} and
   shared_norm{i}; the HTC mask head's conv_res; the fused semantic
   head's lateral{i}, conv{i}, conv_embedding and conv_logits; RetinaHead's
   cls_conv{i}, reg_conv{i}, retina_cls, retina_reg; FPN's lateral{i},
@@ -92,7 +98,9 @@ CONV_TRANSPOSE = {"upsample"}
 LEAF = {("params", "bias"): "bias", ("params", "scale"): "weight",
         ("batch_stats", "mean"): "running_mean",
         ("batch_stats", "var"): "running_var",
-        ("params", "gamma"): "gamma"}
+        ("params", "gamma"): "gamma",
+        ("params", "appr_bias"): "appr_bias",
+        ("params", "geom_bias"): "geom_bias"}
 # parameters a reference module declares itself, not through a layer:
 # GA-RPN's adaption conv kernel (HWIO) and the grid head's grouped
 # transposed-conv kernels [kh, kw, in / groups, out] with their biases,
@@ -231,7 +239,9 @@ def flax_to_state_dict(variables, model=None):
             unmapped.append("/".join(path))
             continue
         key = ".".join([top, *mid, name])
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        # (ascontiguousarray makes a 0-d leaf, gamma, 1-d)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(
+            arr.shape))
     if model is not None and STEM in sd and sd[STEM].shape[-1] == 7 \
             and getattr(model.backbone, "stem_space_to_depth", False):
         sd[STEM] = torch.from_numpy(stem_s2d_weights(sd[STEM].numpy()))

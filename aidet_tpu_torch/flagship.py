@@ -47,8 +47,10 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     LeCun-normal draw, as the reference's default initializer; a
     transposed conv's [in, out, kh, kw] weight has fan_in in * kh * kw,
     as flax counts it), biases 0, then each module's ``init_prior``
-    (RetinaHead's classification prior); frozen-BN statistics stay the
-    identity."""
+    (RetinaHead's classification prior, the zero kernels of the
+    reference's plug-ins) and ``init_seeded(generator)`` (the parameters
+    a module draws itself: GeneralizedAttention's biases); frozen-BN
+    statistics stay the identity."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -62,6 +64,8 @@ def init_weights(model: nn.Module, generator: torch.Generator):
         for m in model.modules():
             if hasattr(m, "init_prior"):
                 m.init_prior()
+            if hasattr(m, "init_seeded"):
+                m.init_seeded(generator)
     return model
 
 

@@ -6,9 +6,17 @@ the 3x3) or caffe-style ones (stride on the first 1x1), stage strides
 (1, 2, 2, 2), symmetric padding (k - 1) // 2 as in its `conv`, the
 optional space-to-depth stem, `frozen_stages`, FrozenBN or, with
 ``norm_cfg=dict(type="GN", num_groups=N)``, GroupNorm (epsilon 1e-5,
-its own weight and bias) in every norm slot, and the deformable 3x3
+its own weight and bias) in every norm slot, the deformable 3x3
 (``dcn``, `ops.deform_conv.DeformConv2d`) as the bottlenecks' conv2 in
-the stages ``stage_with_dcn`` names (reference resnet.py:114-145).  Submodule names follow
+the stages ``stage_with_dcn`` names (reference resnet.py:114-145), and
+the plug-ins of `models.plugins`: with ``conv_cfg=dict(type="ConvWS")``
+every conv is weight-standardised (the 7x7 stem, the blocks' convs and
+their downsample convs; not the space-to-depth stem nor a deformable
+conv2), with ``gcb`` a ContextBlock after each bottleneck's bn3, before
+the residual add, in the stages ``stage_with_gcb`` names
+(resnet.py:151-154), and with ``gen_attention`` a GeneralizedAttention
+after every block of the stages ``gen_attention_stages`` names
+(resnet.py:299-305).  Submodule names follow
 the reference's parameter tree (`stem_conv`, `layer1_block0.conv1`,
 ...), so `aidet_tpu_torch.convert` maps weights one to one.
 
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.deform_conv import DeformConv2d
+from ..plugins import ContextBlock, ConvWS, GeneralizedAttention
 
 
 class FrozenBN(nn.Module):
@@ -66,25 +75,32 @@ def make_norm(channels: int, norm_cfg=None):
     return FrozenBN(channels)
 
 
-def conv(cin, cout, kernel, stride=1):
-    return nn.Conv2d(cin, cout, kernel, stride, padding=(kernel - 1) // 2,
-                     bias=False)
+def conv(cin, cout, kernel, stride=1, conv_cfg=None):
+    """A bias-free conv with padding (kernel - 1) // 2: `ConvWS` for
+    ``conv_cfg=dict(type="ConvWS")``, else a plain one."""
+    if conv_cfg is not None and conv_cfg.get("type") != "ConvWS":
+        raise ValueError(f"conv_cfg {conv_cfg!r}: None or type 'ConvWS'")
+    cls = nn.Conv2d if conv_cfg is None else ConvWS
+    return cls(cin, cout, kernel, stride, padding=(kernel - 1) // 2,
+               bias=False)
 
 
 class BasicBlock(nn.Module):
-    """``style`` and ``dcn`` are taken for a uniform signature: a
-    BasicBlock has no 1x1 to stride, and `ResNet` gives it no dcn."""
+    """``style``, ``dcn`` and ``gcb`` are taken for a uniform signature:
+    a BasicBlock has no 1x1 to stride, and `ResNet` gives it no dcn or
+    context block (the reference's BasicBlock has neither)."""
     expansion = 1
 
     def __init__(self, cin, planes, stride=1, downsample=False,
-                 norm_cfg=None, style="pytorch", dcn=None):
+                 norm_cfg=None, style="pytorch", dcn=None, conv_cfg=None,
+                 gcb=None):
         super().__init__()
-        self.conv1 = conv(cin, planes, 3, stride)
+        self.conv1 = conv(cin, planes, 3, stride, conv_cfg)
         self.bn1 = make_norm(planes, norm_cfg)
-        self.conv2 = conv(planes, planes, 3)
+        self.conv2 = conv(planes, planes, 3, conv_cfg=conv_cfg)
         self.bn2 = make_norm(planes, norm_cfg)
         if downsample:
-            self.ds_conv = conv(cin, planes, 1, stride)
+            self.ds_conv = conv(cin, planes, 1, stride, conv_cfg)
             self.ds_bn = make_norm(planes, norm_cfg)
         self.downsample = downsample
 
@@ -99,19 +115,22 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin, planes, stride=1, downsample=False,
-                 norm_cfg=None, style="pytorch", dcn=None):
+                 norm_cfg=None, style="pytorch", dcn=None, conv_cfg=None,
+                 gcb=None):
         super().__init__()
         # 'caffe' strides the first 1x1, 'pytorch' the 3x3
         s1, s2 = (stride, 1) if style == "caffe" else (1, stride)
-        self.conv1 = conv(cin, planes, 1, s1)
+        self.conv1 = conv(cin, planes, 1, s1, conv_cfg)
         self.bn1 = make_norm(planes, norm_cfg)
-        self.conv2 = (conv(planes, planes, 3, s2) if dcn is None else
-                      DeformConv2d(planes, planes, 3, s2, 1, **dcn))
+        self.conv2 = (conv(planes, planes, 3, s2, conv_cfg) if dcn is None
+                      else DeformConv2d(planes, planes, 3, s2, 1, **dcn))
         self.bn2 = make_norm(planes, norm_cfg)
-        self.conv3 = conv(planes, planes * 4, 1)
+        self.conv3 = conv(planes, planes * 4, 1, conv_cfg=conv_cfg)
         self.bn3 = make_norm(planes * 4, norm_cfg)
+        if gcb is not None:
+            self.context_block = ContextBlock(planes * 4, **gcb)
         if downsample:
-            self.ds_conv = conv(cin, planes * 4, 1, stride)
+            self.ds_conv = conv(cin, planes * 4, 1, stride, conv_cfg)
             self.ds_bn = make_norm(planes * 4, norm_cfg)
         self.downsample = downsample
 
@@ -119,6 +138,8 @@ class Bottleneck(nn.Module):
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
+        if hasattr(self, "context_block"):
+            out = self.context_block(out)
         identity = self.ds_bn(self.ds_conv(x)) if self.downsample else x
         return F.relu(out + identity)
 
@@ -162,12 +183,23 @@ class ResNet(nn.Module):
     the 3x3 of every bottleneck of each stage whose ``stage_with_dcn``
     entry is true; BasicBlocks take none (a ValueError, as the
     reference's).
+
+    conv_cfg: None or dict(type="ConvWS"); gcb: None or the
+    `ContextBlock` keywords (``ratio``, ``pooling_type``) for the
+    bottlenecks of each stage ``stage_with_gcb`` flags (a BasicBlock
+    takes none, as the reference's); gen_attention: None or the
+    `GeneralizedAttention` keywords but ``in_dim``, for a
+    ``layer{i}_block{b}_gen_attention`` after every block of each
+    stage ``gen_attention_stages`` flags.
     """
 
     def __init__(self, depth=50, stem_space_to_depth=False,
                  frozen_stages=1, norm_cfg=None, style="pytorch",
                  num_stages=4, out_indices=(0, 1, 2, 3), dcn=None,
-                 stage_with_dcn=(False, False, False, False)):
+                 stage_with_dcn=(False, False, False, False), conv_cfg=None,
+                 gcb=None, stage_with_gcb=(False, False, False, False),
+                 gen_attention=None,
+                 gen_attention_stages=(False, False, False, False)):
         super().__init__()
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         if dcn is not None and block_cls is not Bottleneck:
@@ -180,8 +212,9 @@ class ResNet(nn.Module):
         if stem_space_to_depth:
             self.stem_conv = nn.Conv2d(12, BASE_CHANNELS, 4, bias=False)
         else:
-            self.stem_conv = conv(3, BASE_CHANNELS, 7, 2)
+            self.stem_conv = conv(3, BASE_CHANNELS, 7, 2, conv_cfg)
         self.stem_bn = make_norm(BASE_CHANNELS, norm_cfg)
+        bottleneck = block_cls is Bottleneck
         self.stage_names = []
         cur = BASE_CHANNELS
         for i, n_blocks in enumerate(stage_blocks):
@@ -194,9 +227,15 @@ class ResNet(nn.Module):
                 name = f"layer{i + 1}_block{b}"
                 self.add_module(name, block_cls(
                     cur, planes, stride, ds, norm_cfg, style,
-                    dcn if stage_with_dcn[i] else None))
+                    dcn if stage_with_dcn[i] else None, conv_cfg,
+                    gcb if bottleneck and stage_with_gcb[i] else None))
                 names.append(name)
                 cur = out_c
+                if gen_attention is not None and gen_attention_stages[i]:
+                    self.add_module(f"{name}_gen_attention",
+                                    GeneralizedAttention(out_c,
+                                                         **gen_attention))
+                    names.append(f"{name}_gen_attention")
             self.stage_names.append(names)
 
     def forward(self, x):

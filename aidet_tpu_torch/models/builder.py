@@ -5,9 +5,11 @@ Port of `aidet_tpu/models/builder.py`.  The registries hold the port's
 modules under the reference's type names, each behind a factory that
 reads the reference's keyword names: the backbones `ResNet` (FrozenBN
 or GroupNorm, pytorch or caffe style, the C4 detectors' 3 stages, the
-deformable ``dcn`` stages), `ResNeXt`, `HRNet` and `SSDVGG`, the necks
-`FPN` (optionally with GroupNorm), `HRFPN`, `BFP`, `NASFPN` and
-`Identity` (a config's list of necks runs them in order), the shared
+deformable ``dcn`` stages, the plug-ins ``conv_cfg`` (ConvWS), ``gcb``
+and ``gen_attention``), `ResNeXt`, `HRNet` and `SSDVGG`, the necks
+`FPN` (optionally with GroupNorm), `HRFPN`, `BFP`, `NASFPN`,
+`FPN_CARAFE` and `Identity` (a config's list of necks runs them in
+order), the shared
 head `ResLayer`, the heads `RPNHead`, `GARPNHead`, `BBoxHead`,
 `SharedFCBBoxHead` (and `ConvFCBBoxHead`), `DoubleConvFCBBoxHead`,
 `RBBoxHead`, `MaskIoUHead`, `GridHead`, the mask and semantic heads,
@@ -18,7 +20,8 @@ and the detectors (`RPN`, the two-stage presets from `FasterRCNN` to
 `DoubleHeadRCNN`, `CascadeRCNN`, `HTC`, the single-stage ones with
 `FreeAnchorRetinaNet`, `FCOS`, `ATSS`, `FOVEA`, `RepPointsDetector`,
 `GARetinaNet` and `SSD`).  The reference's own build failures stay
-failures: ResNeXt takes no ``dcn`` (a TypeError), and SSD at an
+failures: ResNeXt takes no ``dcn``, ``norm_cfg`` or ``conv_cfg`` (a
+TypeError), and SSD at an
 ``input_size`` whose maps are not SSD300's raises a ValueError.  An
 option the port does not implement raises `NotImplementedError` unless
 it holds the reference's default; a type that is not registered raises
@@ -68,7 +71,7 @@ from .losses import (GHMC, GHMR, BalancedL1Loss, BoundedIoULoss, FocalLoss,
 from .necks.bfp import BFP
 from .necks.fpn import FPN, Identity
 from .necks.hrfpn import HRFPN
-from .necks.nas_fpn import NASFPN
+from .necks.nas_fpn import FPN_CARAFE, NASFPN
 from .registry import BACKBONES, DETECTORS, HEADS, NECKS, SHARED_HEADS
 from .shared_heads import ResLayer
 
@@ -122,6 +125,8 @@ def _norm_cfg(type_name, norm_cfg):
 def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
             frozen_stages=1, norm_cfg=None, style="pytorch", num_stages=4,
             out_indices=(0, 1, 2, 3), dcn=None, stage_with_dcn=NO_STAGES,
+            conv_cfg=None, gcb=None, stage_with_gcb=NO_STAGES,
+            gen_attention=None, gen_attention_stages=NO_STAGES,
             dtype=None, **options):
     # stem_s2d_phase is the same function over the same weight, relaid
     # for the TPU's matrix unit; the port has one s2d stem
@@ -132,15 +137,16 @@ def _resnet(depth=50, stem_space_to_depth=False, stem_s2d_phase=False,
         raise ValueError(f"ResNet style {style!r}: 'pytorch' or 'caffe'")
     _only_defaults("ResNet", options, dict(
         strides=(1, 2, 2, 2), dilations=(1, 1, 1, 1),
-        base_channels=64, gen_attention=None,
-        gen_attention_stages=NO_STAGES,
-        gcb=None, stage_with_gcb=NO_STAGES, conv_cfg=None,
-        norm_eval=True, pretrained=None))
+        base_channels=64, norm_eval=True, pretrained=None))
     return ResNet(depth=depth, stem_space_to_depth=stem_space_to_depth,
                   frozen_stages=frozen_stages,
                   norm_cfg=_norm_cfg("ResNet", norm_cfg), style=style,
                   num_stages=num_stages, out_indices=tuple(out_indices),
-                  dcn=dcn, stage_with_dcn=tuple(stage_with_dcn))
+                  dcn=dcn, stage_with_dcn=tuple(stage_with_dcn),
+                  conv_cfg=conv_cfg, gcb=gcb,
+                  stage_with_gcb=tuple(stage_with_gcb),
+                  gen_attention=gen_attention,
+                  gen_attention_stages=tuple(gen_attention_stages))
 
 
 @BACKBONES.register(name="HRNet")
@@ -154,14 +160,23 @@ def _hrnet(width=32, stage_modules=(1, 1, 4, 3), stage_blocks=4,
                  stage_blocks=stage_blocks)
 
 
+# the ResNet fields the reference's ResNeXt lacks, with what they build
+RESNEXT_LACKS = dict(conv_cfg="weight-standardised convs",
+                     dcn="deformable stages",
+                     norm_cfg="norm other than FrozenBN",
+                     stage_with_dcn="deformable stages")
+
+
 @BACKBONES.register(name="ResNeXt")
 def _resnext(depth=101, groups=32, base_width=4, frozen_stages=1,
              style="pytorch", dtype=None, **options):
-    if "dcn" in options or "stage_with_dcn" in options:
-        # a field the reference's ResNeXt does not have: it raises the
-        # same TypeError when it builds
-        raise TypeError("ResNeXt got an unexpected keyword argument 'dcn' "
-                        "(the reference's ResNeXt has no deformable stages)")
+    for key in sorted(options):
+        if key in RESNEXT_LACKS:
+            # a field the reference's ResNeXt does not have: it raises
+            # the same TypeError when it builds
+            raise TypeError(f"ResNeXt got an unexpected keyword argument "
+                            f"{key!r} (the reference's ResNeXt has no "
+                            f"{RESNEXT_LACKS[key]})")
     if depth not in (50, 101):
         raise NotImplementedError(f"ResNeXt depth {depth} is {NOT_PORTED}; "
                                   "50 and 101 are")
@@ -221,6 +236,14 @@ def _bfp(in_channels=256, num_levels=5, refine_level=2, refine_type="conv",
     _only_defaults("BFP", options, {})
     return BFP(in_channels=in_channels, num_levels=num_levels,
                refine_level=refine_level, refine_type=refine_type)
+
+
+@NECKS.register(name="FPN_CARAFE")
+def _fpn_carafe(in_channels=(256, 512, 1024, 2048), out_channels=256,
+                num_outs=5, dtype=None, **options):
+    _only_defaults("FPN_CARAFE", options, {})
+    return FPN_CARAFE(in_channels=tuple(in_channels),
+                      out_channels=out_channels, num_outs=num_outs)
 
 
 @SHARED_HEADS.register(name="ResLayer")
@@ -336,12 +359,14 @@ def _rbbox_head(num_classes=16, in_channels=256, fc_out_channels=1024,
 
 @HEADS.register(name="FCNMaskHead")
 def _fcn_mask_head(num_convs=4, in_channels=256, conv_out_channels=256,
-                   num_classes=81, dtype=None, **options):
-    _only_defaults("FCNMaskHead", options, dict(
-        norm_cfg=None, upsample_ratio=2, class_agnostic=False))
+                   num_classes=81, class_agnostic=False, norm_cfg=None,
+                   dtype=None, **options):
+    _only_defaults("FCNMaskHead", options, dict(upsample_ratio=2))
     return FCNMaskHead(num_convs=num_convs, in_channels=in_channels,
                        conv_out_channels=conv_out_channels,
-                       num_classes=num_classes)
+                       num_classes=num_classes,
+                       class_agnostic=class_agnostic,
+                       norm_cfg=_norm_cfg("FCNMaskHead", norm_cfg))
 
 
 @HEADS.register(name="HTCMaskHead")

@@ -10,8 +10,10 @@ itself (centermap_head.py:34-47).  NHWC in and out: crops [N, s, s, C] ->
 maps [N, 2s, 2s, classes].  Submodule names follow the reference's
 parameter tree (conv0.., upsample, conv_logits), so
 `aidet_tpu_torch.convert` maps the weights one to one; a flax
-ConvTranspose kernel is flipped in space there.  The FCN head's GN
-``norm_cfg`` and class-agnostic logits are not ported.
+ConvTranspose kernel is flipped in space there.  The FCN head takes the
+reference's ``norm_cfg`` (configs/gn: each conv without its bias, then
+GroupNorm ``norm{i}``, before the ReLU) and ``class_agnostic`` (one
+logit map for every class).
 """
 
 from __future__ import annotations
@@ -19,27 +21,43 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
+from ..backbones.resnet import make_norm
+
 
 class FCNMaskHead(nn.Module):
     def __init__(self, num_convs=4, in_channels=256, conv_out_channels=256,
-                 num_classes=81):
+                 num_classes=81, class_agnostic=False, norm_cfg=None):
         super().__init__()
         self.num_convs = num_convs
+        self.norm = norm_cfg is not None
         cin = in_channels
         for i in range(num_convs):
             self.add_module(f"conv{i}", nn.Conv2d(cin, conv_out_channels, 3,
-                                                  padding=1))
+                                                  padding=1,
+                                                  bias=not self.norm))
+            if self.norm:
+                self.add_module(f"norm{i}",
+                                make_norm(conv_out_channels, norm_cfg))
             cin = conv_out_channels
         self.upsample = nn.ConvTranspose2d(cin, conv_out_channels, 2,
                                            stride=2)
-        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes - 1, 1)
+        self.conv_logits = nn.Conv2d(conv_out_channels,
+                                     1 if class_agnostic else num_classes - 1,
+                                     1)
+
+    def trunk(self, x):
+        """The convs (and norms) with their ReLUs on NCHW x."""
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv{i}")(x)
+            if self.norm:
+                x = getattr(self, f"norm{i}")(x)
+            x = F.relu(x)
+        return x
 
     def forward(self, x):
-        """x: [N, s, s, C] -> [N, 2s, 2s, classes - 1]."""
-        x = x.permute(0, 3, 1, 2)
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv{i}")(x))
-        x = F.relu(self.upsample(x))
+        """x: [N, s, s, C] -> [N, 2s, 2s, classes - 1] (1 map when
+        class-agnostic)."""
+        x = F.relu(self.upsample(self.trunk(x.permute(0, 3, 1, 2))))
         return self.conv_logits(x).permute(0, 2, 3, 1)
 
 
@@ -78,8 +96,7 @@ class HTCMaskHead(FCNMaskHead):
         x = x.permute(0, 3, 1, 2)
         if res_feat is not None:
             x = x + F.relu(self.conv_res(res_feat.permute(0, 3, 1, 2)))
-        for i in range(self.num_convs):
-            x = F.relu(getattr(self, f"conv{i}")(x))
+        x = self.trunk(x)
         outs = []
         if return_logits:
             y = F.relu(self.upsample(x))

@@ -7,7 +7,8 @@ Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 `mask_cross_entropy`, `CrossEntropyLoss`), `smooth_l1_loss.py`
 (`smooth_l1_loss`, `SmoothL1Loss`), `balanced_l1_loss.py`
 (`balanced_l1_loss`, `BalancedL1Loss`: Libra R-CNN's),
-`focal_loss.py` (`FocalLoss`), `centermap_loss.py`
+`focal_loss.py` (`FocalLoss`), `mse_loss.py` (`mse_loss`, `MSELoss`),
+`accuracy.py` (`accuracy`), `centermap_loss.py`
 (`CenterMapLoss`), `iou_loss.py` (`IoULoss` :62, `BoundedIoULoss` :80,
 `GIoULoss` :90) and `ghm_loss.py` (`GHMC` :48 and `GHMR` :83, which
 recompute the bins' density on each batch: the reference's ignore
@@ -160,6 +161,40 @@ class SmoothL1Loss:
         return self.loss_weight * smooth_l1_loss(
             pred, target, weight, beta=self.beta, reduction=reduction,
             avg_factor=avg_factor)
+
+
+def mse_loss(pred, target, weight=None, reduction="mean", avg_factor=None):
+    return weight_reduce_loss((pred - target) ** 2, weight, reduction,
+                              avg_factor)
+
+
+class MSELoss:
+    def __init__(self, reduction="mean", loss_weight=1.0):
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None,
+                 reduction_override=None):
+        reduction = reduction_override or self.reduction
+        return self.loss_weight * mse_loss(pred, target, weight, reduction,
+                                           avg_factor)
+
+
+def accuracy(pred, target, topk=1, weight=None):
+    """Top-k accuracy in percent of logits pred [..., C] for int labels
+    target [...], over the ``weight``-ed entries (all by default): one
+    value for an int ``topk``, a list for a tuple.  Ties rank the lower
+    class first (a stable sort, as the reference's argsort)."""
+    topks = (topk,) if isinstance(topk, int) else tuple(topk)
+    idx = torch.sort(-pred, dim=-1, stable=True)[1][..., :max(topks)]
+    correct = idx == target[..., None]
+    if weight is None:
+        weight = torch.ones(target.shape, dtype=pred.dtype,
+                            device=pred.device)
+    denom = weight.sum().clamp(min=1.0)
+    res = [(correct[..., :k].any(-1).to(pred.dtype) * weight).sum() / denom
+           * 100.0 for k in topks]
+    return res[0] if isinstance(topk, int) else res
 
 
 def balanced_l1_loss(pred, target, weight=None, beta=1.0, alpha=0.5,

@@ -9,9 +9,15 @@ centres: `jax.image.resize`'s, torch's "nearest-exact"), sums them ("sum")
 or adds the second gated by the sigmoid of the first's global mean
 ("gp"), then ReLU and a 3x3 conv (``conv``).  NHWC in and out.
 
-The reference registers NASFPN only when its module is imported, which
-its `necks/__init__` does not do (ROADMAP section 3); the port's
-builder registers it.  `FPN_CARAFE` of the same module is not ported.
+`FPN_CARAFE` (:88-118; parity: mmdet's fpn_carafe.py) is the FPN with
+a `CARAFEPack` upsampling each level in the top-down path (each
+lateral's CARAFE of the already merged coarser one, resized to it by
+`_resize_to` where the sizes differ), 3x3 output convs with their bias,
+and the extra levels by the 1x1 stride-2 max-pool.
+
+The reference registers NASFPN and FPN_CARAFE only when its module is
+imported, which its `necks/__init__` does not do (ROADMAP section 3);
+the port's builder registers both.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...ops.carafe import CARAFEPack
 
 # (name, op, first input, second input, the level whose size it takes,
 # the level it writes) of one stack, in order
@@ -85,3 +93,31 @@ class NASFPN(nn.Module):
                 p[out] = getattr(self, f"s{t}_{name}")(p[a], p[b], p[like])
         return tuple(p[k].permute(0, 2, 3, 1)
                      for k in ("p3", "p4", "p5", "p6", "p7"))
+
+
+class FPN_CARAFE(nn.Module):
+    def __init__(self, in_channels=(256, 512, 1024, 2048), out_channels=256,
+                 num_outs=5):
+        super().__init__()
+        self.num_ins = len(in_channels)
+        self.num_outs = num_outs
+        for i, c in enumerate(in_channels):
+            self.add_module(f"lateral{i}", nn.Conv2d(c, out_channels, 1))
+            self.add_module(f"fpn{i}", nn.Conv2d(out_channels, out_channels,
+                                                 3, padding=1))
+            if i:
+                self.add_module(f"carafe{i}", CARAFEPack(out_channels))
+
+    def forward(self, inputs):
+        """inputs: C2..C5 [B, H, W, C] -> num_outs maps [B, H, W, out]."""
+        laterals = [getattr(self, f"lateral{i}")(x.permute(0, 3, 1, 2))
+                    for i, x in enumerate(inputs)]
+        for i in range(len(laterals) - 1, 0, -1):
+            up = getattr(self, f"carafe{i}")(laterals[i])
+            laterals[i - 1] = laterals[i - 1] + _resize_to(up,
+                                                           laterals[i - 1])
+        outs = [getattr(self, f"fpn{i}")(lat)
+                for i, lat in enumerate(laterals)]
+        while len(outs) < self.num_outs:
+            outs.append(outs[-1][:, :, ::2, ::2])
+        return tuple(o.permute(0, 2, 3, 1) for o in outs)

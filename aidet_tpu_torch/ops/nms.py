@@ -4,7 +4,8 @@ multiclass orchestration of the detector heads.
 Port of `aidet_tpu/ops/nms.py` (`_suppression_matrix`,
 `_greedy_keep_presupp`, `nms`, `soft_nms`, `rnms`, `multiclass_nms`
 with its ``box_dim=8`` rotated branch and its soft-NMS branch,
-`NMSResult`, `select_parallel_rboxes`, `nms_cfg_kwargs`), in plain
+`multiclass_nms_with_index` :387, `batched_nms` :431, `NMSResult`,
+`select_parallel_rboxes`, `nms_cfg_kwargs`), in plain
 PyTorch: the reference writes these as XLA
 code, not as Pallas kernels.  Every function takes any number of
 leading batch dimensions, so all (image, level) or (image, class)
@@ -316,6 +317,38 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
     if single:
         res = NMSResult(*(t[0] for t in res))
     return res
+
+
+def multiclass_nms_with_index(multi_bboxes, multi_scores, score_thr: float,
+                              iou_thr: float = 0.5, max_num: int = 100,
+                              valid: torch.Tensor | None = None) -> NMSResult:
+    """`multiclass_nms` of boxes, read for its provenance: each kept
+    detection's class (``labels``) and source roi (``roi_idx``), at
+    which a parallel rotated branch selects its own decode
+    (`select_parallel_rboxes`: the reference's "rbbox NMS by bbox
+    NMS", rbbox_nms.py:6-118)."""
+    return multiclass_nms(multi_bboxes, multi_scores, score_thr,
+                          iou_thr=iou_thr, max_num=max_num, valid=valid)
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                idxs: torch.Tensor, iou_thr: float,
+                valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Category-aware NMS of boxes [N, 4]: boxes of different ``idxs``
+    never suppress each other (torchvision's batched_nms).  The IoU is
+    `bbox_overlaps`' (legacy +1 sizes) over ``iou_thr``, as the
+    reference's.  Returns the keep mask [N]."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool,
+                           device=scores.device)
+    order = torch.argsort(-torch.where(valid, scores,
+                                       scores.new_tensor(NEG_INF)),
+                          stable=True)
+    boxes_s, idxs_s = boxes[order], idxs[order]
+    supp = ((bbox_overlaps(boxes_s, boxes_s) > iou_thr)
+            & (idxs_s[:, None] == idxs_s[None, :]))
+    keep_sorted = _greedy_keep_presupp(supp, valid[order])
+    return torch.zeros_like(keep_sorted).scatter(0, order, keep_sorted)
 
 
 def select_parallel_rboxes(rbbox_decoded, res: NMSResult, box_dim: int):

@@ -2,7 +2,8 @@
 the wrappers of the hand-written CUDA kernels K1, K2 and K3.
 
 Ports `aidet_tpu/ops/roi_align.py` (`map_roi_levels`,
-`batched_multilevel_roi_align`) and replaces three TPU kernels:
+`batched_multilevel_roi_align`, `multilevel_roi_align_fused` :142 and
+`roi_rescale` :315) and replaces three TPU kernels:
 
 - K1, `aidet_tpu/ops/roi_align_band.py::roi_align_band` (predict), by
   `csrc/roi_align.cu`;
@@ -20,12 +21,16 @@ Ports `aidet_tpu/ops/roi_align.py` (`map_roi_levels`,
 Feature maps are NHWC `[B, H_l, W_l, C]`, rois `[B, R, 4]` (x1, y1,
 x2, y2) in image pixels, crops `[B, R, s, s, C]`.
 
-`roi_align_forward` is the entry point of K1 and K2: on CPU tensors it
+`roi_align_forward` is the entry point of K1 and K2 (and
+`multilevel_roi_align_fused`, its single-image form): on CPU tensors it
 runs the plain version (differentiable through autograd: its gradient
 is the plain backward), on CUDA tensors it launches the kernels (and
 raises on anything they do not take): K1 when no gradient is wanted,
 else `RoIAlignFunction`.  `roi_align_bandx_forward` is K3's, forward
-only.  Level routing is plain torch in all cases.
+only.  Level routing is plain torch in all cases.  A
+``roi_scale_factor`` scales each roi about its centre after its level
+is chosen from its own size (`roi_rescale`; the reference's
+SingleRoIExtractor order).
 """
 
 from __future__ import annotations
@@ -88,10 +93,22 @@ def route_rois(rois: torch.Tensor, level_hw, featmap_strides,
     return lvls.to(torch.int32)
 
 
+def roi_rescale(rois: torch.Tensor, scale_factor: float) -> torch.Tensor:
+    """Rois [K, 4] scaled by ``scale_factor`` about their centres, in the
+    inclusive-pixel convention (sizes x2 - x1 + 1)."""
+    cx = (rois[:, 0] + rois[:, 2]) * 0.5
+    cy = (rois[:, 1] + rois[:, 3]) * 0.5
+    w = (rois[:, 2] - rois[:, 0] + 1.0) * scale_factor
+    h = (rois[:, 3] - rois[:, 1] + 1.0) * scale_factor
+    return torch.stack([cx - 0.5 * (w - 1), cy - 0.5 * (h - 1),
+                        cx + 0.5 * (w - 1), cy + 0.5 * (h - 1)], dim=-1)
+
+
 def batched_multilevel_roi_align(feats, rois_b, out_size=7,
                                  featmap_strides=(4, 8, 16, 32),
                                  sampling_ratio=2, finest_scale=56,
-                                 aligned=True, bump_to_window=False):
+                                 aligned=True, bump_to_window=False,
+                                 roi_scale_factor=None):
     """Plain PyTorch multi-level RoIAlign (the version K1 is held to).
 
     All levels of the batch flatten into one [B * sum(HW), C] table and
@@ -112,6 +129,8 @@ def batched_multilevel_roi_align(feats, rois_b, out_size=7,
     rois = rois_b.reshape(b * r, 4).to(compute)
     lvls = route_rois(rois, [tuple(f.shape[1:3]) for f in feats],
                       featmap_strides, finest_scale, bump_to_window)
+    if roi_scale_factor is not None:
+        rois = roi_rescale(rois, roi_scale_factor)
     bidx = torch.arange(b, device=rois.device).repeat_interleave(r)
     out = roi_align_plain(feats, rois, bidx, lvls, out_size,
                           featmap_strides, sampling_ratio, aligned)
@@ -777,7 +796,7 @@ class RoIAlignFunction(torch.autograd.Function):
 def roi_align_forward(feats, rois_b, out_size=7,
                       featmap_strides=(4, 8, 16, 32), sampling_ratio=2,
                       finest_scale=56, aligned=True, bump_to_window=False,
-                      train=False):
+                      train=False, roi_scale_factor=None):
     """Batched multi-level RoIAlign: [B, R, out_size, out_size, C].
 
     On CPU tensors: the plain version.  On CUDA tensors, in the
@@ -793,7 +812,7 @@ def roi_align_forward(feats, rois_b, out_size=7,
     if devices == {torch.device("cpu")}:
         return batched_multilevel_roi_align(
             feats, rois_b, out_size, featmap_strides, sampling_ratio,
-            finest_scale, aligned, bump_to_window)
+            finest_scale, aligned, bump_to_window, roi_scale_factor)
     roi_align_kernel.check(feats, rois_b, featmap_strides, out_size,
                            sampling_ratio)
     b, r = rois_b.shape[:2]
@@ -801,6 +820,8 @@ def roi_align_forward(feats, rois_b, out_size=7,
     lvls = route_rois(rois, [tuple(f.shape[1:3]) for f in feats],
                       featmap_strides, finest_scale,
                       bump_to_window).contiguous()
+    if roi_scale_factor is not None:
+        rois = roi_rescale(rois, roi_scale_factor).contiguous()
     bidx = torch.arange(b, dtype=torch.int32,
                         device=rois.device).repeat_interleave(r)
     if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
@@ -814,6 +835,21 @@ def roi_align_forward(feats, rois_b, out_size=7,
         kernel(feats, rois, bidx, lvls, out, featmap_strides,
                sampling_ratio, aligned)
     return out.reshape(b, r, out_size, out_size, -1)
+
+
+def multilevel_roi_align_fused(feats, rois, out_size=7,
+                               featmap_strides=(4, 8, 16, 32),
+                               sampling_ratio=2, finest_scale=56,
+                               aligned=True, roi_scale_factor=None):
+    """The multi-level RoIAlign of one image: feats, its levels [H_l,
+    W_l, C]; rois [K, 4] -> [K, out_size, out_size, C].  The function of
+    `roi_align_forward` (K1 on the card without a gradient, K2 with
+    one, the plain version on the CPU) on a batch of one, with the
+    reference's ``roi_scale_factor``."""
+    return roi_align_forward(
+        [f[None] for f in feats], rois[None], out_size, featmap_strides,
+        sampling_ratio, finest_scale, aligned,
+        roi_scale_factor=roi_scale_factor)[0]
 
 
 def roi_align_bandx_plain(feats, rois_b, out_size=7,

@@ -192,6 +192,7 @@ script imports nothing of JAX or of the reference package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import logging
 import math
@@ -2888,8 +2889,10 @@ def run_detector_reference(device="cuda", kind="retinanet_obb", img=256):
             steps = [detector_step_once(kind, d, img, n_gt, cfg, robust)
                      for d in (device, "cpu")]
         if kind.startswith("gn_"):
-            t = gn_step_against_float64(kind, steps, img, n_gt, cfg,
-                                        train_limits, names)
+            t = gn_step_against_float64(
+                kind, steps, lambda d, dtype: detector_step_once(
+                    kind, d, img, n_gt, cfg, robust, dtype=dtype),
+                train_limits, names)
         else:
             t = compare_steps(f"{kind}_reference", *steps, train_limits,
                               resolved_only=True)
@@ -2914,21 +2917,22 @@ GN_FLOAT32_NOTE = ("the GroupNorm models' float32 update lies up to "
                    "count")
 
 
-def gn_step_against_float64(kind, steps, img, n_gt, cfg, limits, names):
+def gn_step_against_float64(kind, steps, step_once, limits, names,
+                            note=GN_FLOAT32_NOTE):
     """A GroupNorm model's card and CPU float32 steps (``steps``) against
-    the CPU's float64 step: the losses card against CPU within
-    ``limits``; the update's relative L2 and worst leaf of the card
-    against float64 within the larger of ``limits`` and twice the
-    farthest of the CPU's float32 steps from float64 (with its default
-    threads, and with one: the order of its sums moves the update as
-    far as the device does).  Returns the fields."""
+    the CPU's float64 step (``step_once(device, dtype)`` makes one):
+    the losses card against CPU within ``limits``; the update's relative
+    L2 and worst leaf of the card against float64 within the larger of
+    ``limits`` and twice the farthest of the CPU's float32 steps from
+    float64 (with its default threads, and with one: the order of its
+    sums moves the update as far as the device does).  Returns the
+    fields."""
     import torch
-    f64 = detector_step_once(kind, "cpu", img, n_gt, cfg,
-                             dtype=torch.float64)
+    f64 = step_once("cpu", torch.float64)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        one = detector_step_once(kind, "cpu", img, n_gt, cfg)
+        one = step_once("cpu", None)
     finally:
         torch.set_num_threads(threads)
     compare_steps(f"{kind}_reference (losses)", steps[0],
@@ -2951,7 +2955,7 @@ def gn_step_against_float64(kind, steps, img, n_gt, cfg, limits, names):
         t["worst_leaf"] = names[t["worst_leaf"]]
     return dict(card_against_float64=card, cpu_against_float64=cpu,
                 cpu_one_thread_against_float64=cpu_one,
-                losses_float64=f64[0], limits=limits, note=GN_FLOAT32_NOTE)
+                losses_float64=f64[0], limits=limits, note=note)
 
 
 def staged_retina_predict(model, imgs, shapes, sync):
@@ -3770,9 +3774,19 @@ def hbb_model(kind, device, small, img=256, train=False, train_cfg=None,
     GA head's N(0, 0.5), a `DeformConv2d`'s (ResNet's dcn) N(0, 1 /
     fan_in).  The dense kinds' class and location prior biases are set to
     0 (at the focal loss's prior every sigmoid score lies under the
-    score_thr of random weights' predict)."""
+    score_thr of random weights' predict).  The plug-ins that start as
+    the identity are seeded too: each ContextBlock's channel_add_conv2
+    N(0, 1 / fan_in) (and its conv_mask bias N(0, 0.1): the softmax over
+    the positions ignores that shift, so its gradient is rounding alone,
+    which a zero weight leaves no resolution to compare), each
+    GeneralizedAttention's ``gamma`` U(0.5, 1.5),
+    its query and key convs times 0.1 (at N(0, 1 / fan_in) the energies
+    of random weights reach hundreds, and the softmax then picks keys by
+    margins the two devices' rounding moves)."""
     import torch
     from aidet_tpu_torch.models.builder import build_detector
+    from aidet_tpu_torch.models.plugins import (ContextBlock,
+                                                GeneralizedAttention)
     from aidet_tpu_torch.ops.deform_conv import DeformConv2d
     model, train_c, test_c = hbb_cfg(kind, small, img, train_cfg)
     net = build_detector(model, train_cfg=train_c, test_cfg=test_c,
@@ -3789,6 +3803,19 @@ def hbb_model(kind, device, small, img=256, train=False, train_cfg=None,
                                                  generator=gen))
             elif name.split(".")[-1] in PRIOR_CONVS:
                 m.bias.zero_()
+            elif isinstance(m, ContextBlock):
+                w = m.channel_add_conv2.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w[0].numel()))
+                if hasattr(m, "conv_mask"):
+                    m.conv_mask.bias.copy_(0.1 * torch.randn(
+                        m.conv_mask.bias.shape, generator=gen))
+            elif isinstance(m, GeneralizedAttention):
+                m.gamma.fill_(0.5 + float(torch.rand((), generator=gen)))
+                for conv in (getattr(m, "query_conv", None),
+                             getattr(m, "key_conv", None)):
+                    if conv is not None:
+                        conv.weight.mul_(0.1)
     return net
 
 
@@ -3847,11 +3874,13 @@ def hbb_train_batch(b, img, n_gt, seed, device, masks=False,
     return batch
 
 
-def hbb_step_once(kind, device, img, seed=0):
+def hbb_step_once(kind, device, img, seed=0, dtype=None):
     """One train step of the small ``kind`` on ``device`` under a
     train_cfg that keeps every candidate of every stage
     (`HBB_REF_PROPOSALS`); returns (metrics, parameters before, after),
-    on the CPU."""
+    on the CPU.  With ``dtype`` (float64) the model, its compute and the
+    batch in it (the parameters before the step as built, in
+    float32)."""
     import torch
     from aidet_tpu_torch.flagship import keep_every_candidate_cfg
     from aidet_tpu_torch.parallel.train import (build_lr_schedule,
@@ -3864,13 +3893,18 @@ def hbb_step_once(kind, device, img, seed=0):
                rpn_proposal=props)
     net = hbb_model(kind, device, True, img, train=True, train_cfg=cfg,
                     seed=seed)
-    params = list(net.parameters())
-    before = [p.detach().cpu().clone() for p in params]
-    optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
-    state = create_train_state(net, optimizer)
+    before = [p.detach().cpu().clone() for p in net.parameters()]
     batch = hbb_train_batch(2, img, HBB_REF_GTS, seed, device,
                             masks=spec.get("masks", False),
                             semantic=kind == "htc")
+    if dtype is not None:
+        net = net.to(dtype)
+        net.compute_dtype = dtype
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+    params = list(net.parameters())
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.01))
+    state = create_train_state(net, optimizer)
     with cpu_jitter(seed):
         _, metrics = make_train_step(net, optimizer)(
             state, batch, torch.Generator(device=device).manual_seed(seed))
@@ -3888,8 +3922,11 @@ def run_hbb_reference(device="cuda", kind="faster", img=256):
     predict on 2 seeded uint8 images (`match_detections` with
     `HBB_REF_LIMITS`, and masks within 1e-2), then one train step
     (cuDNN off, as the note at `UPDATE_RESOLUTION` says; "fast" trains
-    the RPN) held by `compare_steps` to `DETECTOR_REF_TRAIN_LIMITS`.
-    Returns the phase's fields."""
+    the RPN) held by `compare_steps` to `DETECTOR_REF_TRAIN_LIMITS`, or,
+    for the kinds whose float32 update the CPU's own thread count moves
+    past those limits (``ref_float64``: GCNet's and GN+WS's,
+    `PLUGIN_FLOAT32_NOTE`), held with the CPU's to the CPU's float64
+    step (`gn_step_against_float64`).  Returns the phase's fields."""
     import torch
     from aidet_tpu_torch.convert import mmdet_to_state_dict
     torch.backends.cudnn.allow_tf32 = False
@@ -3948,12 +3985,18 @@ def run_hbb_reference(device="cuda", kind="faster", img=256):
             limits["masks"] = 1e-2
     errs = match_detections(got, ref, limits, cut_slack=True)
     del models
+    step_kind = "rpn" if kind == "fast" else arch
     with torch.backends.cudnn.flags(enabled=False):
-        steps = [hbb_step_once("rpn" if kind == "fast" else arch, d, img)
-                 for d in devices]
-    t = compare_steps(f"{kind}_reference", *steps, DETECTOR_REF_TRAIN_LIMITS,
-                      resolved_only=True)
-    t["worst_leaf"] = names[t["worst_leaf"]]
+        steps = [hbb_step_once(step_kind, d, img) for d in devices]
+        if spec.get("ref_float64"):
+            t = gn_step_against_float64(
+                kind, steps, lambda d, dtype: hbb_step_once(
+                    step_kind, d, img, dtype=dtype),
+                DETECTOR_REF_TRAIN_LIMITS, names, PLUGIN_FLOAT32_NOTE)
+        else:
+            t = compare_steps(f"{kind}_reference", *steps,
+                              DETECTOR_REF_TRAIN_LIMITS, resolved_only=True)
+            t["worst_leaf"] = names[t["worst_leaf"]]
     return dict(out, n_valid=int(got["valid"].sum()), max_abs_err=errs,
                 limits=limits, gts=HBB_REF_GTS, train_cudnn=False,
                 train=dict(losses_card=steps[0][0], losses_cpu=steps[1][0],
@@ -4487,6 +4530,262 @@ def run_slice15(card):
     return runs
 
 
+# Slice 16: ResNet's plug-ins (generalized attention, GCNet's context
+# blocks, weight-standardised convs) and FPN_CARAFE as the COCO configs
+# write them (float32, 81 classes): R-CNNs whose RoIAlign is K1 and K2;
+# and the reference's XLA-only ops, which are plain PyTorch on the card
+ATTENTION_0010_CONFIG = "configs/faster_rcnn_attention_0010_r50_fpn_1x.py"
+ATTENTION_1111_CONFIG = "configs/faster_rcnn_attention_1111_r50_fpn_1x.py"
+ATTENTION_DCN_CONFIG = "configs/faster_rcnn_attention_1111_dcn_r50_fpn_1x.py"
+GCB_CONFIG = "configs/mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py"
+FASTER_CARAFE_CONFIG = "configs/faster_rcnn_carafe_r50_fpn_1x.py"
+MASK_CARAFE_CONFIG = "configs/mask_rcnn_r50_fpn_carafe_1x.py"
+GN_WS_CONFIG = "configs/mask_rcnn_r50_fpn_gn_ws_2x.py"
+SMALL_ATTENTION = dict(backbone=dict(
+    type="ResNet", depth=18, gen_attention=dict(
+        attention_type="1111", num_heads=8, kv_stride=2),
+    gen_attention_stages=(False, False, True, True)))
+SMALL_MASK = dict(type="MaskRCNN", mask_head=dict(type="FCNMaskHead",
+                                                  **SMALL_HBB_MASK_HEAD))
+MASK_K1 = dict(roi_align=2)
+MASK_K2 = dict(roi_align_train_forward=2, roi_align_backward=2)
+HBB_KINDS.update(
+    attention=dict(small=dict(type="FasterRCNN", **SMALL_ATTENTION),
+                   config=ATTENTION_1111_CONFIG, predict=K1, train=K2,
+                   ref_img=128),
+    attention_0010=dict(small=dict(type="FasterRCNN", **SMALL_ATTENTION),
+                        config=ATTENTION_0010_CONFIG, predict=K1, train=K2),
+    attention_dcn=dict(small=dict(type="FasterRCNN", **SMALL_ATTENTION),
+                       config=ATTENTION_DCN_CONFIG, predict=K1, train=None),
+    gcb=dict(small=dict(SMALL_MASK, backbone=dict(
+        type="ResNet", depth=50, gcb=dict(ratio=1 / 16),
+        stage_with_gcb=(False, True, True, True)),
+        neck=SMALL_DCN_BACKBONE["neck"]),
+        config=GCB_CONFIG, predict=MASK_K1, train=MASK_K2, masks=True,
+        pipeline=GCB_CONFIG, ref_img=128),
+    faster_carafe=dict(small=dict(type="FasterRCNN", neck=dict(
+        type="FPN_CARAFE", in_channels=(64, 128, 256, 512), out_channels=64,
+        num_outs=5)), config=FASTER_CARAFE_CONFIG, predict=K1, train=K2),
+    gn_ws=dict(small=dict(SMALL_MASK, backbone=dict(
+        type="ResNet", depth=18, norm_cfg=GN_CFG,
+        conv_cfg=dict(type="ConvWS")), neck=dict(
+            SMALL_MODEL["neck"], norm_cfg=GN_CFG),
+        mask_head=dict(SMALL_MASK["mask_head"], norm_cfg=GN_CFG)),
+        config=GN_WS_CONFIG, predict=MASK_K1, train=MASK_K2, masks=True,
+        pipeline=GN_WS_CONFIG, ref_img=128))
+HBB_KINDS.update(carafe=dict(
+    HBB_KINDS["faster_carafe"], small=dict(
+        SMALL_MASK, neck=HBB_KINDS["faster_carafe"]["small"]["neck"]),
+    config=MASK_CARAFE_CONFIG, predict=MASK_K1, train=MASK_K2, masks=True,
+    pipeline=MASK_CARAFE_CONFIG, ref_img=128))
+for _kind in ("gcb", "gn_ws"):
+    HBB_KINDS[_kind]["ref_float64"] = True
+# the small GCNet and GN+WS Mask R-CNNs' first-step update in float32
+# against the CPU's float64, on the CPU alone: GCNet 8.9e-4 relative L2
+# with its default threads (5.9e-5 with one), the worst leaf at 2.2e-2
+# of its largest update (layer4's conv2); GN+WS 1.2e-3 and 4.1e-2 with
+# one thread (8.8e-5 with its default threads); CARAFE's and the
+# attention's stay under 4e-5 and 2e-3 either way
+PLUGIN_FLOAT32_NOTE = ("the GCNet and GN+WS models' float32 update lies up "
+                       "to 1.2e-3 relative L2 and 4.1e-2 of a leaf's "
+                       "largest update from float64 on the CPU alone, by "
+                       "its thread count")
+SLICE16_REFERENCES = ("attention", "gcb", "carafe", "gn_ws")
+SLICE16_PATHS = (
+    ("attention_0010", "FasterRCNN R50-FPN attention 0010"),
+    ("attention", "FasterRCNN R50-FPN attention 1111"),
+    ("gcb", "Mask R-CNN R50-FPN GCNet r16 C3-C5"),
+    ("faster_carafe", "FasterRCNN R50-FPN_CARAFE"),
+    ("carafe", "Mask R-CNN R50-FPN_CARAFE"),
+    ("gn_ws", "Mask R-CNN R50-FPN GN+WS"),
+    ("attention_dcn", "FasterRCNN R50-FPN attention 1111 dconv C3-C5"))
+# the ops phase's shapes: one 1024^2 image's four 256-channel levels with
+# 1000 proposals (multilevel_roi_align_fused, K1), 256 rois on its
+# stride-16 level (the deformable pools) and stride-32 level (roi_pool),
+# a 128^2 map of 256 channels (CARAFE's P4 -> P3, grid_sample, the
+# masked conv); and the CPU rehearsal's
+SLICE16_OPS = dict(img=1024, channels=256, rois=1000, pool_rois=256,
+                   map=128)
+SLICE16_OPS_SMALL = dict(img=256, channels=32, rois=100, pool_rois=32,
+                         map=32)
+OPS_REL = 1e-4      # card against CPU, of the output's largest magnitude
+
+
+def run_slice16_ops(device="cuda", small=False):
+    """The reference's XLA-only ops on ``device`` against the CPU on the
+    same seeded inputs (`SLICE16_OPS`, or `SLICE16_OPS_SMALL` with
+    ``small``), float32 with TF32 off: each
+    output within `OPS_REL` of its largest magnitude, and for the
+    deformable pools and their packs the gradient of a seeded cotangent
+    too, computed in float64 on both (its float32 differences are
+    reported: in a pack the offsets come from the features, and a sample
+    that the two devices' float32 rounding puts on either side of a cell
+    edge takes another cell's slope, which moved the features' gradient
+    by 1.8e-2 of its largest; float64 leaves no sample that close),
+    with the device's ms a call; `multilevel_roi_align_fused` at
+    roi_scale_factor 1.0 and 1.5, through K1 (one launch each, counted
+    here) against K1's plain version on the CPU.  Returns the fields."""
+    import torch
+    from aidet_tpu_torch.ops import deform_pool as dp
+    from aidet_tpu_torch.ops.carafe import CARAFEPack
+    from aidet_tpu_torch.ops.grid_sample import (affine_grid, grid_sample,
+                                                 masked_conv2d)
+    from aidet_tpu_torch.ops.roi_align import multilevel_roi_align_fused
+    from aidet_tpu_torch.ops.roi_pool import roi_pool
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    on_card = torch.device(device).type == "cuda"
+    sz = SLICE16_OPS_SMALL if small else SLICE16_OPS
+    gen = torch.Generator().manual_seed(16)
+    c, img = sz["channels"], sz["img"]
+    feats = [torch.randn((img // st, img // st, c), generator=gen)
+             for st in MAIN["strides"]]
+    rois = main_path_rois(gen, 1, sz["rois"], img)[0]
+    xy = torch.rand((sz["pool_rois"], 2), generator=gen) * img * 0.9
+    pool_rois = torch.cat([xy, xy + 8 + torch.rand(
+        (sz["pool_rois"], 2), generator=gen) * img * 0.3], 1)
+    fmap = torch.randn((2, sz["map"], sz["map"], c), generator=gen)
+    theta = torch.tensor([[[1.1, 0.2, 0.05], [-0.1, 0.9, -0.1]],
+                          [[0.8, -0.3, 0.2], [0.25, 1.05, 0.1]]])
+    weight = torch.randn((c, c, 3, 3), generator=gen) / math.sqrt(9 * c)
+    mask = (torch.rand((2, sz["map"], sz["map"], 1), generator=gen)
+            > 0.5).float()
+    pack = dict(out_size=7, out_channels=c, spatial_scale=1 / 16,
+                sample_per_part=2, trans_std=0.1)
+    packs = {}
+    for name, cls, extra in (
+            ("deform_pack", dp.DeformRoIPoolingPack, {}),
+            ("mdeform_pack", dp.ModulatedDeformRoIPoolingPack,
+             dict(num_mask_fcs=2))):
+        m = cls(**pack, **extra)
+        with torch.no_grad():
+            for p in m.parameters():     # the zero-started linears too
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        / math.sqrt(p.shape[-1]))
+        packs[name] = m
+    carafe = CARAFEPack(c)
+    cot = torch.randn((sz["pool_rois"], 7, 7, c), generator=gen)
+    cases = dict(
+        roi_align_fused_1_0=lambda d, t: multilevel_roi_align_fused(
+            [t(f) for f in feats], t(rois), 7, MAIN["strides"],
+            roi_scale_factor=1.0),
+        roi_align_fused_1_5=lambda d, t: multilevel_roi_align_fused(
+            [t(f) for f in feats], t(rois), 7, MAIN["strides"],
+            roi_scale_factor=1.5),
+        roi_pool=lambda d, t: roi_pool(t(feats[3]), t(pool_rois), 7,
+                                       1 / 32),
+        grid_sample=lambda d, t: grid_sample(
+            t(fmap), affine_grid(t(theta), (2, sz["map"], sz["map"])),
+            padding_mode="zeros"),
+        masked_conv2d=lambda d, t: masked_conv2d(t(fmap), t(mask),
+                                                 t(weight)),
+        carafe=lambda d, t: carafe.to(d)(t(fmap).permute(0, 3, 1, 2)))
+    out = dict(shapes=sz, rel_limit=OPS_REL, tf32=False)
+    on_device = {}
+
+    def to_device(x):       # each input copied to the device once
+        if id(x) not in on_device:
+            on_device[id(x)] = x.to(device)
+        return on_device[id(x)]
+    launch_counts(reset=True)
+    with torch.no_grad():
+        for name, fn in cases.items():
+            out[name] = dict(rel_err=_rel_err(fn(device, to_device),
+                                              fn("cpu", lambda x: x)))
+    # the comparisons' launches: K1 once for each fused call
+    out["launches"] = launch_counts()
+    if on_card:
+        with torch.no_grad():
+            for name, fn in cases.items():
+                out[name]["ms"] = cuda_ms(lambda: fn(device, to_device), 3,
+                                          1)
+    # the deformable pools: forward and the gradient for the features
+    # (and the offsets), card against CPU; the gradients also in float64
+    off = 0.3 * torch.randn((sz["pool_rois"], 7, 7, 2), generator=gen)
+    cached = {}
+
+    def put(x, d, dtype):   # x on (d, dtype), converted once
+        key = (id(x), d, dtype)
+        if key not in cached:
+            module = isinstance(x, torch.nn.Module)
+            cached[key] = (copy.deepcopy(x) if module else x).to(d, dtype)
+        return cached[key]
+    grad_cases = dict(
+        deform_roi_pool=lambda d, f, o: dp.deform_roi_pool(
+            f, put(pool_rois, d, f.dtype), o, 7, 1 / 16, 2, 0.1),
+        deform_pack=lambda d, f, o: put(packs["deform_pack"], d, f.dtype)(
+            f, put(pool_rois, d, f.dtype)),
+        mdeform_pack=lambda d, f, o: put(packs["mdeform_pack"], d, f.dtype)(
+            f, put(pool_rois, d, f.dtype)))
+
+    def run(fn, d, dtype):
+        f = put(feats[2], d, dtype).detach().requires_grad_()
+        o = put(off, d, dtype).detach().requires_grad_()
+        y = fn(d, f, o)
+        grads = torch.autograd.grad((y * put(cot, d, dtype)).sum(), (f, o),
+                                    allow_unused=True)
+        return y.detach(), grads[0], grads[1]
+
+    for name, fn in grad_cases.items():
+        (y, g, go), (y_ref, g_ref, go_ref) = (
+            run(fn, d, torch.float32) for d in (device, "cpu"))
+        fields = dict(rel_err=_rel_err(y, y_ref),
+                      grad_f32_max_rel=_rel_err(g, g_ref),
+                      grad_f32_rel_l2=_rel_l2(g, g_ref))
+        (_, g, go), (_, g_ref, go_ref) = (
+            run(fn, d, torch.float64) for d in (device, "cpu"))
+        fields["grad_rel_err"] = _rel_err(g, g_ref)
+        if go_ref is not None:
+            fields["offset_grad_rel_err"] = _rel_err(go, go_ref)
+        if on_card:
+            fields["forward_backward_ms"] = cuda_ms(
+                lambda: run(fn, device, torch.float32), 3, 1)
+        out[name] = fields
+    bad = {k: v for k, v in out.items() if isinstance(v, dict) and any(
+        k2.endswith("rel_err") and not x <= OPS_REL for k2, x in v.items())}
+    want = dict.fromkeys(HANDLES, 0)
+    if on_card:
+        want["roi_align"] = 2
+    if bad or out["launches"] != want:
+        raise AssertionError(f"slice16 ops: {bad or out['launches']}")
+    return out
+
+
+def _rel_err(got, ref):
+    """Largest |got - ref| over ref's largest magnitude (inf if not
+    finite)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err = float((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12))
+    return err if math.isfinite(err) else math.inf
+
+
+def _rel_l2(got, ref):
+    """||got - ref|| / ||ref|| in float64 (inf if not finite)."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    err = float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+    return err if math.isfinite(err) else math.inf
+
+
+def run_slice16(card):
+    """The reference phases of slice 16's plug-ins (small models, the card
+    against the CPU: FasterRCNN with '1111' attention, GCNet Mask R-CNN,
+    CARAFE Mask R-CNN, GN+WS Mask R-CNN), the configs as written
+    (`SLICE16_PATHS`: predict of all seven, the train steps of all but
+    the attention dcn one), then the ops phase.  Returns the runs'
+    fields by path name."""
+    for kind in SLICE16_REFERENCES:
+        phase(f"{kind}_reference", card=card, **run_hbb_reference(kind=kind))
+    runs = {}
+    for kind, title in SLICE16_PATHS:
+        paths = run_hbb_paths(kind=kind)
+        for part in ("predict", "train"):
+            if part in paths:
+                runs[f"{kind}_{part}"] = paths[part]
+        phase(kind, model=title, card=card, **paths)
+    phase("slice16_ops", card=card, **run_slice16_ops())
+    return runs
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -4618,6 +4917,7 @@ def main() -> int:
     # dcn R-CNNs' paths
     runs.update({k: v for k, v in slice15.items()
                  if k.split("_")[0] in ("dcn", "mdconv")})
+    runs.update(run_slice16(info["nvidia_smi"]))
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

@@ -213,18 +213,12 @@ def test_gn_conv_bbox_head_matches_the_reference(agnostic):
 
 
 # the configs of the two-stage detector types (and RetinaNet's, for
-# libra_retinanet); those that still raise are listed with the type or
-# option that stops them
+# libra_retinanet); those that still raise are listed with what stops
+# them: the reference's own failures
 TYPES = ("FasterRCNN", "FastRCNN", "RPN", "CascadeRCNN", "HTC", "MaskRCNN",
          "MaskScoringRCNN", "GAFasterRCNN", "GridRCNN", "DoubleHeadRCNN",
          "RetinaNet")
 STILL_RAISE = {
-    "faster_rcnn_attention_0010_dcn_r50_fpn_1x.py": "gen_attention",
-    "faster_rcnn_attention_0010_r50_fpn_1x.py": "gen_attention",
-    "faster_rcnn_attention_1111_dcn_r50_fpn_1x.py": "gen_attention",
-    "faster_rcnn_attention_1111_r50_fpn_1x.py": "gen_attention",
-    "faster_rcnn_carafe_r50_fpn_1x.py": "FPN_CARAFE",
-    "faster_rcnn_r50_fpn_gn_ws_1x.py": "ConvWS",
     # an FCNMaskHead under HTC's mask information flow: the reference
     # raises too (its FCNMaskHead takes no previous-stage feature)
     "htc_dconv_c3-c5_mstrain_400_1400_x101_64x4d_fpn_20e.py": "FCNMaskHead",
@@ -234,16 +228,8 @@ STILL_RAISE = {
     "htc_without_semantic_r50_fpn_1x.py": "FCNMaskHead",
     "htc_x101_32x4d_fpn_20e.py": "FCNMaskHead",
     "htc_x101_64x4d_fpn_20e.py": "FCNMaskHead",
-    "mask_rcnn_r101_fpn_gn_2x.py": "FCNMaskHead norm_cfg",
-    "mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py": "gcb",
-    "mask_rcnn_r4_gcb_c3-c5_r50_fpn_1x.py": "gcb",
-    "mask_rcnn_r50_fpn_carafe_1x.py": "FPN_CARAFE",
-    "mask_rcnn_r50_fpn_gn_2x.py": "FCNMaskHead norm_cfg",
-    "mask_rcnn_r50_fpn_gn_contrib_2x.py": "FCNMaskHead norm_cfg",
-    "mask_rcnn_r50_fpn_gn_ws_20_23_24e.py": "ConvWS",
-    "mask_rcnn_r50_fpn_gn_ws_2x.py": "ConvWS",
-    "mask_rcnn_x101_32x4d_fpn_gn_ws_2x.py": "ResNeXt option 'norm_cfg'",
-    "scratch_mask_rcnn_r50_fpn_gn_6x.py": "FCNMaskHead norm_cfg",
+    # the reference's ResNeXt has no conv_cfg (nor norm_cfg) field
+    "mask_rcnn_x101_32x4d_fpn_gn_ws_2x.py": "unexpected keyword argument",
 }
 SLICE_CONFIGS = sorted(
     os.path.basename(p) for p in glob.glob(os.path.join(REPO, "configs",

@@ -269,7 +269,7 @@ def test_h_obb_configs_build_and_load():
     hobb_robust_loss builds; `configs/dota_h_obb_robust_r18_e2e.py`
     (GroupNorm R18) builds and loads the reference's variables of it
     (shapes from `jax.eval_shape`) strictly through the bridge; a
-    ConvWS backbone still raises."""
+    ConvWS backbone builds and loads through the bridge too."""
     from aidet_tpu_torch.models.backbones.resnet import GroupNorm
     from aidet_tpu_torch.utils.config import Config
     from torch_port_pairs import assert_bridge_loads
@@ -282,10 +282,13 @@ def test_h_obb_configs_build_and_load():
     model, _ = assert_bridge_loads("configs/dota_h_obb_robust_r18_e2e.py")
     assert model.hobb_robust_loss and model.rbbox_head.encode == "hobb"
     assert isinstance(model.backbone.stem_bn, GroupNorm)
-    with pytest.raises(NotImplementedError, match="conv_cfg"):
-        build_detector(dict(cfg.model, backbone=dict(
-            type="ResNet", depth=50, conv_cfg=dict(type="ConvWS"))),
-            device="cpu")
+    from aidet_tpu_torch.models.plugins import ConvWS
+    model = build_detector(dict(cfg.model, backbone=dict(
+        type="ResNet", depth=50, conv_cfg=dict(type="ConvWS"))),
+        device="cpu")
+    assert isinstance(model.backbone.layer1_block0.conv1, ConvWS)
+    model, _ = assert_bridge_loads("configs/mask_rcnn_r50_fpn_gn_ws_2x.py")
+    assert isinstance(model.backbone.stem_conv, ConvWS)
 
 
 @pytest.mark.gpu

@@ -156,20 +156,24 @@ def test_config_fromfile_equal_reference(path):
 
 
 def test_registry_names_what_is_not_ported():
-    """Unregistered types raise the registry's KeyError naming them (the
-    FPN_CARAFE neck; FasterRCNN, GridRCNN and GARetinaNet, which this
-    test named before they were ported, now build), a config's list of
-    necks too (Libra's FPN then BFP now builds; FPN then the unported
-    FPN_CARAFE is built in order and raises the KeyError, not an
-    AttributeError; NASFPN, which it named before, now builds),
-    unported options raise NotImplementedError (the FCN mask head's GN
-    norm_cfg, the ResNet's gcb, its gen_attention, a mismatched
+    """Unregistered types raise the registry's KeyError naming them (a
+    PAFPN neck, which neither package has; FasterRCNN, GridRCNN,
+    GARetinaNet and the FPN_CARAFE neck, which this test named before
+    they were ported, now build), a config's list of necks too (Libra's
+    FPN then BFP now builds; FPN then the unregistered PAFPN is built in
+    order and raises the KeyError, not an AttributeError; NASFPN, which
+    it named before, now builds), unported options raise
+    NotImplementedError (a BN norm_cfg of the FCN mask head, ResNet
+    strides other than the reference's default, a mismatched
     rbbox_encode; Mask Scoring R-CNN's mask_iou_head, the C4
-    shared_head and the ResNet's dcn, which it named before they were
-    ported, now build)."""
-    with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
+    shared_head, the ResNet's dcn, gcb and gen_attention and the FCN
+    mask head's GN norm_cfg, which it named before they were ported,
+    now build)."""
+    with pytest.raises(KeyError, match="PAFPN.*not yet ported"):
         build_detector(dict(type="FasterRCNN", neck=dict(
-            type="FPN_CARAFE")), device="cpu")
+            type="PAFPN")), device="cpu")
+    build_detector(dict(type="FasterRCNN", neck=dict(type="FPN_CARAFE")),
+                   device="meta")
     build_detector(dict(type="GARetinaNet"), device="meta")
     build_detector(dict(type="GridRCNN"), device="meta")
     libra = Config.fromfile("configs/libra_retinanet_r50_fpn_1x.py")
@@ -177,32 +181,34 @@ def test_registry_names_what_is_not_ported():
     with torch.device("meta"):
         built = build_detector(dict(libra.model), device="meta")
     assert [type(n).__name__ for n in built.neck] == ["FPN", "BFP"]
-    with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
+    with pytest.raises(KeyError, match="PAFPN.*not yet ported"):
         with torch.device("meta"):
             build_detector(dict(libra.model, neck=[
-                libra.model.neck[0], dict(type="FPN_CARAFE")]),
+                libra.model.neck[0], dict(type="PAFPN")]),
                 device="meta")
     build_detector(dict(type="MaskScoringRCNN", mask_head=dict(
         type="FCNMaskHead"), mask_iou_head=dict(type="MaskIoUHead")),
         device="meta")
+    build_detector(dict(type="MaskRCNN", mask_head=dict(
+        type="FCNMaskHead", norm_cfg=dict(type="GN", num_groups=32))),
+        device="meta")
     with pytest.raises(NotImplementedError, match="norm_cfg"):
         build_detector(dict(type="MaskRCNN", mask_head=dict(
-            type="FCNMaskHead", norm_cfg=dict(type="GN", num_groups=32))),
-            device="meta")
+            type="FCNMaskHead", norm_cfg=dict(type="BN"))), device="meta")
     cfg = small_flagship_cfg(IMG)
     build_detector(dict(cfg, type="FasterRCNN", rbbox_head=None,
                         shared_head=dict(type="ResLayer", depth=18)),
                    device="meta")
-    with pytest.raises(NotImplementedError, match="gcb"):
+    build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
+                                           gcb=dict(ratio=0.25))),
+                   device="meta")
+    build_detector(dict(cfg, backbone=dict(
+        type="ResNet", depth=50, gen_attention=dict(attention_type="1111"),
+        gen_attention_stages=(False, False, True, True))), device="meta")
+    with pytest.raises(NotImplementedError, match="strides"):
         build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
-                                               gcb=dict(ratio=0.25))),
+                                               strides=(1, 2, 2, 1))),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="gen_attention"):
-        build_detector(dict(cfg, backbone=dict(
-            type="ResNet", depth=50, gen_attention=dict(
-                attention_type="1111"),
-            gen_attention_stages=(False, False, True, True))),
-            device="cpu")
     build_detector(dict(cfg, backbone=dict(type="ResNet", depth=50,
                                            dcn=dict(modulated=True))),
                    device="meta")

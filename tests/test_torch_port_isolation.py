@@ -32,7 +32,10 @@ reference phase runs on the card; tests/test_torch_port_c4.py holds
 its model to the reference); a sixth rehearses slice 15's (the
 reference phases of the single-stage zoo and the dcn FasterRCNN CPU
 against CPU; then ten kinds of its configs at the small
-architecture, in a seventh).  pandas and
+architecture, in a seventh); an eighth rehearses slice 16's (the
+reference phases of the attention, GCNet, CARAFE and GN+WS R-CNNs CPU
+against CPU, the seven kinds of its configs at the small architecture,
+and the ops phase at its small shapes).  pandas and
 matplotlib may be
 imported only inside a function (the export's optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
@@ -264,6 +267,28 @@ print("SLICE15 PHASES", paths["predict"]["n_valid"])
 """
 
 
+RUN_SLICE16_PHASES = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] \
+    + """
+import chip_smoke
+for kind in chip_smoke.SLICE16_REFERENCES:
+    ref = chip_smoke.run_hbb_reference(device="cpu", kind=kind)
+    assert ref["max_abs_err"]["unpaired"] == 0 and ref["n_valid"] > 0, ref
+for kind, _ in chip_smoke.SLICE16_PATHS:
+    paths = chip_smoke.run_hbb_paths(device="cpu", small=True, kind=kind)
+    for part in paths.values():
+        if isinstance(part, dict):
+            assert set(part["launches"].values()) == {0}, paths
+            assert part.get("n_valid", 1) > 0, paths
+    if kind in ("gcb", "carafe", "gn_ws"):
+        assert "loss_mask" in paths["train"]["losses"][0], paths
+ops = chip_smoke.run_slice16_ops(device="cpu", small=True)
+assert set(ops["launches"].values()) == {0}, ops
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("SLICE16 PHASES", paths["predict"]["n_valid"])
+"""
+
+
 def _env():
     """The subprocesses' environment: no PYTHONPATH, and in a
     pytest-xdist worker one OpenMP thread.  Beside the tier-1 run's
@@ -330,6 +355,14 @@ def test_slice15_phases_run_with_reference_imports_blocked(script, last):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith(last)
+
+
+def test_slice16_phases_run_with_reference_imports_blocked():
+    proc = subprocess.run([sys.executable, "-c", RUN_SLICE16_PHASES],
+                          cwd=REPO, env=_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("SLICE16 PHASES")
 
 
 def _imports(path):

@@ -339,9 +339,9 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
     """The reference's parameter tree of the config (its shapes, from
     `jax.eval_shape`, filled with seeded values) carried over by
     `flax_to_state_dict` loads strictly, the GroupNorm r18_e2e
-    RetinaNetOBB's too; an FPN_CARAFE neck is not registered (ResNeXt
-    and the SSD VGG backbone, which this test named before they were
-    ported, now are)."""
+    RetinaNetOBB's too; a PAFPN neck is not registered (ResNeXt, the
+    SSD VGG backbone and the FPN_CARAFE neck, which this test named
+    before they were ported, now are)."""
     cfg = Config.fromfile(path)
     model_cfg = dict(cfg.model, **extra)
     tm = build_detector(model_cfg, train_cfg=cfg.get("train_cfg"),
@@ -362,9 +362,11 @@ def test_configs_build_and_load_the_bridges_weights(path, extra):
             "configs/dota_retinanet_theta_obb_r18_e2e.py")
         assert gn.neck.lateral_norm0.num_groups == 32
         assert gn.neck.extra0.bias is not None
-        with pytest.raises(KeyError, match="FPN_CARAFE.*not yet ported"):
-            build_detector(dict(model_cfg, neck=dict(type="FPN_CARAFE")),
+        with pytest.raises(KeyError, match="PAFPN.*not yet ported"):
+            build_detector(dict(model_cfg, neck=dict(type="PAFPN")),
                            device="cpu")
+        build_detector(dict(model_cfg, neck=dict(type="FPN_CARAFE")),
+                       device="meta")
 
 
 def test_train_detector_takes_a_single_stage_config(tmp_path):
