@@ -10,7 +10,10 @@ masks, so shapes stay fixed.  Leading batch dimensions are written out
 ([..., N]).
 
 Randomness comes only from the ``generator`` the caller passes (on the
-candidates' device); the global RNG is never drawn from.  JAX's
+candidates' device); the global RNG is never drawn from.  In a
+data-parallel step each rank samples its own rows of the global batch
+from its own generator, seeded from (seed, step, rank)
+(`apis.train.step_seed`), so no two ranks draw the same noise.  JAX's
 threefry streams cannot be reproduced, so the samplers are held to the
 reference by their properties (counts, the positive cap, masks inside
 the candidates) and, where every candidate is kept, by equality.

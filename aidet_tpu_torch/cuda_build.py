@@ -93,3 +93,20 @@ def ptxas_report(log: str) -> list[dict]:
             cur["spill_store_bytes"] = int(m.group(1))
             cur["spill_load_bytes"] = int(m.group(2))
     return kernels
+
+
+def build_all(sources=None) -> dict:
+    """Build every kernel source of the port (``csrc/*.cu`` by default),
+    one nvcc process per source, all started together: source ->
+    `BuildResult`."""
+    from concurrent.futures import ThreadPoolExecutor
+    sources = sorted(sources or (Path(__file__).parent / "csrc").glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip(sources, pool.map(build_shared_library, sources)))
+
+
+if __name__ == "__main__":
+    # python -m aidet_tpu_torch.cuda_build: build the kernels once before
+    # several processes start (tools/torch_dist_train.sh)
+    for src, res in build_all().items():
+        print(f"{src.name}: {res.path.name}, nvcc {res.seconds:.1f} s")

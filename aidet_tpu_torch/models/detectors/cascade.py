@@ -43,6 +43,7 @@ from ...core.boxes import delta2bbox
 from ...core.sample import sample_fixed
 from ...core.targets import bbox_target, mask_target
 from ...ops.nms import multiclass_nms, nms_cfg_kwargs
+from ...parallel.dist import global_count
 from ..heads.bbox_head import bbox_head_loss, softmax
 from ..heads.semantic_head import semantic_loss
 from ..losses import CrossEntropyLoss, SmoothL1Loss, mask_cross_entropy
@@ -154,7 +155,7 @@ class CascadeRCNN(AnchorDetector):
         labels = torch.where(pos.is_pos, torch.gather(
             gt_labels.long(), 1, pos.gt_inds.clamp(0, g - 1)), 0).reshape(-1)
         is_pos = pos.is_pos.reshape(-1).float()
-        navg = is_pos.sum().clamp(min=1.0) * msize ** 2
+        navg = global_count(is_pos.sum()).clamp(min=1.0) * msize ** 2
         return mask_cross_entropy(pred, tgt, labels,
                                   weight=is_pos[:, None, None],
                                   avg_factor=navg)

@@ -84,6 +84,7 @@ from ...ops.nms import (NEG_INF, multiclass_nms, nms, nms_cfg_kwargs,
                         select_parallel_rboxes, topk)
 from ...ops.roi_align import roi_align_bandx_forward, roi_align_forward
 from ...ops.rroi_align import rroi_align_forward
+from ...parallel.dist import global_count, global_mean
 from ..heads.anchor_head import (anchor_head_loss, flatten_level_outputs,
                                  rpn_proposals)
 from ..heads.bbox_head import (bbox_head_decode, bbox_head_loss,
@@ -344,23 +345,24 @@ class AnchorDetector(nn.Module):
         losses = dict(
             loss_rpn_loc=self.ga_loc_loss(
                 out.loc[..., None], loc_tgt.long(), weight=loc_w[..., None],
-                avg_factor=loc_tgt.sum().clamp(min=1.0)),
+                avg_factor=global_count(loc_tgt.sum()).clamp(min=1.0)),
             loss_rpn_shape=self.ga_shape_loss(
                 out.shape, shape_tgt,
                 weight=pos[..., None].expand_as(out.shape).float(),
-                avg_factor=pos.sum().clamp(min=1.0)))
+                avg_factor=global_count(pos.sum()).clamp(min=1.0)))
         per = [anchor_head_loss(
             out.cls[i:i + 1], out.reg[i:i + 1], out.anchors[i].detach(),
             gt_boxes[i:i + 1], gt_valid[i:i + 1], img_shapes[i:i + 1],
             generator, target_stds=self.rpn_target_stds,
             cls_loss=self.rpn_cls_loss, bbox_loss=self.rpn_bbox_loss,
             assigner_cfg=_assigner(rpn), sampler_cfg=_sampler(rpn),
-            allowed_border=-1, pos_weight=rpn["pos_weight"])
+            allowed_border=-1, pos_weight=rpn["pos_weight"],
+            global_avg=False)
             for i in range(gt_boxes.shape[0])]
-        losses["loss_rpn_cls"] = torch.stack([p["loss_cls"] for p in per]
-                                             ).mean()
-        losses["loss_rpn_bbox"] = torch.stack([p["loss_bbox"] for p in per]
-                                              ).mean()
+        losses["loss_rpn_cls"] = global_mean(
+            torch.stack([p["loss_cls"] for p in per]))
+        losses["loss_rpn_bbox"] = global_mean(
+            torch.stack([p["loss_bbox"] for p in per]))
         return losses
 
     def _proposals(self, out, img_shapes, cfg):
@@ -1038,7 +1040,8 @@ class TwoStageDetector(AnchorDetector):
         labels = torch.where(pos.is_pos, torch.gather(
             gt_labels.long(), 1, pos.gt_inds.clamp(0, g - 1)), 0).reshape(-1)
         is_pos = pos.is_pos.reshape(-1).float()
-        navg = is_pos.sum().clamp(min=1.0) * msize ** 2
+        npos = global_count(is_pos.sum()).clamp(min=1.0)
+        navg = npos * msize ** 2
         if self.mask_loss_type == "centermap":
             mw = None
             if gt_mask_weights is not None:
@@ -1065,8 +1068,7 @@ class TwoStageDetector(AnchorDetector):
                 iou_pred = self.mask_iou_head(mcrops, pred_c.detach())
             iou_pred = torch.gather(iou_pred.float(), 1, idx[:, None])[:, 0]
             diff = (iou_pred - iou_tgt) * is_pos
-            losses["loss_mask_iou"] = 0.5 * (diff ** 2).sum() \
-                / is_pos.sum().clamp(min=1.0)
+            losses["loss_mask_iou"] = 0.5 * (diff ** 2).sum() / npos
         return losses
 
     def _refine_loss(self, feats, rois, rreg, sample, gt_rboxes, gt_labels,
@@ -1123,10 +1125,11 @@ class TwoStageDetector(AnchorDetector):
         diff = ref_sel - target
         sl1 = torch.where(diff.abs() < 1.0, 0.5 * diff * diff,
                           diff.abs() - 0.5)
-        npos = is_pos.sum().clamp(min=1.0)
+        npos = global_count(is_pos.sum()).clamp(min=1.0)
         ce = -torch.log_softmax(ref_cls, -1).gather(
             1, lbl_pos[:, None])[:, 0]
         lw = sample.valid[:, :p_max].reshape(-1).float()
         return dict(
             loss_rbbox_refine=(sl1.sum(-1) * is_pos).sum() / npos,
-            loss_rbbox_refine_cls=(ce * lw).sum() / lw.sum().clamp(min=1.0))
+            loss_rbbox_refine_cls=(ce * lw).sum()
+            / global_count(lw.sum()).clamp(min=1.0))

@@ -18,6 +18,7 @@ from ...core.anchors import anchor_target
 from ...core.boxes import delta2bbox
 from ...core.rboxes import RBBOX_CODECS
 from ...ops.nms import NEG_INF, multiclass_nms, nms, topk
+from ...parallel.dist import global_count
 
 
 def flatten_level_outputs(cls_scores, bbox_preds, cls_channels: int,
@@ -37,12 +38,15 @@ def anchor_head_loss(cls_flat, box_flat, anchors, gt_boxes, gt_valid,
                      target_stds=(1., 1., 1., 1.), cls_loss=None,
                      bbox_loss=None, assigner_cfg=None, sampler_cfg=None,
                      allowed_border=0.0, pos_weight=-1.0, sampling=True,
-                     gt_rboxes=None, rbox_encode=None):
+                     gt_rboxes=None, rbox_encode=None, global_avg=True):
     """Dense-head loss over flattened predictions: classification and
     regression both averaged by the sampled anchors' count,
     num_total_pos + num_total_neg, or with ``sampling=False`` (the
-    focal-loss heads: every anchor weighed) by num_total_pos.  The cls
-    loss handles its sigmoid or softmax channels itself.
+    focal-loss heads: every anchor weighed) by num_total_pos; the count
+    is the global batch's in a data-parallel step (`global_count`),
+    unless ``global_avg`` is False (a loss of one image, which its
+    caller averages over the images).  The cls loss handles its sigmoid
+    or softmax channels itself.
     ``gt_rboxes`` [B, G, D] with ``rbox_encode``: rotated-codec
     regression targets against the anchors (`anchor_target`).
 
@@ -58,6 +62,8 @@ def anchor_head_loss(cls_flat, box_flat, anchors, gt_boxes, gt_valid,
                        **(assigner_cfg or {}), **(sampler_cfg or {}))
     num_total = (tg.num_total_pos + (tg.num_total_neg if sampling
                                      else 0)).float()
+    if global_avg:
+        num_total = global_count(num_total)
     return dict(
         loss_cls=cls_loss(cls_flat, tg.labels, weight=tg.label_weights,
                           avg_factor=num_total),

@@ -19,6 +19,7 @@ from torch import nn
 from ...core.anchors import build_pyramid_anchors
 from ...core.atss import atss_assign
 from ...core.boxes import delta2bbox
+from ...parallel.dist import global_count
 from ..detectors.dense import DenseDetector, level_topk
 from ..losses import CrossEntropyLoss, FocalLoss, GIoULoss
 from .anchor_head import sigmoid
@@ -109,7 +110,7 @@ class ATSS(DenseDetector):
                                        gt_boxes, gt_valid, gt_labels,
                                        topk=self.train_cfg["topk"])
         pos = assigned > 0
-        num_pos = pos.sum().float().clamp(min=1.0)
+        num_pos = global_count(pos.sum().float()).clamp(min=1.0)
         safe = (assigned.long() - 1).clamp(0, gt_boxes.shape[1] - 1)
         matched = torch.gather(gt_boxes, 1, safe[..., None].expand(-1, -1,
                                                                   4))
@@ -121,7 +122,8 @@ class ATSS(DenseDetector):
             loss_bbox=self.reg_loss(decoded.reshape(-1, 4),
                                     matched.reshape(-1, 4),
                                     weight=ctr.reshape(-1),
-                                    avg_factor=ctr.sum().clamp(min=1e-6)),
+                                    avg_factor=global_count(
+                                        ctr.sum()).clamp(min=1e-6)),
             loss_centerness=self.ctr_loss(
                 ctr_flat.reshape(-1, 1), ctr.reshape(-1, 1),
                 weight=pos.reshape(-1, 1).float(), avg_factor=num_pos))

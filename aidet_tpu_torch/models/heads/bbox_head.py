@@ -19,6 +19,7 @@ from torch import nn
 
 from ...core.boxes import delta2bbox
 from ...core.rboxes import RBBOX_CODECS
+from ...parallel.dist import global_count
 from ..backbones.resnet import make_norm
 
 
@@ -206,8 +207,8 @@ def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
     """Second-stage loss over the sampled rois of a batch: CE over all
     of them and smooth L1 on the class-specific slice of the
     regression (the whole of it if ``reg_class_agnostic``), both
-    averaged by the count of valid samples (the label-weight sum, at
-    least 1).
+    averaged by the count of valid samples (the label-weight sum, the
+    global batch's in a data-parallel step, at least 1).
 
     cls_score [N, C], bbox_pred [N, C * box_dim] (or [N, box_dim]); ``targets``
     a `core.targets.RoiTargets` with leading dim N.  ``alt_bbox_targets`` [K,
@@ -215,7 +216,7 @@ def bbox_head_loss(cls_score, bbox_pred, targets, cls_loss, bbox_loss,
     rectangle); the regression loss is then each sample's smallest summed loss
     over them, on the positives (the reference's sort-robust hobb loss).
     """
-    avg = targets.label_weights.sum().clamp(min=1.0)
+    avg = global_count(targets.label_weights.sum()).clamp(min=1.0)
     loss_cls = cls_loss(cls_score, targets.labels,
                         weight=targets.label_weights, avg_factor=avg)
     if reg_class_agnostic:

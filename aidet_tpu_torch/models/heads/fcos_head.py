@@ -21,6 +21,7 @@ from torch import nn
 
 from ...core.boxes import distance2bbox
 from ...core.points import fcos_target, level_values
+from ...parallel.dist import global_count
 from ..detectors.dense import DenseDetector, level_topk
 from ..losses import CrossEntropyLoss, FocalLoss, IoULoss
 from .anchor_head import sigmoid
@@ -137,7 +138,7 @@ class FCOS(DenseDetector):
             gt_labels, strides=self.pstrides,
             center_sample_radius=self.center_sample_radius)
         pos = labels > 0
-        num_pos = pos.sum().float().clamp(min=1.0)
+        num_pos = global_count(pos.sum().float()).clamp(min=1.0)
         decoded = distance2bbox(self.points, reg_flat)
         target = distance2bbox(self.points, tgts)
         return dict(
@@ -145,7 +146,8 @@ class FCOS(DenseDetector):
             loss_bbox=self.iou_loss(decoded.reshape(-1, 4),
                                     target.reshape(-1, 4),
                                     weight=ctr.reshape(-1),
-                                    avg_factor=ctr.sum().clamp(min=1e-6)),
+                                    avg_factor=global_count(
+                                        ctr.sum()).clamp(min=1e-6)),
             loss_centerness=self.ctr_loss(
                 ctr_flat.reshape(-1, 1), ctr.reshape(-1, 1),
                 weight=pos.reshape(-1, 1).float(), avg_factor=num_pos))

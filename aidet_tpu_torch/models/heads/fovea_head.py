@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ...core.points import level_values
+from ...parallel.dist import global_count
 from ..detectors.dense import DenseDetector, level_topk
 from ..losses import FocalLoss, SmoothL1Loss
 from .anchor_head import sigmoid
@@ -117,7 +118,7 @@ class FOVEA(DenseDetector):
         labels, tgts, pos = fovea_target(
             self.points, self.pstrides, self.scale_ranges, gt_boxes.float(),
             gt_valid, gt_labels)
-        num_pos = pos.sum().float().clamp(min=1.0)
+        num_pos = global_count(pos.sum().float()).clamp(min=1.0)
         return dict(
             loss_cls=self.cls_loss(cls_flat, labels, avg_factor=num_pos),
             loss_bbox=self.reg_loss(reg_flat, tgts,

@@ -17,6 +17,7 @@ import torch
 
 from ...core.boxes import bbox2delta, bbox_overlaps, delta2bbox
 from ...ops.nms import topk
+from ...parallel.dist import global_count
 
 
 def _smooth_l1(x, beta):
@@ -74,6 +75,6 @@ def free_anchor_loss(cls_flat, box_flat, anchors, gt_boxes, gt_valid,
     neg_prob = cls_prob * (1.0 - image_prob)
     neg = (1.0 - alpha) * (neg_prob ** gamma * -torch.log(
         (1.0 - neg_prob).clamp(1e-12, 1.0))).sum()
-    num_pos = valid.sum().clamp(min=1).float()
+    num_pos = global_count(valid.sum()).clamp(min=1).float()
     return dict(positive_bag_loss=pos / num_pos,
                 negative_bag_loss=neg / (num_pos * pre_anchor_topk))

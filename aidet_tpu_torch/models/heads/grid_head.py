@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.dist import global_count
 from ..backbones.resnet import GroupNorm
 
 
@@ -47,6 +48,11 @@ class GridHead(nn.Module):
     ``deconv2``) give the heatmaps.  The unfused trunk shares the
     deconvs for the training loss.  `init_prior` sets the reference's
     N(0, 1e-3) deconv weights and the deconv2 bias -log(0.99 / 0.01)."""
+
+    # the reference declares the deconv biases as raw leaves
+    # deconv{1,2}_bias, which its optimizer's paramwise options count
+    # as norm affines (`parallel.train.param_kinds`)
+    param_kind_overrides = {"deconv1.bias": "norm", "deconv2.bias": "norm"}
 
     def __init__(self, grid_points=9, num_convs=8, in_channels=256,
                  point_feat_channels=64, norm_groups=36, fusion=True):
@@ -177,7 +183,7 @@ def grid_loss(heat, heat_unfused, target, is_pos):
     least 1) times S^2 P, their sum times 15."""
     w = is_pos.float()
     n, s, _, p = heat.shape
-    navg = w.sum().clamp(min=1.0) * s * s * p
+    navg = global_count(w.sum()).clamp(min=1.0) * s * s * p
 
     def bce(hm):
         loss = (hm.clamp(min=0) - hm * target

@@ -34,6 +34,7 @@ from torch import nn
 from ...core.anchors import anchor_target
 from ...core.boxes import delta2bbox
 from ...ops.deform_conv import deform_conv2d
+from ...parallel.dist import global_count, global_mean
 from ..detectors.dense import DenseDetector, level_topk
 from ..losses import FocalLoss, SmoothL1Loss
 from .anchor_head import sigmoid
@@ -249,11 +250,12 @@ class GARetinaNet(DenseDetector):
         out = dict(
             loss_loc=self.loc_loss(loc_flat, loc_tgt.to(torch.int32),
                                    weight=loc_w[..., None],
-                                   avg_factor=loc_tgt.sum().clamp(min=1.0)),
+                                   avg_factor=global_count(
+                                       loc_tgt.sum()).clamp(min=1.0)),
             loss_shape=self.shape_loss(
                 shape_flat, shape_tgt,
                 weight=pos[..., None].expand_as(shape_flat).float(),
-                avg_factor=pos.sum().float().clamp(min=1.0)))
+                avg_factor=global_count(pos.sum().float()).clamp(min=1.0)))
         anchors = self.guided_anchors(shape_flat).detach()
         far = gt_boxes.new_full((1, 2), 1e4)
         lc, lb = [], []
@@ -271,8 +273,8 @@ class GARetinaNet(DenseDetector):
             lb.append(self.reg_loss(reg_flat[i], tg.bbox_targets[0],
                                     weight=tg.bbox_weights[0],
                                     avg_factor=num))
-        return dict(loss_cls=torch.stack(lc).mean(),
-                    loss_bbox=torch.stack(lb).mean(), **out)
+        return dict(loss_cls=global_mean(torch.stack(lc)),
+                    loss_bbox=global_mean(torch.stack(lb)), **out)
 
     @torch.no_grad()
     def predict(self, imgs, img_shapes, scale_factors=None):

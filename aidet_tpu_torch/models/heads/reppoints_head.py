@@ -30,6 +30,7 @@ from torch import nn
 
 from ...core.assign import max_iou_assign, point_assign
 from ...ops.deform_conv import deform_conv2d
+from ...parallel.dist import global_count
 from ..backbones.resnet import GroupNorm
 from ..detectors.dense import DenseDetector, level_topk
 from ..losses import FocalLoss, SmoothL1Loss
@@ -184,7 +185,7 @@ class RepPointsDetector(DenseDetector):
             matched = torch.gather(gt_boxes, 1,
                                    safe[..., None].expand(-1, -1, 4))
             pos = (assigned > 0)[..., None].expand_as(boxes).float()
-            n = (assigned > 0).sum().float().clamp(min=1.0)
+            n = global_count((assigned > 0).sum().float()).clamp(min=1.0)
             return fn(boxes / norm, matched / norm, weight=pos,
                       avg_factor=n * 4), n
 

@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.dist import global_count, global_mean
+
 
 def resize_bilinear(x, hw):
     """NCHW x to spatial size ``hw``, bilinear with half-pixel centres,
@@ -181,5 +183,6 @@ def semantic_loss(seg_logits, gt_seg, weight_map=None, ignore_label=255,
     ce = torch.where(valid, ce, 0.0)
     if weight_map is not None:
         wm = resize_bilinear(weight_map[:, None].float(), (h, w))[:, 0]
-        return (ce * (wm + 1.0) * loss_weight).mean()
-    return loss_weight * ce.sum() / valid.float().sum().clamp(min=1.0)
+        return global_mean(ce * (wm + 1.0) * loss_weight)
+    return loss_weight * ce.sum() / global_count(
+        valid.float().sum()).clamp(min=1.0)

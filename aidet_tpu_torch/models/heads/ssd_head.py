@@ -29,6 +29,7 @@ from ...core.anchors import AnchorGenerator
 from ...core.assign import max_iou_assign
 from ...core.boxes import bbox2delta, delta2bbox
 from ...core.sample import topk_mask_by_score
+from ...parallel.dist import global_mean
 from ..backbones.ssd_vgg import ssd_feat_sizes
 from ..detectors.dense import DenseDetector
 
@@ -154,7 +155,8 @@ class SSD(DenseDetector):
         diff = (reg_flat - deltas).abs()
         sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5)
         loss_bbox = (sl1.sum(-1) * pos).sum(-1) / denom
-        return dict(loss_cls=loss_cls.mean(), loss_bbox=loss_bbox.mean())
+        return dict(loss_cls=global_mean(loss_cls),
+                    loss_bbox=global_mean(loss_bbox))
 
     @torch.no_grad()
     def predict(self, imgs, img_shapes, scale_factors=None):

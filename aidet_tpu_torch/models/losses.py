@@ -12,7 +12,10 @@ Port of `aidet_tpu/models/losses/utils.py` (`weight_reduce_loss`),
 (`CenterMapLoss`), `iou_loss.py` (`IoULoss` :62, `BoundedIoULoss` :80,
 `GIoULoss` :90) and `ghm_loss.py` (`GHMC` :48 and `GHMR` :83, which
 recompute the bins' density on each batch: the reference's ignore
-``momentum``, and so do these).  Labels follow the reference: 0 is background,
+``momentum``, and so do these).  In a data-parallel step each
+normaliser is the global batch's (`parallel.dist.global_count`,
+`global_mean`): a 'mean' reduction, the GHM losses' bin counts and
+totals.  Labels follow the reference: 0 is background,
 1..C the classes; softmax logits carry C + 1 channels, sigmoid and
 mask logits C.  `CrossEntropyLoss(use_mask=True)` is not ported: the
 detector calls `mask_cross_entropy` itself, as the reference's does.
@@ -27,13 +30,14 @@ import torch.nn.functional as F
 
 from ..core.boxes import bbox_overlaps
 from ..ops.focal_loss import sigmoid_focal_loss
+from ..parallel.dist import global_count, global_mean
 
 
 def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "none":
         return loss
     if reduction == "mean":
-        return loss.mean()
+        return global_mean(loss)
     if reduction == "sum":
         return loss.sum()
     raise ValueError(reduction)
@@ -42,7 +46,8 @@ def reduce_loss(loss: torch.Tensor, reduction: str) -> torch.Tensor:
 def weight_reduce_loss(loss, weight=None, reduction="mean",
                        avg_factor=None):
     """Elementwise weight, then reduce; 'mean' with an ``avg_factor``
-    divides the sum by it (mmdet's convention)."""
+    divides the sum by it (mmdet's convention), without one it is the
+    global batch's mean in a data-parallel step (`global_mean`)."""
     if weight is not None:
         loss = loss * weight
     if avg_factor is None:
@@ -350,9 +355,9 @@ def ghm_weights(g, valid, edges, tot):
     idx = torch.bucketize(g, edges, right=True) - 1       # bin of each g
     inbin = valid & (idx >= 0) & (idx < edges.numel() - 1)
     idx = torch.where(inbin, idx, 0)
-    counts = torch.zeros(edges.numel() - 1, dtype=g.dtype,
-                         device=g.device).index_add_(
-        0, idx.reshape(-1), inbin.reshape(-1).to(g.dtype))
+    counts = global_count(torch.zeros(
+        edges.numel() - 1, dtype=g.dtype, device=g.device).index_add_(
+            0, idx.reshape(-1), inbin.reshape(-1).to(g.dtype)))
     per_bin = torch.where(counts > 0, tot / counts.clamp(min=1.0), 0.0)
     n_nonempty = (counts > 0).sum().to(g.dtype).clamp(min=1.0)
     return torch.where(inbin, per_bin[idx], 0.0) / n_nonempty
@@ -385,7 +390,7 @@ class GHMC:
         weight = (torch.ones_like(pred) if weight is None
                   else weight.to(pred.dtype).expand_as(pred))
         valid = weight > 0
-        tot = valid.sum().to(pred.dtype).clamp(min=1.0)
+        tot = global_count(valid.sum().to(pred.dtype)).clamp(min=1.0)
         g = (torch.sigmoid(pred) - target).abs().detach()
         w = ghm_weights(g, valid, self.edges.to(pred.device), tot)
         ce = (pred.clamp(min=0) - pred * target
@@ -412,7 +417,7 @@ class GHMR:
         weight = (torch.ones_like(pred) if weight is None
                   else weight.to(pred.dtype).expand_as(pred))
         valid = weight > 0
-        tot = weight.sum().clamp(min=1.0)
+        tot = global_count(weight.sum()).clamp(min=1.0)
         g = (diff / torch.sqrt(mu * mu + diff * diff)).abs().detach()
         w = ghm_weights(g, valid, self.edges.to(pred.device), tot)
         return (loss * w).sum() / tot * self.loss_weight

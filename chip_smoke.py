@@ -181,6 +181,14 @@ Phases, each printing one JSON line with its ``elapsed_s``:
 The kernels phase also holds K1, K2 and K4 at the r18_e2e shapes
 (C=128, float32, 512^2), and K1 and K2 at the HBB family's (float32:
 2 x 1000 proposals, HTC's semantic map at stride 8).
+Last, after the slices' phases, ddp (`run_ddp`): two ranks over gloo on
+the one card, each with its 2 images of a global batch of 4, take the
+full flagship's train step, held to one process's step over the 4
+images, and the train phase's step, timed with its ``allreduce`` span;
+then the test run sharded over them and gathered, every detection
+paired with one process's; then `tools/torch_dist_train.sh` at one
+process (torchrun, NCCL) trains the loop config for 2 steps.  The rank
+processes are this script with ``--ddp-rank``.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
 first path, and ``launches_by_path`` on every path), nvidia-smi's name
@@ -280,21 +288,16 @@ def handle(name):
 def run_build():
     """One nvcc per kernel source, all started together; every handle
     is loaded from its source's build."""
-    from concurrent.futures import ThreadPoolExecutor
-    from aidet_tpu_torch.cuda_build import (REPO_ROOT, build_shared_library,
-                                            ptxas_report)
+    from aidet_tpu_torch.cuda_build import REPO_ROOT, build_all, ptxas_report
     t0 = time.perf_counter()
     handles = [handle(name) for name in HANDLES]
-    sources = sorted({h.source for h in handles})
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        builds = list(pool.map(build_shared_library, sources))
-    by_source = dict(zip(sources, builds))
+    by_source = build_all({h.source for h in handles})
     for h in handles:
         h.load(by_source[h.source])
     phase("build", wall_s=time.perf_counter() - t0, libraries=[dict(
         source=str(src.relative_to(REPO_ROOT)),
         library=str(b.path.relative_to(REPO_ROOT)), nvcc_s=b.seconds,
-        ptxas=ptxas_report(b.log)) for src, b in zip(sources, builds)])
+        ptxas=ptxas_report(b.log)) for src, b in by_source.items()])
 
 
 def main_path_rois(gen, batch, n, img):
@@ -4786,6 +4789,507 @@ def run_slice16(card):
     return runs
 
 
+# the data-parallel phase: a seeded global batch of 4 over 2 ranks on the
+# one card (gloo, which carries CUDA tensors; NCCL refuses two ranks on
+# one device), and the loop phase's 8 val patches over the same ranks.
+# In the compared step the second rank's images hold ``few_gt`` of the
+# ``max_gt`` valid gts, so the ranks' normaliser counts differ, as a
+# rank-local normaliser would show (`ddp_compared_batch`)
+DDP = dict(img=1024, batch=4, max_gt=64, few_gt=8, steps=3, patches=8,
+           train=4, test_batch=2, size=1024, objects=60)
+DDP_SMALL = dict(img=256, batch=4, max_gt=16, few_gt=2, steps=1, patches=4,
+                 train=4, test_batch=2, size=256, objects=12)
+DDP_WORLD = 2
+# the 2-rank step against the 1-process step over the whole batch, both
+# in float32 with TF32 off, on the same card and kernels: they differ
+# only in the order of the gradient's sums (over ranks, and in K2's
+# backward in the order of its atomics), read on the H100 as 1e-7 of
+# the losses, 2.75e-6 of the update (relative L2) and 6.4e-4 of a
+# leaf's largest update.  A normaliser left rank-local reads 1.4e-2 to
+# 1.0, 1.8e-4 and 1.5e-2 there (`tools/torch_ddp_normaliser_check.sh`),
+# so the limits sit between the two
+DDP_LIMITS = dict(losses_rel=1e-5, update_rel_l2=1e-4,
+                  leaf_over_largest=5e-3)
+DDP_RANK_LIMIT_S = 420
+# modules that no process of the port may import (the card's machine
+# has none of them)
+REFERENCE_MODULES = ("jax", "jaxlib", "flax", "optax", "aidet_tpu",
+                     "__graft_entry__")
+
+
+def ddp_config(root, small, sizes, seed=0):
+    """The loop phase's config (`LOOP_CONFIG` as written, or its small
+    architecture) on seeded patches under ``root``: ``sizes["train"]``
+    train patches (2 steps of a global batch of 2 for one epoch) and the
+    loop phase's val patches (S24..S31 of seed 0 at full size), written
+    as a config file for the port's scripts.  Returns (its path, the
+    config)."""
+    from aidet_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(LOOP_CONFIG).to_dict()
+    if small:
+        cfg.update(model=SMALL_MODEL, train_cfg=SMALL_TRAIN_CFG,
+                   test_cfg=SMALL_TEST_CFG,
+                   train_pipeline=dict(cfg["train_pipeline"],
+                                       img_size=sizes["size"]))
+    train = write_patch_set(root, 0, sizes["train"], sizes["size"],
+                            sizes["objects"], seed)
+    val = write_patch_set(root, 24, sizes["patches"], sizes["size"],
+                          sizes["objects"], seed)
+    cfg["data"] = dict(
+        train=dict(cfg["data"]["train"], ann_file=train[0],
+                   img_prefix=train[1]),
+        test=dict(cfg["data"]["test"], ann_file=val[0], img_prefix=val[1]))
+    body = {k: cfg.get(k) for k in ("model", "train_cfg", "test_cfg",
+                                     "data", "train_pipeline", "optimizer",
+                                     "lr_config")}
+    body.update(total_epochs=1, batch_size=2,
+                run=dict(num_workers=2, log_interval=1))
+    path = f"{root}/ddp_config.py"
+    with open(path, "w") as f:
+        for k, v in body.items():
+            f.write(f"{k} = {json.loads(json.dumps(v))!r}\n")
+    return path, Config.fromfile(path)
+
+
+def ddp_train_model(device, small, sizes, compare, seed=0):
+    """The flagship's training build: with ``compare`` in float32 under
+    a train_cfg that keeps every candidate (so that ranks and a single
+    process sample the same rois), else as the train phase runs it."""
+    import torch
+    from aidet_tpu_torch.flagship import build_flagship
+    from aidet_tpu_torch.flagship import keep_every_candidate_cfg
+    if not compare:
+        return build_flagship(sizes["img"], small=small, device=device,
+                              train=True, seed=seed)
+    net = build_flagship(sizes["img"], small=small, device="meta",
+                         train=True)
+    cfg = keep_every_candidate_cfg(sizes["img"], sizes["max_gt"],
+                                   net.train_cfg["rpn_proposal"]["max_num"])
+    return build_flagship(sizes["img"], small=small, device=device,
+                          train=True, dtype=torch.float32, train_cfg=cfg,
+                          seed=seed)
+
+
+def ddp_compared_batch(sizes, seed, device):
+    """The compared step's seeded global batch: `synthetic_train_batch`,
+    its second half's images with only their first ``few_gt`` gts
+    valid."""
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    batch = synthetic_train_batch(sizes["batch"], sizes["img"],
+                                  sizes["max_gt"], seed, device)
+    batch["gt_valid"][sizes["batch"] // 2:, sizes["few_gt"]:] = False
+    return batch
+
+
+def ddp_step(net, batch, gen):
+    """One `make_train_step` step (the train phase's optimizer): (metrics
+    as floats, parameters after, on the CPU)."""
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.02))
+    step = make_train_step(net, optimizer)
+    _, metrics = step(create_train_state(net, optimizer), batch, gen)
+    return ({k: float(v) for k, v in metrics.items()},
+            [p.detach().to("cpu", copy=True) for p in net.parameters()])
+
+
+def ddp_timed_steps(net, batch, rank, steps, seed=0):
+    """The train phase's optimizer on ``net`` over this rank's ``batch``:
+    one warm step, ``steps`` steps timed on the host's clock between
+    synchronisations (the ranks lined up by a barrier before each; the
+    kernels' launches counted from 0), then one step under
+    torch.profiler.  Each step's sampling seed is `step_seed` of (seed,
+    step, rank).  Returns ms per step, each step's ms, the host ms of the
+    ``allreduce``, ``backward`` and ``optimizer`` spans (on the card a
+    span also has a device entry, whose host time is 0), the all-reduce
+    bucket's bytes, the timed steps' launches, the last metrics and a
+    checksum of the parameters after."""
+    import torch
+    from aidet_tpu_torch.apis.train import step_seed
+    from aidet_tpu_torch.parallel.dist import barrier
+    from aidet_tpu_torch.parallel.train import (build_lr_schedule,
+                                                build_optimizer,
+                                                create_train_state,
+                                                make_train_step)
+    from torch.profiler import ProfilerActivity, profile as profiler
+    on_card = batch["imgs"].is_cuda
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    optimizer = build_optimizer(build_lr_schedule(base_lr=0.02))
+    state = create_train_state(net, optimizer)
+    step = make_train_step(net, optimizer)
+    gen = torch.Generator(device=batch["imgs"].device)
+
+    def one():
+        gen.manual_seed(step_seed(seed, state.step, rank))
+        return step(state, batch, gen)[1]
+    one()
+    sync()
+    launch_counts(reset=True)
+    times = []
+    for _ in range(steps):
+        barrier()
+        sync()
+        t0 = time.perf_counter()
+        metrics = one()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts()
+    with profiler(activities=[ProfilerActivity.CPU]
+                  + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+        metrics = one()
+        sync()
+    spans = {}
+    for e in prof.key_averages():
+        if e.key in ("allreduce", "backward", "optimizer"):
+            spans[e.key] = max(spans.get(e.key, 0.0), e.cpu_time_total / 1e3)
+    params = list(net.parameters())
+    return dict(
+        ms_per_step=sum(times) / len(times), step_ms=times, span_ms=spans,
+        allreduce_bytes=sum(p.numel() * p.element_size() for p in params),
+        launches=launches, metrics={k: float(v) for k, v in metrics.items()},
+        param_checksum=float(sum(p.detach().double().square().sum()
+                                 for p in params)))
+
+
+def stack_results(results):
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.stack([np.asarray(r[k])
+                                          for r in results]))
+            for k in results[0]}
+
+
+def ddp_reference(device, small, sizes, root, seed=0):
+    """The one-process runs the ranks are held to, saved under ``root``:
+    the compared step over the whole global batch (with its weights) and
+    the test run over the val patches (with the model's weights), both
+    with TF32 off."""
+    import torch
+    from aidet_tpu_torch.apis.inference import init_detector
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.data.builder import build_dataset
+    cfg_path, cfg = ddp_config(root, small, sizes, seed)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    net = ddp_train_model(device, small, sizes, compare=True, seed=seed)
+    weights = {k: v.detach().to("cpu", copy=True)
+               for k, v in net.state_dict().items()}
+    batch = ddp_compared_batch(sizes, seed, device)
+    t0 = time.perf_counter()
+    metrics, after = ddp_step(net, batch, torch.Generator(
+        device=device).manual_seed(seed))
+    step_s = time.perf_counter() - t0
+    del net, batch
+    model, _ = init_detector(cfg, None, device=device, seed=seed)
+    results, names = run_inference(model, build_dataset(cfg.data.test),
+                                   batch_size=sizes["test_batch"])
+    torch.save(dict(weights=weights, metrics=metrics, after=after,
+                    infer_weights={k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()},
+                    results=results, names=names), f"{root}/reference.pt")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    return cfg_path, dict(one_process_step_s=step_s,
+                          one_process_metrics=metrics)
+
+
+def ddp_rank(rank, root, device, small, seed=0):
+    """One rank's part of the ddp phase (see `run_ddp`); returns its
+    fields (rank 0's comparisons among them)."""
+    import torch
+    from aidet_tpu_torch.apis.inference import init_detector
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.apis.train import step_seed
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.flagship import synthetic_train_batch
+    from aidet_tpu_torch.parallel.mesh import (create_mesh, replicate,
+                                               shard_batch)
+    from aidet_tpu_torch.utils.config import Config
+    sizes = DDP_SMALL if small else DDP
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    ref = torch.load(f"{root}/reference.pt", weights_only=False)
+    mesh = create_mesh(DDP_WORLD)
+    out = dict(rank=rank)
+    # TF32 off throughout (the one-process runs' setting): the compared
+    # step (float32, every candidate kept) and the test run are held to
+    # them, and cuDNN's TF32 convolutions round by algorithm, which a
+    # process may choose by its free memory
+    if on_card:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    net = ddp_train_model(device, small, sizes, compare=True, seed=seed + 1)
+    net.load_state_dict(ref["weights"], strict=True)
+    replicate(net, mesh)
+    batch = shard_batch(ddp_compared_batch(sizes, seed, device), mesh)
+    before = [ref["weights"][n] for n, _ in net.named_parameters()]
+    got = ddp_step(net, batch, torch.Generator(device=device).manual_seed(
+        step_seed(seed, 0, rank)))
+    out["valid_gts"] = int(batch["gt_valid"].sum())
+    if rank == 0:
+        # held to `DDP_LIMITS` by `run_ddp` once both ranks are done,
+        # so that a failing comparison leaves no rank waiting
+        names = [n for n, _ in net.named_parameters()]
+        cmp = compare_steps("ddp", (got[0], before, got[1]),
+                            (ref["metrics"], before, ref["after"]))
+        cmp["worst_leaf"] = names[cmp["worst_leaf"]]
+        out.update(against_one_process=cmp, metrics_2rank=got[0],
+                   metrics_1process=ref["metrics"])
+    del net, batch, got
+    if on_card:
+        torch.cuda.empty_cache()
+    # the train phase's step (its dtype, train_cfg and optimizer) on the
+    # rank's 2 images, timed
+    net = ddp_train_model(device, small, sizes, compare=False, seed=seed + 1)
+    net.load_state_dict(ref["weights"], strict=True)
+    replicate(net, mesh)
+    batch = shard_batch(synthetic_train_batch(
+        sizes["batch"], sizes["img"], sizes["max_gt"], seed, device), mesh)
+    timed = ddp_timed_steps(net, batch, rank, sizes["steps"], seed)
+    bad = [k for k, v in timed["metrics"].items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"ddp rank {rank}: {bad} not finite")
+    if "allreduce" not in timed["span_ms"]:
+        raise AssertionError(f"ddp rank {rank}: no allreduce span")
+    launches = timed.pop("launches")
+    out.update(
+        timed, allreduce_span_ms=timed["span_ms"]["allreduce"],
+        train_launches=launches, k2_forward_per_step=launches[
+            "roi_align_train_forward"] / sizes["steps"],
+        k2_backward_per_step=launches["roi_align_backward"] / sizes["steps"],
+        compute_dtype=str(net.compute_dtype))
+    del net, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    # the test run, sharded by the group and gathered
+    cfg = Config.fromfile(f"{root}/ddp_config.py")
+    model, _ = init_detector(cfg, None, device=device, seed=seed + 1)
+    model.load_state_dict(ref["infer_weights"], strict=True)
+    dataset = build_dataset(cfg.data.test)
+    sync()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    results, names = run_inference(model, dataset,
+                                   batch_size=sizes["test_batch"])
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if names != ref["names"]:
+        raise AssertionError(f"ddp rank {rank}: gathered names {names}")
+    errs = match_detections(stack_results(results),
+                            stack_results(ref["results"]), LOOP_INFER_LIMITS)
+    out.update(test_s=seconds, test_launches=launches,
+               test_against_one_process=errs,
+               n_valid=int(sum(int(r["valid"].sum()) for r in results)))
+    return out
+
+
+def ddp_rank_main(argv) -> int:
+    """`python3 chip_smoke.py --ddp-rank RANK ROOT DEVICE small|full`: one
+    rank of the ddp phase (gloo on ``DEVICE``, rendezvous at ROOT/store);
+    writes its fields to ROOT/rank{RANK}.json."""
+    rank, root, device, size = int(argv[0]), argv[1], argv[2], argv[3]
+    from aidet_tpu_torch.parallel.dist import init_distributed
+    init_distributed(rank, DDP_WORLD, local_rank=0,
+                     init_method=f"file://{root}/store", device=device,
+                     backend="gloo", timeout_s=DDP_RANK_LIMIT_S)
+    out = ddp_rank(rank, root, device, size == "small")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in REFERENCE_MODULES)
+    if leaked:
+        raise AssertionError(f"ddp rank {rank} imported {leaked}")
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    return 0
+
+
+def ddp_ranks(device, small, root):
+    """Start the ranks (each `ddp_rank_main`) and wait for them; a rank
+    that fails or outlives `DDP_RANK_LIMIT_S` fails the phase, and the
+    others are killed.  Returns their fields by rank."""
+    import os
+    env = dict(os.environ)
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         root, device, "small" if small else "full"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DDP_WORLD)]
+    deadline = time.monotonic() + DDP_RANK_LIMIT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"ddp rank {r} exited {p.returncode}:\n"
+                                 f"{log[-3000:]}")
+    out = []
+    for r in range(DDP_WORLD):
+        with open(f"{root}/rank{r}.json") as f:
+            out.append(json.load(f))
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_launcher(device, cfg_path, root):
+    """`tools/torch_dist_train.sh CONFIG 1`: torchrun with one process
+    (NCCL on the card, gloo with --device cpu) trains the config for its
+    one epoch; its log's step lines, backend and checkpoint."""
+    import os
+    work = f"{root}/launcher"
+    args = ["bash", "tools/torch_dist_train.sh", cfg_path, "1", "--work-dir",
+            work] + (["--device", "cpu"] if device == "cpu" else [])
+    env = dict(os.environ, PYTHON=sys.executable, PORT=str(free_port()))
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=os.path.dirname(os.path.abspath(
+        __file__)), env=env, capture_output=True, text=True,
+        timeout=DDP_RANK_LIMIT_S)
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_dist_train.sh exited "
+                             f"{proc.returncode}:\n{log[-3000:]}")
+    backend = "nccl" if device != "cpu" else "gloo"
+    steps = [line.split(" - ")[-1] for line in log.splitlines()
+             if "epoch 1 iter" in line]
+    if not any("iter 2/2" in line for line in steps) \
+            or f"backend {backend}" not in log:
+        raise AssertionError(f"torch_dist_train.sh: no step 2/2 or no "
+                             f"{backend} group in its log:\n{log[-3000:]}")
+    ckpt = sorted(os.listdir(f"{work}/ckpt"))
+    if ckpt != ["meta.json", "model_1", "step_1"]:
+        raise AssertionError(f"torch_dist_train.sh wrote {ckpt}")
+    return dict(wall_s=wall, backend=backend, step_lines=steps,
+                checkpoint=ckpt)
+
+
+def run_ddp(device="cuda", small=False, seed=0):
+    """The data-parallel phase.  The launching process runs the
+    one-process references (`ddp_reference`; the kernels were built
+    before), then two ranks over gloo on the one card, each
+    (`ddp_rank`):
+
+    - the flagship's train step (full width: R50-FPN at 1024^2) on its 2
+      images of a seeded global batch of 4 (`ddp_compared_batch`: 64
+      gts an image on rank 0, 8 on rank 1), from the same weights, in
+      float32 with TF32 off and every candidate kept, rank 0 comparing
+      the update with the one-process step over all 4 images
+      (`compare_steps`), held here to `DDP_LIMITS`;
+    - the train phase's step (bfloat16 compute, its train_cfg), timed:
+      ms per 2-rank step, the ``allreduce`` span's host ms (torch.profiler;
+      gloo copies the bucket through the host), K2's launches per rank;
+    - `run_inference` over the loop phase's 8 val patches (the loop
+      config's model, float32 with TF32 off), sharded over the ranks and
+      gathered, every detection paired with the one-process run's
+      (`match_detections`, `LOOP_INFER_LIMITS`).
+
+    Then `tools/torch_dist_train.sh` at one process (torchrun, NCCL on
+    the card) trains the loop config for 2 steps.  Every rank's
+    parameters must agree after the timed steps.  Returns the fields and
+    the launches of the ranks' train and test paths."""
+    import shutil
+    import tempfile
+    import torch
+    sizes = DDP_SMALL if small else DDP
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    threads = torch.get_num_threads()
+    try:
+        t0 = time.perf_counter()
+        if device == "cpu":         # the ranks' order of sums
+            torch.set_num_threads(1)
+        cfg_path, fields = ddp_reference(device, small, sizes, root, seed)
+        torch.set_num_threads(threads)
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = ddp_ranks(device, small, root)
+        ranks_s = time.perf_counter() - t0
+        cmp = ranks[0]["against_one_process"]
+        if not (all(math.isfinite(v) for v in ranks[0]["metrics_2rank"]
+                    .values())
+                and cmp["max_rel_err"] <= DDP_LIMITS["losses_rel"]
+                and cmp["update_rel_l2"] <= DDP_LIMITS["update_rel_l2"]
+                and cmp["worst_leaf_err_over_largest"]
+                <= DDP_LIMITS["leaf_over_largest"]):
+            raise AssertionError(
+                f"ddp: the 2-rank step against one process's {cmp} "
+                f"(limits {DDP_LIMITS}); 2-rank metrics "
+                f"{ranks[0]['metrics_2rank']}, one process's "
+                f"{ranks[0]['metrics_1process']}")
+        launcher = ddp_launcher(device, cfg_path, root)
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(root, ignore_errors=True)
+    sums = {r["param_checksum"] for r in ranks}
+    if len(sums) != 1:
+        raise AssertionError(f"ddp: the ranks' parameters differ: {sums}")
+    on_card = device != "cpu"
+    want = dict.fromkeys(HANDLES, 0)
+    want.update(roi_align_train_forward=sizes["steps"] * on_card,
+                roi_align_backward=sizes["steps"] * on_card)
+    test_batches = -(-sizes["patches"] // DDP_WORLD // sizes["test_batch"])
+    want_test = dict(dict.fromkeys(HANDLES, 0),
+                     roi_align=test_batches * on_card)
+    for r in ranks:
+        if r["train_launches"] != want or r["test_launches"] != want_test:
+            raise AssertionError(f"ddp rank {r['rank']}: launches "
+                                 f"{r['train_launches']} / "
+                                 f"{r['test_launches']}, expected {want} / "
+                                 f"{want_test}")
+        if r["test_against_one_process"]["unpaired"]:
+            raise AssertionError(f"ddp rank {r['rank']}: unpaired "
+                                 f"detections {r['test_against_one_process']}")
+    rank0 = ranks[0]
+    return dict(
+        img=sizes["img"], global_batch=sizes["batch"], world=DDP_WORLD,
+        backend="gloo", limits=DDP_LIMITS,
+        compared_valid_gts_by_rank=[r["valid_gts"] for r in ranks],
+        against_one_process=dict(rank0["against_one_process"],
+                                 limits=DDP_LIMITS),
+        ms_per_2rank_step=max(r["ms_per_step"] for r in ranks),
+        step_ms_by_rank=[r["step_ms"] for r in ranks],
+        allreduce_span_ms_by_rank=[r["allreduce_span_ms"] for r in ranks],
+        span_ms_by_rank=[r["span_ms"] for r in ranks],
+        allreduce_bytes=rank0["allreduce_bytes"],
+        compute_dtype=rank0["compute_dtype"],
+        k2_per_step_by_rank=[(r["k2_forward_per_step"],
+                              r["k2_backward_per_step"]) for r in ranks],
+        metrics=rank0["metrics"],
+        test=dict(patches=sizes["patches"], batch=sizes["test_batch"],
+                  s_by_rank=[r["test_s"] for r in ranks],
+                  against_one_process=rank0["test_against_one_process"],
+                  limits=LOOP_INFER_LIMITS, n_valid=rank0["n_valid"]),
+        launcher=launcher, reference_s=ref_s, ranks_s=ranks_s, **fields,
+        train_path=dict(launches=rank0["train_launches"]),
+        test_path=dict(launches=rank0["test_launches"]))
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -4918,6 +5422,11 @@ def main() -> int:
     runs.update({k: v for k, v in slice15.items()
                  if k.split("_")[0] in ("dcn", "mdconv")})
     runs.update(run_slice16(info["nvidia_smi"]))
+    ddp = run_ddp()
+    runs["ddp_train"] = ddp.pop("train_path")
+    runs["ddp_test"] = ddp.pop("test_path")
+    phase("ddp", model="flagship R50-FPN; loop config R50-FPN",
+          card=info["nvidia_smi"], **ddp)
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],
@@ -4932,4 +5441,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -35,9 +35,11 @@ against CPU; then ten kinds of its configs at the small
 architecture, in a seventh); an eighth rehearses slice 16's (the
 reference phases of the attention, GCNet, CARAFE and GN+WS R-CNNs CPU
 against CPU, the seven kinds of its configs at the small architecture,
-and the ops phase at its small shapes).  pandas and
-matplotlib may be
-imported only inside a function (the export's optional xlsx and PNG);
+and the ops phase at its small shapes); a ninth rehearses the ddp
+phase (two rank processes over gloo, which check that they imported
+none of the reference, and the one-process torchrun launcher).  pandas
+and matplotlib may be imported only inside a function (the export's
+optional xlsx and PNG);
 nothing else of the list anywhere, in the port, chip_smoke.py or
 tools/torch_train.py, tools/torch_test.py and tools/torch_dota_eval.py.
 The kernels' CUDA sources include no framework header."""
@@ -288,6 +290,18 @@ assert not leaked, leaked
 print("SLICE16 PHASES", paths["predict"]["n_valid"])
 """
 
+RUN_DDP_PHASE = RUN_BLOCKED[:RUN_BLOCKED.index("import chip_smoke")] + """
+import chip_smoke
+out = chip_smoke.run_ddp(device="cpu", small=True)
+assert out["against_one_process"]["update_rel_l2"] < 1e-4, out
+assert out["test"]["against_one_process"]["unpaired"] == 0, out
+assert out["launcher"]["backend"] == "gloo", out
+assert set(out["train_path"]["launches"].values()) == {0}, out
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("DDP PHASE", out["test"]["n_valid"])
+"""
+
 
 def _env():
     """The subprocesses' environment: no PYTHONPATH, and in a
@@ -365,6 +379,18 @@ def test_slice16_phases_run_with_reference_imports_blocked():
     assert proc.stdout.strip().splitlines()[-1].startswith("SLICE16 PHASES")
 
 
+def test_ddp_phase_runs_with_reference_imports_blocked():
+    """chip_smoke's ddp phase at the small architecture on the CPU: the
+    launching process with the reference's imports blocked, its two
+    rank processes checking that they imported none of it, and
+    `tools/torch_dist_train.sh --device cpu` at one process."""
+    proc = subprocess.run([sys.executable, "-c", RUN_DDP_PHASE], cwd=REPO,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1].startswith("DDP PHASE")
+
+
 def _imports(path):
     """(absolute module name, imported at module level) of every import
     statement."""
@@ -380,7 +406,8 @@ def _imports(path):
 @pytest.mark.parametrize("root", ["aidet_tpu_torch", "chip_smoke.py",
                                   "tools/torch_train.py",
                                   "tools/torch_test.py",
-                                  "tools/torch_dota_eval.py"])
+                                  "tools/torch_dota_eval.py",
+                                  "tests/torch_port_dist_worker.py"])
 def test_no_reference_import_in_source(root):
     files = ([REPO / root] if root.endswith(".py")
              else sorted((REPO / root).rglob("*.py")))

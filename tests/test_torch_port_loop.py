@@ -42,9 +42,10 @@ from aidet_tpu_torch.data.builder import build_dataset
 from aidet_tpu_torch.data.pipeline import TrainPipeline
 from aidet_tpu_torch.flagship import build_flagship
 from aidet_tpu_torch.models.builder import build_detector
+from aidet_tpu_torch.parallel.mesh import Mesh
 from aidet_tpu_torch.parallel.train import (build_optimizer,
                                             create_train_state,
-                                            schedule_from_cfg)
+                                            param_kinds, schedule_from_cfg)
 from aidet_tpu_torch.utils.checkpoint import (latest_step, load_checkpoint,
                                               save_checkpoint)
 from aidet_tpu_torch.utils.config import Config
@@ -240,11 +241,43 @@ def test_train_detector_refuses_what_it_does_not_run(loop_data):
     run = dict(pipeline=TrainPipeline(img_size=256))
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train_detector(model, None, run, device="cuda")
-    with pytest.raises(NotImplementedError, match="one device"):
+    # one process: a config's n_devices must be the world size, 1
+    with pytest.raises(ValueError, match="n_devices 2 but the process "
+                       "group's world size is 1"):
         train_detector(model, None, dict(run, n_devices=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="paramwise"):
-        train_detector(model, None, dict(run, optimizer=dict(
-            paramwise_options=dict(bias_lr_mult=2.0))), device="cpu")
+
+
+def test_train_detector_takes_paramwise_options(loop_data, tmp_path):
+    """The optimizer's paramwise_options reach the step: over one epoch
+    with bias_lr_mult 0 no conv or fc bias moves, and with
+    norm_decay_mult 0 no FrozenBN affine of the frozen stem and first
+    stage does (they take no gradient, so only the decay could move
+    them), while every weight moves."""
+    root, cfg, _ = loop_data
+    dataset = build_dataset(cfg.data.train)
+    dataset.img_infos = dataset.img_infos[:2]
+    dataset.flag = dataset.flag[:2]
+    model = build_detector(cfg.model, train_cfg=cfg.train_cfg,
+                           test_cfg=cfg.test_cfg, device="cpu", seed=0,
+                           train=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    run = dict(seed=0, lr_config=cfg.lr_config, total_epochs=1,
+               batch_size=2, log_interval=1, optimizer=dict(
+                   cfg.optimizer, paramwise_options=dict(
+                       bias_lr_mult=0.0, norm_decay_mult=0.0)),
+               pipeline=TrainPipeline(**dict(cfg.train_pipeline,
+                                             flip_ratio=0.0)))
+    train_detector(model, dataset, run, work_dir=str(tmp_path),
+                   device="cpu")
+    kinds = dict(zip([n for n, _ in model.named_parameters()],
+                     param_kinds(model)))
+    moved = {n: not torch.equal(p.detach(), before[n])
+             for n, p in model.named_parameters()}
+    assert not any(moved[n] for n, k in kinds.items() if k == "bias")
+    frozen = [n for n, k in kinds.items() if k == "norm"
+              and n.startswith(("backbone.stem_", "backbone.layer1_"))]
+    assert frozen and not any(moved[n] for n in frozen)
+    assert all(moved[n] for n, k in kinds.items() if k == "weight")
 
 
 # ---------------------------------------------------------------------
@@ -277,8 +310,10 @@ def test_run_inference_matches_reference(tmp_path):
     errs = chip_smoke.match_detections(_stack(got), _stack(want),
                                        FLAGSHIP_LIMITS)
     assert errs["unpaired"] == 0 and int(_stack(got)["valid"].sum()) > 0
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        run_inference(model, build_dataset(cfg), num_shards=2)
+    # over a data mesh of two ranks the global batch must divide in two
+    with pytest.raises(ValueError, match="divisible by the data-mesh"):
+        run_inference(model, build_dataset(cfg), batch_size=3,
+                      mesh=Mesh(2, 0))
 
 
 def _jittered_results(path, seed=0, k=40):

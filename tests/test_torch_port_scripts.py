@@ -4,8 +4,14 @@
 from `chip_smoke.loop_config`), with ``--device cpu`` here and with the
 default device on the card (marked gpu; run it there with ``python -m
 pytest -m gpu tests/test_torch_port_scripts.py``).  Without a card the
-two scripts that take ``--device`` refuse their default.  This file
-imports nothing of JAX, so it runs on the card's machine.
+two scripts that take ``--device`` refuse their default.  Under
+torchrun (`tools/torch_dist_train.sh` and `tools/torch_dist_test.sh`,
+two processes over gloo with ``--device cpu``) the train script splits
+the global batch over the processes and writes one checkpoint, and the
+test script's gathered results pair with the one-process run's; on a
+COCO box-only config the test script prints the same bbox mAP in one
+and in two processes.  This file imports nothing of JAX, so it runs on
+the card's machine.
 """
 
 import importlib.util
@@ -15,6 +21,7 @@ import pickle
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,15 +49,21 @@ def config_file(tmp_path_factory):
     return path, gt_json
 
 
-def _run_scripts(config, gt_json, root, device_args):
+def _env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    return env
 
-    def run(*args):
-        proc = subprocess.run([sys.executable, *args], cwd=REPO, env=env,
-                              capture_output=True, text=True, timeout=600)
-        assert proc.returncode == 0, proc.stdout + proc.stderr
-        return proc.stdout + proc.stderr
+
+def _run(*args, env=None, launcher=(sys.executable,)):
+    proc = subprocess.run([*launcher, *args], cwd=REPO, env=env or _env(),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr
+
+
+def _run_scripts(config, gt_json, root, device_args):
+    run = _run
 
     work = os.path.join(root, "work")
     log = run("tools/torch_train.py", config, "--work-dir", work,
@@ -85,6 +98,88 @@ def test_scripts_train_test_and_score_on_the_card(config_file, tmp_path):
                     "pytest -m gpu tests/test_torch_port_scripts.py")
     log = _run_scripts(*config_file, str(tmp_path), [])
     assert "ran inference on 2 images" in log
+
+
+def _stack(results):
+    return {k: torch.from_numpy(np.stack([r[k] for r in results]))
+            for k in results[0]}
+
+
+def test_scripts_under_torchrun_on_the_cpu(config_file, tmp_path):
+    """Two processes: one epoch of the 4 patches at a global batch of 2
+    (2 steps of one image per process), one checkpoint; then the
+    sharded test run, whose gathered results pair with one process's
+    (`chip_smoke.LOOP_INFER_LIMITS`)."""
+    config, _ = config_file
+    work, root = str(tmp_path / "work"), str(tmp_path)
+    env = dict(_env(), PYTHON=sys.executable)
+    log = _run("tools/torch_dist_train.sh", config, "2", "--work-dir", work,
+               "--device", "cpu",
+               env=dict(env, PORT=str(chip_smoke.free_port())),
+               launcher=("bash",))
+    assert "epoch 1 iter 2/2" in log and "2 process(es)" in log
+    assert sorted(os.listdir(os.path.join(work, "ckpt"))) == [
+        "meta.json", "model_1", "step_1"]
+    out = {}
+    for n in (1, 2):
+        pkl = os.path.join(root, f"results{n}.pkl")
+        args = (config, "--checkpoint", os.path.join(work, "ckpt"), "--out",
+                pkl, "--batch-size", "1", "--device", "cpu")
+        if n == 1:
+            log = _run("tools/torch_test.py", *args)
+        else:
+            log = _run("tools/torch_dist_test.sh", config, "2", *args[1:],
+                       env=dict(env, PORT=str(chip_smoke.free_port())),
+                       launcher=("bash",))
+        assert log.count("obb: merged 2 scenes") == 1, log
+        with open(pkl, "rb") as f:
+            out[n] = pickle.load(f)
+    assert out[2]["names"] == out[1]["names"] and len(out[2]["names"]) == 2
+    errs = chip_smoke.match_detections(_stack(out[2]["results"]),
+                                       _stack(out[1]["results"]),
+                                       chip_smoke.LOOP_INFER_LIMITS)
+    assert errs["unpaired"] == 0
+
+
+def test_coco_test_run_in_one_and_two_processes(tmp_path):
+    """`tools/torch_test.py` on a COCO box-only config (a tiny
+    FasterRCNN with seeded weights over 3 patches of a COCO json): one
+    process and `tools/torch_dist_test.sh` with two (shards of 2 and 1
+    images) print the same `CocoDataset.evaluate` line, and their saved
+    results pair."""
+    import torch_port_dist_worker as worker
+    ann, prefix, _ = chip_smoke.write_patch_set(str(tmp_path), 0, 3, 256, 6,
+                                                seed=3)
+    config = str(tmp_path / "coco_config.py")
+    body = dict(model=worker.FAMILIES["FasterRCNN"], test_cfg=dict(
+        rpn=dict(nms_pre=128, nms_post=64, max_num=64),
+        rcnn=dict(max_per_img=32)), data=dict(test=dict(
+            type="CocoDataset", ann_file=ann, img_prefix=prefix,
+            test_mode=True)))
+    with open(config, "w") as f:
+        for k, v in body.items():
+            f.write(f"{k} = {json.loads(json.dumps(v))!r}\n")
+    out, lines = {}, {}
+    for n in (1, 2):
+        pkl = str(tmp_path / f"coco{n}.pkl")
+        args = ("--out", pkl, "--batch-size", "1", "--device", "cpu")
+        if n == 1:
+            log = _run("tools/torch_test.py", config, *args)
+        else:
+            log = _run("tools/torch_dist_test.sh", config, "2", *args,
+                       env=dict(_env(), PYTHON=sys.executable,
+                                PORT=str(chip_smoke.free_port())),
+                       launcher=("bash",))
+        lines[n] = [line.split(" - ")[-1] for line in log.splitlines()
+                    if "bbox: mAP" in line]
+        assert "ran inference on 3 images" in log
+        with open(pkl, "rb") as f:
+            out[n] = pickle.load(f)
+    assert len(lines[1]) == 1 and lines[2] == lines[1], lines
+    errs = chip_smoke.match_detections(_stack(out[2]["results"]),
+                                       _stack(out[1]["results"]),
+                                       dict(boxes=1e-3, scores=1e-5))
+    assert errs["unpaired"] == 0
 
 
 @pytest.mark.parametrize("name", ["torch_train", "torch_test"])

@@ -3,8 +3,10 @@ tools/test.py; parity: reference tools/test.py + tools/dota/
 dota_test.py: inference -> format -> merge).
 
     python tools/torch_test.py CONFIG [--checkpoint DIR/ckpt | FILE]
-        [--out results.pkl] [--eval hbb obb] [--submit-dir DIR]
+        [--out results.pkl] [--eval hbb obb | bbox] [--submit-dir DIR]
         [--batch-size 8] [--tta] [--device cuda|cpu]
+    torchrun --nproc_per_node N tools/torch_test.py CONFIG ...
+    tools/torch_dist_test.sh CONFIG N [torch_test.py args...]
 
 It builds the config's detector with the weights of ``--checkpoint`` (a
 checkpoint directory of tools/torch_train.py: its latest model_N; or a
@@ -17,13 +19,20 @@ thetaobbs after a refinement head, a RetinaNetOBB's ``rbox_encode``; or
 for the mask family (MaskOBB, CenterMapOBB, CenterMap-Net) the min-area
 rectangles of the predicted masks, `core.masks.mask_quads`; hbb: the
 boxes) and
-writes DOTA submission txt under ``--submit-dir/<task>``.  With
+writes DOTA submission txt under ``--submit-dir/<task>``; on a COCO
+dataset the ``bbox`` task (the default there) prints
+`CocoDataset.evaluate`'s box mAP, AP50 and AP75.  With
 ``--tta`` each test image goes instead through `apis.tta.aug_test_image`
 at the config's ``tta = dict(scales=..., flip=...)`` (default: the
 model's img_size, flip on): its merged boxes, and its merged quads,
 which the obb task then takes as they are.  It runs on the CUDA card
-unless ``--device cpu``, and raises when there is none.  The
-reference's ``--precompile`` and ``--n-devices`` are not ported.
+unless ``--device cpu``, and raises when there is none.  Under torchrun
+(the reference's multi-process run, tools/test.py:116-122) each process
+predicts its shard of the dataset on card ``LOCAL_RANK`` (NCCL; gloo
+with ``--device cpu``), the results are gathered in dataset order, and
+process 0 writes and scores them; ``--tta`` runs in one process.  The
+reference's ``--precompile`` and ``--n-devices`` (a mesh over one
+process's devices) are not ported: one process drives one card.
 """
 
 from __future__ import annotations
@@ -41,8 +50,10 @@ def parse_args():
     p.add_argument("config")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--out", default=None, help="save raw results (.pkl)")
-    p.add_argument("--eval", nargs="*", default=["hbb", "obb"],
-                   choices=["hbb", "obb"])
+    p.add_argument("--eval", nargs="*", default=None,
+                   choices=["hbb", "obb", "bbox"],
+                   help="DOTA tasks (default hbb obb), or bbox: the COCO "
+                        "box mAP (the default on a COCO dataset)")
     p.add_argument("--submit-dir", default=None,
                    help="write DOTA submission txt files here")
     p.add_argument("--batch-size", type=int, default=8)
@@ -61,6 +72,11 @@ def main():
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("torch_test: no CUDA card found; pass --device "
                          "cpu to test on the CPU")
+    from aidet_tpu_torch.parallel.dist import (init_distributed,
+                                               is_main_process)
+    _, world = init_distributed(device=args.device)
+    if args.tta and world > 1:
+        raise SystemExit("torch_test: --tta runs in one process")
     from aidet_tpu_torch.apis.inference import init_detector
     from aidet_tpu_torch.apis.test import run_inference
     from aidet_tpu_torch.core.masks import mask_quads
@@ -97,13 +113,22 @@ def main():
             model, dataset, batch_size=args.batch_size,
             pipeline_cfg=cfg.get("test_pipeline"))
     logger.info("ran inference on %d images", len(results))
+    if not is_main_process():
+        return
+    coco = not hasattr(dataset, "merge_patches_to_scenes")
+    tasks = args.eval if args.eval is not None else (
+        ["bbox"] if coco else ["hbb", "obb"])
+    if "bbox" in tasks and coco and results:
+        m = dataset.evaluate(results)
+        logger.info("bbox: mAP %.4f AP50 %.4f AP75 %.4f", m["mAP"],
+                    m["AP50"], m["AP75"])
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump({"results": results, "names": names}, f)
 
     if hasattr(dataset, "merge_patches_to_scenes") and results:
         encode = model.result_encode
-        for task in args.eval:
+        for task in (t for t in tasks if t != "bbox"):
             dets = []
             for r in results:
                 if task == "obb" and "quads" in r:

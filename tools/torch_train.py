@@ -3,7 +3,9 @@ tools/train.py; parity: reference tools/train.py:64-151).
 
     python tools/torch_train.py CONFIG [--work-dir DIR] [--resume-from
         DIR/ckpt] [--load-from DIR/ckpt] [--seed N] [--total-epochs N]
-        [--batch-size N] [--device cuda|cpu]
+        [--batch-size N] [--n-devices N] [--device cuda|cpu]
+    torchrun --nproc_per_node N tools/torch_train.py CONFIG --n-devices N
+    tools/torch_dist_train.sh CONFIG N [torch_train.py args...]
 
 It builds the config's detector for training (float32 parameters,
 computing in the config's dtype), its ``data.train`` dataset and its
@@ -14,7 +16,10 @@ log_interval, checkpoint_interval), and runs
 checkpoints in ``WORK_DIR/ckpt``, the log in ``WORK_DIR/train.log``.
 ``--total-epochs`` other than the config's scales the lr decay epochs
 by the same ratio.  It runs on the CUDA card unless ``--device cpu``,
-and raises when there is none.
+and raises when there is none.  Under torchrun each process trains on
+card ``LOCAL_RANK`` (NCCL; gloo with ``--device cpu``) on its share of
+the global ``--batch-size``.  ``--n-devices`` sets nothing: where given,
+it is only checked against the number of processes.
 """
 
 from __future__ import annotations
@@ -38,7 +43,12 @@ def parse_args():
                         "model_N")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--total-epochs", type=int, default=None)
-    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="the global batch, over every process")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="only a check: the run fails unless it equals "
+                        "the number of processes (torchrun's "
+                        "--nproc_per_node); it sets nothing")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args()
@@ -65,6 +75,10 @@ def main():
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("torch_train: no CUDA card found; pass --device "
                          "cpu to train on the CPU")
+    from aidet_tpu_torch.parallel.dist import init_distributed
+    # first, so that the logger knows its rank and the model is built
+    # on this process's card
+    init_distributed(device=args.device)
     from aidet_tpu_torch.apis.train import train_detector
     from aidet_tpu_torch.data.builder import build_dataset
     from aidet_tpu_torch.data.pipeline import TrainPipeline
@@ -110,6 +124,8 @@ def main():
             run_cfg["lr_config"] = lrc
             logger.info("total-epochs %d (config %d): lr steps -> %s",
                         args.total_epochs, cfg_epochs, lrc["step"])
+    if args.n_devices:
+        run_cfg["n_devices"] = args.n_devices
     if args.batch_size:
         run_cfg["batch_size"] = args.batch_size
     elif cfg.get("batch_size"):
