@@ -1,32 +1,35 @@
 """Dataset registry and builder.
 
-Port of `aidet_tpu/data/builder.py::build_dataset` (:22; parity:
+Port of `aidet_tpu/data/builder.py::build_dataset` (:22-29; parity:
 mmdet/datasets/builder.py:47-59) through the port's
-`utils/registry.py`, with `CocoDataset` and `DOTADataset`.  The
-reference's other datasets and its wrappers (`RepeatDataset`, a list as
-`ConcatDataset`) raise `KeyError`: not yet ported (ROADMAP queue 1
-item 11).
+`utils/registry.py`: `CocoDataset`, `DOTADataset`, the XML datasets
+(`VOCDataset`, `XMLDataset`, `WIDERFaceDataset`), `BuildChangeDataset`
+and `CityscapesDataset`; a ``RepeatDataset`` config wraps its
+``dataset`` ``times`` times, and a list of configs is their
+`ConcatDataset`.
 """
 
 from __future__ import annotations
 
 from ..utils.registry import Registry, build_from_cfg
+from .buildchange import BuildChangeDataset, CityscapesDataset
 from .coco import CocoDataset
 from .dota import DOTADataset
-
-NOT_PORTED = "not yet ported to aidet_tpu_torch"
+from .voc import (ConcatDataset, RepeatDataset, VOCDataset,
+                  WIDERFaceDataset, XMLDataset)
 
 DATASETS = Registry("dataset")
-DATASETS.register(CocoDataset)
-DATASETS.register(DOTADataset)
+for _cls in (CocoDataset, DOTADataset, VOCDataset, XMLDataset,
+             BuildChangeDataset, CityscapesDataset, WIDERFaceDataset):
+    DATASETS.register(_cls)
 
 
 def build_dataset(cfg, default_args=None):
-    """The dataset of a ``dict(type=..., ...)`` config."""
+    """The dataset of a ``dict(type=..., ...)`` config, a
+    ``RepeatDataset`` config or a list of configs."""
+    if isinstance(cfg, dict) and cfg.get("type") == "RepeatDataset":
+        return RepeatDataset(build_dataset(cfg["dataset"], default_args),
+                             cfg["times"])
     if isinstance(cfg, (list, tuple)):
-        raise KeyError(f"ConcatDataset (a list of dataset configs) is "
-                       f"{NOT_PORTED}")
-    kind = cfg.get("type")
-    if isinstance(kind, str) and DATASETS.get(kind) is None:
-        raise KeyError(f"dataset {kind} is {NOT_PORTED}")
+        return ConcatDataset([build_dataset(c, default_args) for c in cfg])
     return build_from_cfg(cfg, DATASETS, default_args)

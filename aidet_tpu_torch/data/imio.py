@@ -1,25 +1,35 @@
-"""PNG read and write with zlib and numpy, in OpenCV's layout.
+"""Image read (PNG and JPEG) and PNG write, in OpenCV's layout.
 
 The reference reads images with `cv2.imread(path)` (`aidet_tpu/data/
 loader.py:88`, `aidet_tpu/apis/test.py:83`) and writes them with
 `cv2.imwrite`; the card's machine has no OpenCV and no PIL, so the
-port decodes and encodes PNG itself:
+port decodes and encodes images itself:
 
 - `imread(path)` returns HWC uint8 **BGR**, as `cv2.imread(path,
-  cv2.IMREAD_COLOR)`, for non-interlaced 8-bit PNG of colour types 0
-  (grey, replicated to 3 channels), 2 (RGB), 3 (palette) and 6 (RGBA,
-  alpha dropped).  The row filters None, Sub and Up are vectorised
-  (Sub, what OpenCV writes on every row, is a per-channel cumulative
-  sum mod 256 along the row); Average and Paeth loop per byte.  Any
-  other file (JPEG, TIFF, 16-bit, interlaced, ...) raises `ValueError`
-  naming it; a missing file raises `FileNotFoundError`.  Nothing is
-  ever returned in place of an image.
+  cv2.IMREAD_COLOR)`, dispatching on the file's first bytes:
+  - PNG: non-interlaced 8-bit PNG of colour types 0 (grey, replicated
+    to 3 channels), 2 (RGB), 3 (palette) and 6 (RGBA, alpha dropped),
+    in zlib and numpy.  The row filters None, Sub and Up are vectorised
+    (Sub, what OpenCV writes on every row, is a per-channel cumulative
+    sum mod 256 along the row); Average and Paeth loop per byte.
+  - JPEG (``FF D8``): baseline and extended sequential Huffman JPEG of
+    1 or 3 components, luma 1x1, 2x1 or 2x2 over 1x1 chroma, restart
+    intervals, decoded by the host library's C++ decoder
+    (`csrc/jpeg_decode.cpp` through `hostlib`) in libjpeg-turbo's
+    arithmetic, then turned by its EXIF orientation as cv2.imread turns
+    it.
+  Any other file (progressive JPEG, TIFF, 16-bit, interlaced, truncated
+  or corrupt data, ...) raises `ValueError` naming it; a missing file
+  raises `FileNotFoundError`.  Nothing is ever returned in place of an
+  image.
 - `imwrite(path, img)` writes an HWC uint8 BGR (or HW grey) image as a
   PNG whose rows all carry filter Sub.
 
 tests/test_torch_port_data.py holds `imread` equal to `cv2.imread` on
-the repo's PNGs and on hand-built files of every filter and colour
-type.
+the repo's PNGs and JPEGs and on hand-built PNGs of every filter and
+colour type; tests/test_torch_port_jpeg.py holds the JPEG decoder equal
+to it across qualities, samplings, sizes, restart intervals, optimised
+tables and orientations.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SOI = b"\xff\xd8"
 # channels of each colour type read here (0 grey, 2 RGB, 3 palette
 # index, 6 RGBA)
 CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
@@ -77,11 +88,34 @@ def _unfilter_row(kind, row, prev, bpp, path):
 
 
 def imread(path) -> np.ndarray:
-    """Decode the PNG at ``path`` into an HWC uint8 BGR array."""
+    """Decode the PNG or JPEG at ``path`` into an HWC uint8 BGR array."""
     with open(path, "rb") as f:
         data = f.read()
+    if data.startswith(JPEG_SOI):
+        return _read_jpeg(data, path)
     if not data.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is read)")
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    return _read_png(data, path)
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """``img`` turned by its EXIF orientation (1-8), as OpenCV's
+    imread applies it (flips, transposes and their compositions)."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    for axis in flips.get(orientation, ()):
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+def _read_jpeg(data: bytes, path) -> np.ndarray:
+    from .hostlib import decode_jpeg
+    img, orientation = decode_jpeg(data, path)
+    return _orient(img, orientation) if orientation != 1 else img
+
+
+def _read_png(data: bytes, path) -> np.ndarray:
     header, palette, idat = None, None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":

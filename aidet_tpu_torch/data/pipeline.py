@@ -21,9 +21,11 @@ Port of `aidet_tpu/data/pipeline.py` (`IMAGENET_MEAN` / `IMAGENET_STD`
   are `data.centermap`'s and `rasterize_polygons`', whose polygon fill
   is `data.raster.fill_poly` (OpenCV's `fillPoly`).
 
-`TrainPipeline`'s albu and InstaBoost stages raise
-`NotImplementedError`: they wait for a later slice (ROADMAP queue 1
-item 11).
+`TrainPipeline`'s optional train stages come first, in the reference's
+order (:136-160): InstaBoost (`data/instaboost.py`, seeded ``seed +
+1``), then albu (`data/albu.py`, the vendored subset), which refuses a
+sample that carries ignored boxes or segmentations, as the reference's
+stage does.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ import torch.nn.functional as F
 
 from . import np_rboxes as NR
 from . import transforms as T
+from .albu import AlbuTransform
 from .centermap import heatmap_weight, pointobbs2centermap, \
     pseudo_segmentation
+from .instaboost import InstaBoost
 from .raster import fill_poly
 
 IMAGENET_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
@@ -100,8 +104,11 @@ class TrainPipeline:
       with_heatmap_weight: gt_seg_weights, the scene's centerness
         maximum (1 - it with reverse_heatmap_weight).
     With device_normalize the [0, 1] maps go out as uint8 (`_quantize`),
-    dequantized on the card.  The albu and InstaBoost stages raise
-    `NotImplementedError`."""
+    dequantized on the card.
+
+    ``instaboost`` (a dict of `InstaBoost`'s arguments) and ``albu`` (a
+    list of albu transform configs) add the train stages that run
+    before the resize, InstaBoost first."""
 
     def __init__(self, img_size: int = 1024, max_gt: int = 256,
                  flip_ratio: float = 0.5, rotate90_ratio: float = 0.0,
@@ -122,12 +129,6 @@ class TrainPipeline:
                  mean=IMAGENET_MEAN, std=IMAGENET_STD,
                  to_rgb: bool = True, device_normalize: bool = False,
                  seed: int = 0):
-        for name, value in dict(albu=albu, instaboost=instaboost).items():
-            if value:
-                raise NotImplementedError(
-                    f"TrainPipeline {name} is not yet ported to "
-                    "aidet_tpu_torch: it comes with data and tools "
-                    "(ROADMAP queue 1 item 11)")
         if with_mask_weight and with_reverse_mask_weight:
             raise ValueError("with_mask_weight and with_reverse_mask_weight "
                              "exclude each other")
@@ -158,11 +159,18 @@ class TrainPipeline:
         self.std = np.asarray(std, np.float32)
         self.to_rgb = to_rgb
         self.device_normalize = device_normalize
+        self.albu = AlbuTransform(albu) if albu else None
+        self.instaboost = (InstaBoost(seed=seed + 1, **instaboost)
+                           if instaboost else None)
         self.rng = np.random.RandomState(seed)
 
     def __call__(self, img, anns):
         """img: HWC uint8 BGR; anns: a dataset's `parse_anns` dict."""
         size = self.img_size
+        if self.instaboost is not None:
+            img, anns = self.instaboost(img, anns)
+        if self.albu is not None:
+            img, anns = self._albu(img, anns)
         if self.scale_range is not None:
             lo, hi = self.scale_range
             target = int(self.rng.uniform(lo, min(hi, size)))
@@ -237,6 +245,25 @@ class TrainPipeline:
             sample["gt_rboxes"] = out_r
         sample.update(self.mask_targets(pointobbs, anns["labels"], n, h, w))
         return sample
+
+    def _albu(self, img, anns):
+        """The albu stage: boxes, labels and pointobbs go through it;
+        ignored boxes and polygons would not, so a sample with any of
+        them raises (the reference's stage does too)."""
+        for stale in ("bboxes_ignore", "segmentations"):
+            v = anns.get(stale)
+            if v is not None and len(v):
+                raise ValueError(
+                    f"albu pipeline stage does not transform "
+                    f"'{stale}' — this sample carries "
+                    f"{len(v)} of them; drop the albu stage or "
+                    f"use a pipeline without {stale}")
+        img, bb, lab, pp = self.albu(img, anns["bboxes"], anns["labels"],
+                                     anns.get("pointobbs"))
+        anns = dict(anns, bboxes=bb, labels=lab)
+        if pp is not None:
+            anns["pointobbs"] = pp
+        return img, anns
 
     def mask_targets(self, pointobbs, labels, n, h, w):
         """The mask family's targets of the first ``n`` quads (see the

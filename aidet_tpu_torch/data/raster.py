@@ -30,9 +30,25 @@ has no OpenCV, so the port computes the same functions in numpy:
   of the map is exactly 0.
 - `contour_area`: `cv2.contourArea` (oriented=False), the shoelace
   formula.
+- `rotation_matrix_2d`: `cv2.getRotationMatrix2D`, its centre read as
+  float32 (OpenCV's Point2f).
+- `warp_affine`: `cv2.warpAffine` of uint8 images as OpenCV 5.0's
+  vectorised warp computes it: the inverse map cast to float32, each
+  source coordinate m0 * x + (m1 * y + m2) with one fused multiply-add
+  in float32, and then INTER_NEAREST the nearest pixel (ties to even),
+  or INTER_LINEAR (3 channels) the 2x2 neighbours blended along x and
+  then y by fused multiply-adds in float32 and rounded to even.  Past
+  the last multiple of 16 columns OpenCV's scalar tail computes the
+  linear coordinates as (x * m0 + y * m1) + m2 with one fused
+  multiply-add, and so does this (16 is the width of OpenCV's AVX-512
+  dispatch: on a CPU where OpenCV takes another, its own result moves
+  by a rounding there).  Neighbours outside the source read the
+  constant border value or reflect (BORDER_REFLECT_101).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -258,4 +274,125 @@ def warp_perspective(src: np.ndarray, m: np.ndarray, out_hw,
             v = src[np.clip(cy, 0, sh - 1), np.clip(cx, 0, sw - 1)]
             acc += np.where(inside, v, 0.0) * wx * wy
     out[y0:y1 + 1, x0:x1 + 1] = acc
+    return out
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """`cv2.getRotationMatrix2D(center, angle, scale)`: the 2x3 float64
+    affine rotating by ``angle`` degrees (counter-clockwise) and scaling
+    about ``center`` (x, y), read as float32."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    angle = angle * (math.pi / 180)
+    alpha = math.cos(angle) * scale
+    beta = math.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def invert_affine(m) -> np.ndarray:
+    """`cv2.invertAffineTransform` of a 2x3 affine, in float64."""
+    m = np.asarray(m, np.float64).reshape(6).copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, -m[1] * d, -m[3] * d, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    return m.reshape(2, 3)
+
+
+def _fma32(a, b, c):
+    """a * b + c rounded once to float32 (a fused multiply-add: the
+    product of two float32 is exact in float64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def reflect101(p, n):
+    """OpenCV's BORDER_REFLECT_101 index of the integer coordinates p
+    along a side of n pixels."""
+    if n == 1:
+        return np.zeros_like(p)
+    p = np.abs(p) % (2 * n - 2)
+    return np.where(p >= n, 2 * n - 2 - p, p)
+
+
+# columns of OpenCV's vectorised linear warp loop (AVX-512, 3 channels)
+WARP_VECTOR_COLUMNS = 16
+
+
+def warp_affine(src: np.ndarray, m, out_hw, nearest: bool = False,
+                reflect: bool = False, window=None) -> np.ndarray:
+    """`cv2.warpAffine(src, m, (w, h), flags=INTER_LINEAR or
+    INTER_NEAREST, borderMode=BORDER_CONSTANT (0) or
+    BORDER_REFLECT_101)` of a uint8 image, HxW or HxWx3 (linear: 3
+    channels); see the module docstring for its arithmetic.
+    ``window`` (x0, y0, x1, y1), inclusive, limits the pixels computed;
+    the others are 0."""
+    src = np.asarray(src)
+    if src.dtype != np.uint8 or not (src.ndim == 2 or nearest and
+                                     src.ndim == 3 or src.shape[2:] == (3,)):
+        raise ValueError(f"warp_affine takes uint8 HxW (nearest) or HxWx3, "
+                         f"not {src.dtype} {src.shape}")
+    h, w = out_hw
+    out = np.zeros((h, w) + src.shape[2:], np.uint8)
+    x0, y0, x1, y1 = (0, 0, w - 1, h - 1) if window is None else window
+    x0, y0 = max(int(x0), 0), max(int(y0), 0)
+    x1, y1 = min(int(x1), w - 1), min(int(y1), h - 1)
+    if x1 < x0 or y1 < y0:
+        return out
+    f32 = np.float32
+    inv = invert_affine(m).astype(f32).reshape(6)
+    xs = np.arange(x0, x1 + 1, dtype=f32)[None]
+    ys = np.arange(y0, y1 + 1, dtype=f32)[:, None]
+    tail = xs >= (w // WARP_VECTOR_COLUMNS) * WARP_VECTOR_COLUMNS
+    coords = []
+    for m0, m1, m2 in (inv[:3], inv[3:]):
+        c = _fma32(m0, xs, (m1 * ys + m2).astype(f32))
+        if not nearest:
+            c = np.where(tail, (_fma32(xs, m0, (ys * m1).astype(f32))
+                                + m2).astype(f32), c)
+        coords.append(c)
+    sx, sy = coords
+    sh, sw = src.shape[:2]
+    flat = src.reshape(sh * sw, -1)
+    if nearest:
+        ix, iy = np.rint(sx).astype(np.int64), np.rint(sy).astype(np.int64)
+    else:
+        ix, iy = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+
+    def index(p, n):
+        """(source index, inside) of the coordinates p along a side of
+        n pixels: reflected, or clipped with the inside mask for the
+        constant border."""
+        inside = (p >= 0) & (p < n)
+        if reflect:
+            out = p.copy()
+            out[~inside] = reflect101(p[~inside], n)
+            return out, None
+        return np.clip(p, 0, n - 1), inside
+
+    def tap(row, col):
+        """The source's pixels (float64: exact) at the (row, col)
+        indices, 0 where the constant border reads."""
+        (r, rin), (c, cin) = row, col
+        v = flat[r * sw + c].astype(np.float64)
+        return v if reflect else np.where((rin & cin)[..., None], v, 0.0)
+
+    if nearest:
+        res = tap(index(iy, sh), index(ix, sw))
+    else:
+        a = (sx - ix.astype(f32)).astype(np.float64)[..., None]
+        b = (sy - iy.astype(f32)).astype(np.float64)[..., None]
+        rows = index(iy, sh), index(iy + 1, sh)
+        cols = index(ix, sw), index(ix + 1, sw)
+
+        def lerp(p, q, t):
+            """p + t (q - p), the difference rounded to float32, then one
+            fused multiply-add (exact in float64, rounded once)."""
+            d = (q - p).astype(f32).astype(np.float64)
+            return (t * d + p).astype(f32).astype(np.float64)
+        res = lerp(lerp(tap(rows[0], cols[0]), tap(rows[0], cols[1]), a),
+                   lerp(tap(rows[1], cols[0]), tap(rows[1], cols[1]), a), b)
+        res = np.clip(np.rint(res), 0, 255)
+    out[y0:y1 + 1, x0:x1 + 1] = res.astype(np.uint8).reshape(
+        res.shape[:2] + src.shape[2:])
     return out

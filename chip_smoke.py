@@ -189,6 +189,24 @@ then the test run sharded over them and gathered, every detection
 paired with one process's; then `tools/torch_dist_train.sh` at one
 process (torchrun, NCCL) trains the loop config for 2 steps.  The rank
 processes are this script with ``--ddp-rank``.
+Then the data layer's train paths (`run_slice18`): jpeg, every JPEG
+fixture of tests/fixtures/jpeg through the host library's decoder
+(built with g++ in the build phase, beside the kernels) held to cv2's
+recorded decode, and ms per 512^2 decode on one thread and in the
+loader's pool; voc, `configs/faster_rcnn_r50_fpn_1x_voc0712.py` as
+written on its list of two VOCDatasets (a ConcatDataset) over the
+fixture JPEGs with seeded XML, 4 steps at batch 2 and the test run over
+the val list; buildchange, `configs/bc_v002_mask_rcnn_r50_v2_jinan_roof.py`
+on seeded roof quads over the fixtures, 3 steps and the test run;
+instaboost, `configs/mask_rcnn_r50_fpn_instaboost_4x.py` on the fixture
+DOTA patches' polygons, 3 steps (the samples InstaBoost changed) and
+the test run; r18_e2e_jpeg, `configs/dota_theta_obb_r18_e2e.py` on the
+fixture patches and their real annotations, 3 steps and the test run,
+then 3 steps with the albu config's list in its pipeline (the samples
+albu changed).  Each prints ms and the loader's wait per step, the
+test run's seconds, K2's launches (once forward and once backward a
+step, twice with a mask head) and K1's (once a test batch, twice with
+a mask head); then the script's wall time.
 
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
 first path, and ``launches_by_path`` on every path), nvidia-smi's name
@@ -288,16 +306,27 @@ def handle(name):
 def run_build():
     """One nvcc per kernel source, all started together; every handle
     is loaded from its source's build."""
-    from aidet_tpu_torch.cuda_build import REPO_ROOT, build_all, ptxas_report
+    from concurrent.futures import ThreadPoolExecutor
+
+    from aidet_tpu_torch.cuda_build import (CSRC, HOST_SOURCES, REPO_ROOT,
+                                            build_all, build_host_library,
+                                            ptxas_report)
     t0 = time.perf_counter()
     handles = [handle(name) for name in HANDLES]
-    by_source = build_all({h.source for h in handles})
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host_library)
+        by_source = build_all({h.source for h in handles})
+        host = host.result()
     for h in handles:
         h.load(by_source[h.source])
     phase("build", wall_s=time.perf_counter() - t0, libraries=[dict(
         source=str(src.relative_to(REPO_ROOT)),
         library=str(b.path.relative_to(REPO_ROOT)), nvcc_s=b.seconds,
-        ptxas=ptxas_report(b.log)) for src, b in by_source.items()])
+        ptxas=ptxas_report(b.log)) for src, b in by_source.items()],
+        host_library=dict(sources=[str((CSRC / s).relative_to(REPO_ROOT))
+                                   for s in HOST_SOURCES],
+                          library=str(host.path.relative_to(REPO_ROOT)),
+                          gxx_s=host.seconds))
 
 
 def main_path_rois(gen, batch, n, img):
@@ -5290,6 +5319,465 @@ def run_ddp(device="cuda", small=False, seed=0):
         test_path=dict(launches=rank0["test_launches"]))
 
 
+# ---------------------------------------------------------------------
+# slice 18: the data layer's train paths: the JPEG decoder, VOC with
+# ConcatDataset, BuildChange, InstaBoost and albu
+# ---------------------------------------------------------------------
+
+JPEG_FIXTURES = "tests/fixtures/jpeg"
+VOC_CONFIG = "configs/faster_rcnn_r50_fpn_1x_voc0712.py"
+BUILDCHANGE_CONFIG = "configs/bc_v002_mask_rcnn_r50_v2_jinan_roof.py"
+INSTABOOST_CONFIG = "configs/mask_rcnn_r50_fpn_instaboost_4x.py"
+R18_E2E_CONFIG = "configs/dota_theta_obb_r18_e2e.py"
+ALBU_CONFIG = "configs/mask_rcnn_r50_fpn_albu_1x.py"
+JPEG_REPEATS = 20        # timed decodes of each 512^2 fixture
+LOADER_WORKERS = 4       # GroupedLoader's decode threads (its default)
+DATA_SMALL_IMG = 256     # the CPU rehearsals' image size
+SMALL_DATA_MASK_HEAD = dict(type="FCNMaskHead", num_convs=2, in_channels=64,
+                            conv_out_channels=64)
+
+
+def jpeg_fixtures():
+    """(relative name, the fixture's record in decodes.json) of every
+    JPEG fixture, and the paths of the 512^2 DOTA patches among them."""
+    import os
+    with open(os.path.join(JPEG_FIXTURES, "decodes.json")) as f:
+        decodes = json.load(f)
+    dota = [os.path.join(JPEG_FIXTURES, n) for n in sorted(decodes)
+            if n.startswith("dota/")]
+    return decodes, dota
+
+
+def run_jpeg(repeats=JPEG_REPEATS):
+    """Every JPEG fixture through `imio.imread` (the host library's C++
+    decoder), held to cv2's decode recorded in the fixtures'
+    decodes.json (shape and sha256 of the array), the progressive one
+    refused; then ms per 512^2 4:2:0 decode of the DOTA fixtures on one
+    thread and in a pool of the loader's `LOADER_WORKERS` threads
+    (wall ms over the images decoded: what a loader epoch pays).
+    Returns the phase's fields."""
+    import hashlib
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from aidet_tpu_torch.data.imio import imread
+    decodes, dota = jpeg_fixtures()
+    refused = []
+    for name, want in decodes.items():
+        path = os.path.join(JPEG_FIXTURES, name)
+        if "refused" in want:
+            try:
+                imread(path)
+            except ValueError as e:
+                if want["refused"] not in str(e) or name not in str(e):
+                    raise AssertionError(f"jpeg: {name} refused as {e}")
+                refused.append(name)
+                continue
+            raise AssertionError(f"jpeg: {name} was decoded, not refused")
+        img = np.ascontiguousarray(imread(path))
+        sha = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != want["shape"] or sha != want["sha256"]:
+            raise AssertionError(f"jpeg: {name} decodes to {img.shape} "
+                                 f"{sha}, not cv2's {want}")
+    paths = dota * repeats
+    t0 = time.perf_counter()
+    for p in paths:
+        imread(p)
+    one = (time.perf_counter() - t0) * 1e3 / len(paths)
+    with ThreadPoolExecutor(LOADER_WORKERS) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(imread, paths))
+        pooled = (time.perf_counter() - t0) * 1e3 / len(paths)
+    return dict(files=len(decodes), equal_to_cv2=len(decodes) - len(refused),
+                refused=refused, decodes_timed=len(paths),
+                ms_per_512_image_one_thread=one,
+                ms_per_512_image_pool=pooled, pool_threads=LOADER_WORKERS,
+                host_cpus=os.cpu_count())
+
+
+def write_voc_xml(path, w, h, objects):
+    """A VOC annotation of an image w x h: (name, difficult, box)."""
+    rows = [f"<annotation><size><width>{w}</width><height>{h}</height>"
+            "<depth>3</depth></size>"]
+    for name, difficult, box in objects:
+        x1, y1, x2, y2 = (int(v) for v in box)
+        rows.append(f"<object><name>{name}</name><difficult>{difficult}"
+                    f"</difficult><bndbox><xmin>{x1}</xmin><ymin>{y1}"
+                    f"</ymin><xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox>"
+                    "</object>")
+    with open(path, "w") as f:
+        f.write("".join(rows) + "</annotation>")
+
+
+def write_voc_data(root, data, seed):
+    """The VOC config's data (a list of two VOCDatasets, VOC2007 and
+    VOC2012, and VOC2007's val list) on the JPEG fixtures copied under
+    ``root``: VOC2007 trains on 4 DOTA patches (512^2), VOC2012 on the
+    small fixtures of both aspects (4 images: 333x517, 517x333, 61x93,
+    120x90), VOC2007's val list is its 6 DOTA patches; seeded XML of 1 to
+    6 objects of the 20 classes an image, about 1 in 8 difficult.
+    Returns the config's data dict."""
+    import os
+    import shutil
+
+    import numpy as np
+    from aidet_tpu_torch.core.eval.class_names import VOC_CLASSES
+    from aidet_tpu_torch.data.imio import imread
+    decodes, dota = jpeg_fixtures()
+    small = [os.path.join(JPEG_FIXTURES, n) for n in sorted(decodes)
+             if n.startswith("small/") and "refused" not in decodes[n]
+             and min(decodes[n]["shape"][:2]) >= 60]
+    rs = np.random.RandomState(seed)
+    sets = {}
+    for year, files in (("VOC2007", dota), ("VOC2012", small)):
+        prefix = os.path.join(root, year)
+        os.makedirs(os.path.join(prefix, "JPEGImages"))
+        os.makedirs(os.path.join(prefix, "Annotations"))
+        ids = []
+        for p in files:
+            i = os.path.basename(p)[:-4]
+            shutil.copy(p, os.path.join(prefix, "JPEGImages", f"{i}.jpg"))
+            h, w = imread(p).shape[:2]
+            objects = []
+            for _ in range(rs.randint(1, 7)):
+                bw, bh = rs.uniform(0.15, 0.6, 2) * (w, h)
+                x1, y1 = rs.uniform(0, w - bw), rs.uniform(0, h - bh)
+                objects.append((VOC_CLASSES[rs.randint(20)],
+                                int(rs.rand() < 0.125),
+                                (x1, y1, x1 + bw, y1 + bh)))
+            write_voc_xml(os.path.join(prefix, "Annotations", f"{i}.xml"),
+                          w, h, objects)
+            ids.append(i)
+        sets[year] = (prefix, ids)
+        with open(os.path.join(prefix, "train.txt"), "w") as f:
+            f.write("\n".join(ids[:4]) + "\n")
+    prefix, ids = sets["VOC2007"]
+    with open(os.path.join(prefix, "val.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    train = [dict(d, ann_file=os.path.join(sets[os.path.basename(
+        d["img_prefix"])][0], "train.txt"), img_prefix=sets[os.path.basename(
+            d["img_prefix"])][0]) for d in data["train"]]
+    return dict(train=train, test=dict(
+        data["test"], ann_file=os.path.join(prefix, "val.txt"),
+        img_prefix=prefix))
+
+
+def write_roof_data(root, data, seed):
+    """BuildChange-format data on the six DOTA fixtures: a COCO JSON of
+    seeded roof quads (category 1, "building": the polygon, its box,
+    area and pointobb) per image, for train and test.  Returns the
+    config's data dict."""
+    import os
+
+    import numpy as np
+    from aidet_tpu_torch.data.np_rboxes import thetaobb2pointobb
+    _, dota = jpeg_fixtures()
+    rs = np.random.RandomState(seed)
+    images, anns = [], []
+    for k, p in enumerate(dota):
+        images.append(dict(id=k + 1, file_name=os.path.basename(p),
+                           width=512, height=512))
+        n = rs.randint(6, 16)
+        tob = np.concatenate([rs.uniform(60, 452, (n, 2)),
+                              rs.uniform(16, 90, (n, 2)),
+                              rs.uniform(-np.pi / 2, 0, (n, 1))], -1)
+        for q in thetaobb2pointobb(tob.astype(np.float32)).astype(float):
+            x, y = q[0::2].clip(0, 511), q[1::2].clip(0, 511)
+            q = np.stack([x, y], 1).reshape(-1)
+            area = 0.5 * abs(np.dot(x, np.roll(y, -1))
+                             - np.dot(y, np.roll(x, -1)))
+            anns.append(dict(id=len(anns) + 1, image_id=k + 1,
+                             category_id=1, iscrowd=0, area=float(area),
+                             bbox=[x.min(), y.min(), x.max() - x.min(),
+                                   y.max() - y.min()],
+                             segmentation=[q.tolist()],
+                             pointobb=q.tolist()))
+    path = os.path.join(root, "roofs.json")
+    with open(path, "w") as f:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name="building")]), f)
+    prefix = os.path.dirname(dota[0])
+    return dict(train=dict(data["train"], ann_file=path, img_prefix=prefix),
+                test=dict(data["test"], ann_file=path, img_prefix=prefix))
+
+
+def dota_fixture_data(root, data, seed):
+    """The six DOTA fixture patches with their real annotations
+    (the fixtures' dota.json, COCO format with DOTA's quads), for train
+    and test."""
+    import os
+    prefix = os.path.join(JPEG_FIXTURES, "dota")
+    ann = os.path.join(JPEG_FIXTURES, "dota.json")
+    return dict(train=dict(data["train"], ann_file=ann, img_prefix=prefix),
+                test=dict(data["test"], ann_file=ann, img_prefix=prefix))
+
+
+# each data phase: its config as written, its data, the classes of its
+# small architecture, and K2's launches a train step and K1's a test
+# batch (the box crops, and with masks the mask crops too)
+DATA_PHASES = dict(
+    voc=dict(config=VOC_CONFIG, data=write_voc_data, classes=21, masks=False),
+    buildchange=dict(config=BUILDCHANGE_CONFIG, data=write_roof_data,
+                     classes=2, masks=True),
+    instaboost=dict(config=INSTABOOST_CONFIG, data=dota_fixture_data,
+                    classes=81, masks=True),
+    r18_e2e_jpeg=dict(config=R18_E2E_CONFIG, data=dota_fixture_data,
+                      classes=16, masks=False))
+
+
+def data_config(kind, root, small, seed=0):
+    """`DATA_PHASES[kind]`'s config (as written, or its small
+    architecture at `DATA_SMALL_IMG`) with its data written under
+    ``root``, one epoch at batch 2, a log record every step and a
+    checkpoint at the epoch's end."""
+    from aidet_tpu_torch.utils.config import Config
+    spec = DATA_PHASES[kind]
+    cfg = Config.fromfile(spec["config"]).to_dict()
+    if small and kind == "r18_e2e_jpeg":
+        cfg.update(model=dict(SMALL_MODEL, img_size=DATA_SMALL_IMG),
+                   train_cfg=SMALL_TRAIN_CFG, test_cfg=SMALL_TEST_CFG)
+    elif small:
+        model, train, test = hbb_cfg("faster", True, DATA_SMALL_IMG)
+        model["bbox_head"] = dict(model["bbox_head"],
+                                  num_classes=spec["classes"])
+        if spec["masks"]:
+            model.update(type="MaskRCNN", mask_head=dict(
+                SMALL_DATA_MASK_HEAD, num_classes=spec["classes"]))
+        cfg.update(model=model, train_cfg=train, test_cfg=test)
+    if small:
+        cfg["train_pipeline"] = dict(cfg.get("train_pipeline") or {},
+                                     img_size=DATA_SMALL_IMG)
+    cfg["data"] = spec["data"](root, cfg["data"], seed)
+    cfg.update(total_epochs=1, batch_size=2, log_interval=1,
+               checkpoint_interval=1)
+    return Config(cfg, spec["config"])
+
+
+class CountChanges:
+    """A train stage (InstaBoost's or albu's) that counts the samples it
+    was given and those whose image it changed; thread-safe, as the
+    loader's decode threads share the pipeline."""
+
+    def __init__(self, stage):
+        import threading
+        self.stage, self.samples, self.changed = stage, 0, 0
+        self.lock = threading.Lock()
+
+    def __call__(self, img, *args):
+        import numpy as np
+        out = self.stage(img, *args)
+        changed = not np.array_equal(out[0], img)
+        with self.lock:
+            self.samples += 1
+            self.changed += changed
+        return out
+
+
+class WithoutPolygons:
+    """A dataset whose samples leave out their polygons (segmentations,
+    kept or ignored): the albu stage refuses a sample that carries them,
+    as the reference's does, and a theta-OBB model reads the quads from
+    the pointobbs."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def parse_anns(self, idx):
+        return {k: v for k, v in self.dataset.parse_anns(idx).items()
+                if k not in ("segmentations", "segmentations_ignore")}
+
+
+def data_train(cfg, work_dir, device, seed=0, albu=None):
+    """`train_detector` of ``cfg`` as tools/torch_train.py builds it (the
+    model on ``device``, `TrainPipeline` of its train_pipeline with the
+    raw uint8 images, `LOADER_WORKERS` decode threads) for one epoch, its
+    InstaBoost and albu stages counted (`CountChanges`); ``albu`` adds
+    that albu list to the pipeline and trains on the samples without
+    their polygons (`WithoutPolygons`).  Launch counts set to 0 just
+    before and read just after.  Returns the run's fields."""
+    import torch
+    from aidet_tpu_torch.apis.train import train_detector
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.pipeline import TrainPipeline
+    from aidet_tpu_torch.models.builder import build_detector
+    on_card = torch.device(device).type == "cuda"
+    model = build_detector(cfg.model, train_cfg=cfg.get("train_cfg"),
+                           test_cfg=cfg.get("test_cfg"), device=device,
+                           seed=seed, train=True)
+    pipe_cfg = dict(cfg.get("train_pipeline") or {})
+    pipe_cfg.setdefault("device_normalize", True)
+    pipe_cfg.setdefault("img_size", model.img_size)
+    if albu:
+        pipe_cfg["albu"] = albu
+    pipeline = TrainPipeline(**pipe_cfg)
+    stages = {}
+    for name in ("instaboost", "albu"):
+        if getattr(pipeline, name) is not None:
+            stages[name] = CountChanges(getattr(pipeline, name))
+            setattr(pipeline, name, stages[name])
+    dataset = build_dataset(cfg.data.train)
+    if albu:
+        dataset = WithoutPolygons(dataset)
+    run = dict(seed=seed, optimizer=cfg.get("optimizer", {}),
+               lr_config=cfg.get("lr_config", {}),
+               total_epochs=cfg.total_epochs, batch_size=cfg.batch_size,
+               log_interval=cfg.log_interval, num_workers=LOADER_WORKERS,
+               checkpoint_interval=cfg.checkpoint_interval,
+               pipeline=pipeline)
+    with LoopRecords() as records:
+        if on_card:
+            torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        train_detector(model, dataset, run, work_dir=work_dir, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    steps = [r for r in records if "time" in r]
+    losses = [r["metrics"] for r in steps]
+    if not steps or not all(math.isfinite(v) for d in losses
+                            for v in d.values()):
+        raise AssertionError(f"data phase: losses {losses}")
+    return dict(steps=len(steps), wall_s=wall,
+                ms_per_step=[1e3 * r["time"] for r in steps],
+                loader_wait_ms_per_step=[1e3 * r["data_time"]
+                                         for r in steps],
+                metrics_first=losses[0], metrics_last=losses[-1],
+                launches=launches, img_size=pipeline.img_size,
+                stages={k: dict(samples=s.samples, changed=s.changed)
+                        for k, s in stages.items()})
+
+
+def data_test(cfg, ckpt_dir, device, batch=2):
+    """`init_detector(cfg, ckpt_dir)` and `run_inference` over the
+    config's test set at ``batch``, launch counts set to 0 just before
+    and read just after."""
+    import numpy as np
+    import torch
+    from aidet_tpu_torch.apis.inference import init_detector
+    from aidet_tpu_torch.apis.test import run_inference
+    from aidet_tpu_torch.data.builder import build_dataset
+    on_card = torch.device(device).type == "cuda"
+    model, _ = init_detector(cfg, ckpt_dir, device=device)
+    dataset = build_dataset(cfg.data.test)
+    if on_card:
+        torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    results, _ = run_inference(model, dataset, batch_size=batch,
+                               pipeline_cfg=cfg.get("test_pipeline"))
+    if on_card:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    if len(results) != len(dataset):
+        raise AssertionError(f"data phase: {len(results)} results for "
+                             f"{len(dataset)} images")
+    return dict(images=len(results), batches=-(-len(dataset) // batch),
+                s=seconds, launches=launches,
+                n_valid=int(sum(np.asarray(r["valid"]).sum()
+                                for r in results)))
+
+
+def check_data_launches(kind, train, test, on_card):
+    """K2 forward and backward `per` times a step (2 with a mask head,
+    else 1) and K1 `per` times a test batch on the card, none on the
+    CPU; each kernel's count of the run beside it."""
+    per = 2 if DATA_PHASES[kind]["masks"] else 1
+    runs = [(train, dict(roi_align_train_forward=per * train["steps"],
+                         roi_align_backward=per * train["steps"]))]
+    if test is not None:
+        runs.append((test, dict(roi_align=per * test["batches"])))
+    for run, want in runs:
+        want = dict(dict.fromkeys(HANDLES, 0), **(want if on_card else {}))
+        if run["launches"] != want:
+            raise AssertionError(f"{kind}: launches {run['launches']}, "
+                                 f"expected {want}")
+    return per
+
+
+def run_data_phase(kind, device="cuda", small=False, seed=0):
+    """One data phase (`DATA_PHASES`): its config as written (or small)
+    on its data under a temporary directory, one epoch at batch 2
+    (`data_train`), then the test run from the checkpoint (`data_test`);
+    K2 and K1 held to their counts (`check_data_launches`).  InstaBoost's
+    must change at least one sample.  The r18_e2e_jpeg phase trains a
+    second epoch with the albu config's list added to its pipeline on
+    the samples without their polygons, after checking that the stage
+    refuses the samples with them (as the reference's does), and albu
+    must change at least one sample.  Returns the phase's fields, with
+    each run's launches."""
+    import os
+    import tempfile
+
+    import torch
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        cfg = data_config(kind, root, small, seed)
+        train = data_train(cfg, os.path.join(root, "w"), device, seed)
+        test = data_test(cfg, os.path.join(root, "w", "ckpt"), device)
+        per = check_data_launches(kind, train, test, on_card)
+        fields = dict(config=DATA_PHASES[kind]["config"], train=train,
+                      test=test, k2_per_step=per, k1_per_batch=per)
+        if kind == "instaboost" and train["stages"]["instaboost"][
+                "changed"] < 1:
+            raise AssertionError(f"instaboost changed no sample: {train}")
+        if kind == "r18_e2e_jpeg":
+            fields["albu"] = data_albu(cfg, root, device, seed)
+            check_data_launches(kind, fields["albu"], None, on_card)
+    return fields
+
+
+def data_albu(cfg, root, device, seed):
+    """The albu run of the r18_e2e_jpeg phase (see `run_data_phase`)."""
+    import os
+
+    from aidet_tpu_torch.data.builder import build_dataset
+    from aidet_tpu_torch.data.imio import imread
+    from aidet_tpu_torch.data.pipeline import TrainPipeline
+    from aidet_tpu_torch.utils.config import Config
+    albu = Config.fromfile(ALBU_CONFIG).train_pipeline.albu
+    dataset = build_dataset(cfg.data.train)
+    pipe = TrainPipeline(**dict(cfg.train_pipeline, albu=albu))
+    try:
+        pipe(imread(dataset.img_path(0)), dataset.parse_anns(0))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("albu took a sample with its polygons")
+    out = data_train(cfg, os.path.join(root, "albu"), device, seed,
+                     albu=albu)
+    if out["stages"]["albu"]["changed"] < 1:
+        raise AssertionError(f"albu changed no sample: {out}")
+    return dict(out, refused_with_polygons=refused)
+
+
+def run_slice18(card):
+    """The jpeg phase, then the data phases (`run_data_phase`: voc,
+    buildchange, instaboost, r18_e2e_jpeg); returns their runs' fields
+    by path name."""
+    phase("jpeg", card=card, **run_jpeg())
+    runs = {}
+    for kind, title in (("voc", "FasterRCNN R50-FPN, 21 classes"),
+                        ("buildchange", "Mask R-CNN R50-FPN, 2 classes"),
+                        ("instaboost", "Mask R-CNN R50-FPN, 81 classes"),
+                        ("r18_e2e_jpeg", "RBBoxRCNN R18-GN FPN-GN 128")):
+        out = run_data_phase(kind)
+        runs[f"{kind}_train"], runs[f"{kind}_test"] = out["train"], out["test"]
+        if "albu" in out:
+            runs[f"{kind}_albu_train"] = out["albu"]
+        phase(kind, model=title, card=card, **out)
+    return runs
+
+
 KERNELS = (
     ("roi_align", "aidet_tpu_torch/csrc/roi_align.cu",
      "aidet_tpu/ops/roi_align_band.py:115", "predict"),
@@ -5427,6 +5915,8 @@ def main() -> int:
     runs["ddp_test"] = ddp.pop("test_path")
     phase("ddp", model="flagship R50-FPN; loop config R50-FPN",
           card=info["nvidia_smi"], **ddp)
+    runs.update(run_slice18(info["nvidia_smi"]))
+    phase("wall", script_s=time.perf_counter() - T0)
     emit({"kernels": [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=runs[path]["launches"][name],

@@ -152,10 +152,14 @@ def test_imread_refuses_what_it_does_not_read(tmp_path):
             f.write(bytes(bad))
         with pytest.raises(ValueError, match="x.png"):
             imread(path)
+    # a JPEG is read now (the host library's decoder): cv2's array
     jpeg = str(tmp_path / "x.jpg")
-    cv2.imwrite(jpeg, img)
-    with pytest.raises(ValueError, match="x.jpg"):
-        imread(jpeg)
+    cv2.imwrite(jpeg, np.random.RandomState(0).randint(0, 256, (9, 13, 3))
+                .astype(np.uint8))
+    np.testing.assert_array_equal(imread(jpeg), cv2.imread(jpeg))
+    e2e = os.path.join(REPO, "data", "dota_e2e_xl", "train_patches",
+                       "P0000__1.0__0___0.jpg")
+    np.testing.assert_array_equal(imread(e2e), cv2.imread(e2e))
     with pytest.raises(FileNotFoundError):
         imread(str(tmp_path / "missing.png"))
 
@@ -346,8 +350,26 @@ def test_dota_format_merge_and_evaluate_equal_reference(tmp_path):
                                  [SPLITS["train"], SPLITS["val"]]],
                          ids=["repeat", "voc", "concat"])
 def test_build_dataset_names_what_is_not_ported(cfg):
-    with pytest.raises(KeyError, match="not yet ported to aidet_tpu_torch"):
-        build_dataset(cfg)
+    """The wrappers and the VOC dataset are ported: a RepeatDataset
+    config and a list build as the reference builds them, and a VOC
+    config whose id list is missing raises the reference's
+    FileNotFoundError.  A type no package registers still raises the
+    KeyError that names it not ported."""
+    with pytest.raises(KeyError, match="LVISDataset .*not yet ported"):
+        build_dataset(dict(type="LVISDataset", ann_file="x"))
+    if isinstance(cfg, dict) and cfg["type"] == "VOCDataset":
+        for build in (build_dataset, ref_build_dataset):
+            with pytest.raises(FileNotFoundError):
+                build(cfg)
+        return
+    got, want = build_dataset(cfg), ref_build_dataset(cfg)
+    assert type(got).__name__ == type(want).__name__
+    assert len(got) == len(want) > 0
+    np.testing.assert_array_equal(got.flag, want.flag)
+    assert got.img_infos == want.img_infos
+    for i in (0, len(got) - 1):
+        assert got.img_path(i) == want.img_path(i)
+        _assert_anns_equal(got.parse_anns(i), want.parse_anns(i))
 
 
 # ---------------------------------------------------------------------
@@ -417,13 +439,30 @@ def test_train_pipeline_without_pointobbs_has_the_zero_slot(train_samples):
     "with_mask", "with_mask_weight", "with_reverse_mask_weight",
     "with_semantic", "with_heatmap_weight", "albu", "instaboost"])
 def test_train_pipeline_later_options_raise(option, train_samples):
-    """albu and InstaBoost wait for a later slice and raise.  The mask
-    family's options came with the CenterMap slice: each now makes its
-    target, as the reference's pipeline does (held value by value in
+    """Every option is ported now.  albu: a DOTA sample carries its
+    polygons, which the stage cannot move, so both packages raise the
+    same ValueError; without them both give the same sample.
+    InstaBoost: the same sample as the reference's (held stage by stage
+    in tests/test_torch_port_augment.py).  The mask family's options
+    came with the CenterMap slice: each makes its target, as the
+    reference's pipeline does (held value by value in
     tests/test_torch_port_mask_targets.py)."""
     if option in ("albu", "instaboost"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TrainPipeline(**{option: dict(transforms=[])})
+        img, _, anns = train_samples[1]
+        kw = dict(max_gt=64, seed=3, **{option: (
+            [dict(type="ChannelShuffle", p=1.0)] if option == "albu"
+            else dict(aug_ratio=1.0, dx=4, dy=4))})
+        got, want = TrainPipeline(**kw), RefTrainPipeline(**kw)
+        if option == "albu":
+            for pipe in (got, want):
+                with pytest.raises(ValueError, match="'bboxes_ignore'"):
+                    pipe(img, anns)
+            anns = {k: v for k, v in anns.items()
+                    if k not in ("segmentations", "bboxes_ignore")}
+        a, b = got(img, anns), want(img, anns)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         return
     key = dict(with_mask="gt_masks", with_mask_weight="gt_mask_weights",
                with_reverse_mask_weight="gt_mask_weights",

@@ -10,14 +10,17 @@ two processes over gloo with ``--device cpu``) the train script splits
 the global batch over the processes and writes one checkpoint, and the
 test script's gathered results pair with the one-process run's; on a
 COCO box-only config the test script prints the same bbox mAP in one
-and in two processes.  This file imports nothing of JAX, so it runs on
-the card's machine.
+and in two processes; on a VOC config over JPEGs (tests/fixtures/jpeg)
+it writes ``--out`` and scores nothing, as the reference's
+tools/test.py does for an XML dataset.  This file imports nothing of
+JAX, so it runs on the card's machine.
 """
 
 import importlib.util
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 
@@ -180,6 +183,47 @@ def test_coco_test_run_in_one_and_two_processes(tmp_path):
                                        _stack(out[1]["results"]),
                                        dict(boxes=1e-3, scores=1e-5))
     assert errs["unpaired"] == 0
+
+
+def test_voc_test_run_writes_out_and_scores_nothing(tmp_path):
+    """`tools/torch_test.py` on a VOC config (a tiny FasterRCNN of 21
+    classes with seeded weights) over three fixture JPEGs and their
+    test-written XML: ``--out`` holds a result per image, and no score
+    is printed (an XML dataset has no `evaluate`)."""
+    import torch_port_dist_worker as worker
+    root = tmp_path / "VOC2007"
+    (root / "JPEGImages").mkdir(parents=True)
+    (root / "Annotations").mkdir()
+    fixtures = os.path.join(REPO, "tests", "fixtures", "jpeg", "dota")
+    ids = [n[:-4] for n in sorted(os.listdir(fixtures))[:3]]
+    for i in ids:
+        shutil.copy(os.path.join(fixtures, f"{i}.jpg"),
+                    root / "JPEGImages" / f"{i}.jpg")
+        (root / "Annotations" / f"{i}.xml").write_text(
+            "<annotation><size><width>512</width><height>512</height>"
+            "</size><object><name>boat</name><difficult>0</difficult>"
+            "<bndbox><xmin>40</xmin><ymin>50</ymin><xmax>200</xmax>"
+            "<ymax>180</ymax></bndbox></object></annotation>")
+    (root / "val.txt").write_text("\n".join(ids) + "\n")
+    model = dict(worker.FAMILIES["FasterRCNN"])
+    model["bbox_head"] = dict(model["bbox_head"], num_classes=21)
+    body = dict(model=model, test_cfg=dict(
+        rpn=dict(nms_pre=128, nms_post=64, max_num=64),
+        rcnn=dict(max_per_img=32)), data=dict(test=dict(
+            type="VOCDataset", ann_file=str(root / "val.txt"),
+            img_prefix=str(root), test_mode=True)))
+    config = str(tmp_path / "voc_config.py")
+    with open(config, "w") as f:
+        for k, v in body.items():
+            f.write(f"{k} = {json.loads(json.dumps(v))!r}\n")
+    pkl = str(tmp_path / "voc.pkl")
+    log = _run("tools/torch_test.py", config, "--out", pkl, "--batch-size",
+               "2", "--device", "cpu")
+    assert "ran inference on 3 images" in log and "mAP" not in log, log
+    with open(pkl, "rb") as f:
+        saved = pickle.load(f)
+    assert saved["names"] == [f"JPEGImages/{i}.jpg" for i in ids]
+    assert len(saved["results"]) == 3
 
 
 @pytest.mark.parametrize("name", ["torch_train", "torch_test"])

@@ -21,7 +21,10 @@ rectangles of the predicted masks, `core.masks.mask_quads`; hbb: the
 boxes) and
 writes DOTA submission txt under ``--submit-dir/<task>``; on a COCO
 dataset the ``bbox`` task (the default there) prints
-`CocoDataset.evaluate`'s box mAP, AP50 and AP75.  With
+`CocoDataset.evaluate`'s box mAP, AP50 and AP75.  A dataset with
+neither (VOC's and the other XML datasets, which the reference's
+tools/test.py:128-170 does not score either) is only written to
+``--out``.  With
 ``--tta`` each test image goes instead through `apis.tta.aug_test_image`
 at the config's ``tta = dict(scales=..., flip=...)`` (default: the
 model's img_size, flip on): its merged boxes, and its merged quads,
@@ -118,7 +121,7 @@ def main():
     coco = not hasattr(dataset, "merge_patches_to_scenes")
     tasks = args.eval if args.eval is not None else (
         ["bbox"] if coco else ["hbb", "obb"])
-    if "bbox" in tasks and coco and results:
+    if "bbox" in tasks and coco and results and hasattr(dataset, "evaluate"):
         m = dataset.evaluate(results)
         logger.info("bbox: mAP %.4f AP50 %.4f AP75 %.4f", m["mAP"],
                     m["AP50"], m["AP75"])
